@@ -1,0 +1,137 @@
+"""Maximum Entropy Judgment (paper Algorithm 1).
+
+Two interchangeable implementations:
+
+* ``judge_np`` — literal float64 numpy transcription of Algorithm 1 (the
+  host oracle; greedy per-iteration re-scan like the paper).
+* ``judge``    — the float32 greedy loop on tensors. Each iteration takes
+  the vectorized leave-one-out sweep (O(M*C)): the plain torch version
+  (``backend="torch"``) or the hand-written CUDA kernel
+  (``backend="cuda"``, ``kernels/csrc/entropy_judge.cu``). The loop itself
+  runs in Python, one host read of the stop flag per iteration, at most
+  M-1 iterations.
+
+Both are exact greedy: per iteration, remove the single device whose
+removal maximally increases the size-weighted group entropy; stop when no
+removal strictly improves it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .entropy import group_entropy, group_entropy_np, leave_one_out_entropies
+
+# Strict-improvement tolerance: float32 entropy of broad (e.g. 151k-class)
+# distributions has ~1e-6 noise; require improvement above it.
+_TOL = 1e-6
+
+
+class JudgmentResult(NamedTuple):
+    mask: torch.Tensor             # (M,) float32 — 1.0 = positive device
+    entropy: torch.Tensor          # () final group entropy over positives
+    initial_entropy: torch.Tensor  # () entropy before any removal
+    num_removed: int               # |R|
+    removal_order: torch.Tensor    # (M,) int32 greedy-removal order, -1 pad
+
+
+def judge(soft_labels: torch.Tensor, sizes: torch.Tensor,
+          active: torch.Tensor | None = None,
+          max_removals: int | None = None, backend: str = "torch",
+          protected: torch.Tensor | None = None) -> JudgmentResult:
+    """Algorithm 1 on the device that holds ``soft_labels``.
+
+    soft_labels: (M, C) per-device mean softmax (Eq. 2).
+    sizes:       (M,)   per-device sample counts (L in the paper).
+    active:      (M,)   optional 0/1 mask of devices selected this round;
+                        inactive devices are neither judged nor positive.
+    max_removals: optional cap on |R| (default M-1; the set is never
+                        emptied regardless).
+    backend:     "torch" (plain leave-one-out sweep) or "cuda" (the
+                        entropy_judge kernel on a CUDA tensor).
+    protected:   (M,)   optional 0/1 mask of devices that count toward the
+                        group entropy but are never removal candidates.
+    """
+    from ..kernels import ops as kops
+
+    if backend not in kops.BACKENDS:
+        raise ValueError(f"unknown judge backend {backend!r}")
+    soft_labels = soft_labels.to(torch.float32)
+    sizes = sizes.to(device=soft_labels.device, dtype=torch.float32)
+    m = soft_labels.shape[0]
+    dev = soft_labels.device
+    active = (torch.ones(m, device=dev) if active is None
+              else active.to(device=dev, dtype=torch.float32))
+    protected = (torch.zeros(m, device=dev) if protected is None
+                 else protected.to(device=dev, dtype=torch.float32))
+    cap = m - 1 if max_removals is None else int(max_removals)
+
+    init_ent = group_entropy(soft_labels, sizes, active)
+    mask, ent = active.clone(), init_ent
+    order = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    removed = 0
+    neg_inf = torch.tensor(-float("inf"), device=dev)
+    while removed < cap:
+        if backend == "cuda":
+            _, loo = kops.entropy_judge_sweep(soft_labels, sizes, mask,
+                                              backend="cuda")
+        else:
+            loo = leave_one_out_entropies(soft_labels, sizes, mask)
+        # only currently-active, unprotected devices are candidates
+        cand = torch.where((mask > 0) & (protected == 0), loo, neg_inf)
+        best = torch.argmax(cand)            # first index among ties
+        best_ent = cand[best]
+        # compared in float32, as the traced reference does
+        if not bool(best_ent > ent + _TOL):
+            break
+        mask[best] = 0.0
+        ent = best_ent
+        order[removed] = best.to(torch.int32)
+        removed += 1
+    return JudgmentResult(mask=mask, entropy=ent, initial_entropy=init_ent,
+                          num_removed=removed, removal_order=order)
+
+
+def judge_np(soft_labels: np.ndarray, sizes: np.ndarray,
+             active: np.ndarray | None = None,
+             protected: np.ndarray | None = None
+             ) -> tuple[list[int], list[int], float]:
+    """Literal Algorithm 1. Returns (A, R, final_entropy) with device indices.
+
+    Per paper lines 2-19: iteratively find the single member whose removal
+    maximises getEntropy of the remainder; move it from A to R; stop when
+    no removal strictly improves the entropy (lines 13-14). ``protected``
+    rows stay in A and in the entropy, but the sweep never removes them.
+    """
+    soft_labels = np.asarray(soft_labels, np.float64)
+    sizes = np.asarray(sizes, np.float64)
+    m = soft_labels.shape[0]
+    if active is None:
+        active_idx = list(range(m))
+    else:
+        active_idx = [i for i in range(m) if active[i] > 0]
+
+    A = list(active_idx)
+    R: list[int] = []
+    mask = np.zeros(m)
+    mask[A] = 1.0
+    ent = group_entropy_np(soft_labels, sizes, mask)
+    while len(A) > 1:
+        best_k, best_ent = None, ent
+        for k in A:  # paper line 5: sweep candidates
+            if protected is not None and protected[k] > 0:
+                continue
+            trial = mask.copy()
+            trial[k] = 0.0
+            e = group_entropy_np(soft_labels, sizes, trial)
+            if e > best_ent + _TOL:
+                best_k, best_ent = k, e
+        if best_k is None:  # line 13: no harmful device left
+            break
+        A.remove(best_k)
+        R.append(best_k)
+        mask[best_k] = 0.0
+        ent = best_ent
+    return A, R, ent

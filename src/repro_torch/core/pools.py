@@ -1,0 +1,65 @@
+"""Positive/negative device pools with epsilon-greedy selection (Alg. 2 l.4-8).
+
+Host-side bookkeeping on a numpy RNG: pool membership is control-plane
+state. An exact transcription of ``repro.core.pools.DevicePools``, so a
+seed draws the same cohorts in both packages:
+
+* both pools start with all devices in the positive pool;
+* each round, with probability eps (default 0.8) the round's |S_t| = N*C
+  devices are drawn from the positive pool, otherwise from the negative
+  pool; if the chosen pool has too few members, the remainder is drawn
+  from the other pool (Sec. 3.4);
+* selected devices are removed from their pools for the round and
+  re-filed according to the judgment verdict.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+
+@dataclass
+class DevicePools:
+    num_devices: int
+    eps: float = 0.8
+    seed: int = 0
+    positive: set[int] = field(init=False)
+    negative: set[int] = field(init=False)
+    _rng: np.random.Generator = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.positive = set(range(self.num_devices))
+        self.negative = set()
+        self._rng = np.random.default_rng(self.seed)
+
+    # -- paper Alg.2 lines 4-8 -------------------------------------------
+    def select(self, num: int) -> list[int]:
+        """Draw the round's device set S_t (removed from the pools)."""
+        num = min(num, self.num_devices)
+        use_positive = self._rng.random() < self.eps
+        first = self.positive if use_positive else self.negative
+        second = self.negative if use_positive else self.positive
+
+        take_first = min(num, len(first))
+        chosen = list(self._rng.choice(sorted(first), take_first,
+                                       replace=False)) if take_first else []
+        remaining = num - take_first
+        if remaining > 0:
+            extra = list(self._rng.choice(sorted(second),
+                                          min(remaining, len(second)),
+                                          replace=False))
+            chosen += extra
+        chosen = [int(c) for c in chosen]
+        for c in chosen:
+            self.positive.discard(c)
+            self.negative.discard(c)
+        return chosen
+
+    # -- paper Alg.2 line 22 ----------------------------------------------
+    def update(self, positives: list[int], negatives: list[int]) -> None:
+        self.positive.update(int(i) for i in positives)
+        self.negative.update(int(i) for i in negatives)
+
+    def stats(self) -> dict:
+        return {"positive": len(self.positive), "negative": len(self.negative)}

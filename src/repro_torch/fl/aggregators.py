@@ -1,0 +1,51 @@
+"""Aggregator implementations: merging admitted updates (Alg. 2 line 21).
+
+``WeightedAverageAggregator`` — size-weighted FedAvg over the admitted
+                                mask (``core.aggregation.aggregate``), one
+                                reduction per leaf.
+``FusedAverageAggregator``    — the same mean as ONE flat reduction
+                                (``core.aggregation.fused_aggregate``):
+                                every leaf flattened into a single (M, P)
+                                buffer and reduced in one call — the plain
+                                version or the fused_aggregate CUDA kernel.
+                                Float32-tolerance equal to ``weighted``,
+                                not bitwise.
+"""
+from __future__ import annotations
+
+from ..core.aggregation import aggregate, fused_aggregate
+from .registry import register
+
+
+@register("aggregator", "weighted")
+class WeightedAverageAggregator:
+    """w_g = sum_{i in A} L_i W_i / sum_{i in A} L_i."""
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls()
+
+    def __call__(self, global_params, out, sizes, mask):
+        return aggregate(out["params"], sizes, mask)
+
+
+@register("aggregator", "fused")
+class FusedAverageAggregator:
+    """``weighted``'s mean as one flat (M, P) reduction.
+
+    ``backend="cuda"`` reduces through the fused_aggregate kernel;
+    ``"torch"`` through its plain version.
+    """
+
+    def __init__(self, backend: str = "torch"):
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown aggregation backend {backend!r}")
+        self.backend = backend
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls()
+
+    def __call__(self, global_params, out, sizes, mask):
+        return fused_aggregate(out["params"], sizes, mask,
+                               backend=self.backend)

@@ -1,0 +1,82 @@
+"""Protocol classes for the four pluggable axes of an FL round (Alg. 2).
+
+FedEntropy's judgment is a composable add-on (paper Sec. 3.4 / Table 3):
+related methods swap exactly one axis of the round — who is asked
+(``Selector``), how each client trains (``ClientStrategy``), whose update
+is admitted (``Judge``), and how admitted updates merge (``Aggregator``).
+Any object with the right methods plugs in; register implementations
+with :func:`repro_torch.fl.register` to name them.
+
+Data plane vs control plane: ``ClientStrategy``/``Aggregator`` run tensor
+code on the stacked client axis on the server's device; ``Selector`` runs
+host-side numpy. A ``Judge`` receives the round's soft labels and sizes
+as tensors on the server's device — the numpy judge copies them to the
+host in float64, the torch and CUDA judges judge them where they are.
+"""
+from __future__ import annotations
+
+from typing import Any, Protocol, Sequence, runtime_checkable
+
+import torch
+
+Params = Any           # nested dict of tensors
+StrategyState = Any    # owned by a ClientStrategy (or None)
+
+
+@runtime_checkable
+class Selector(Protocol):
+    """Chooses the round's device set S_t (Alg. 2 lines 4-8)."""
+
+    def select(self, num: int) -> list[int]:
+        """Draw ``num`` distinct device ids for this round."""
+        ...
+
+    def update(self, positives: Sequence[int],
+               negatives: Sequence[int]) -> None:
+        """Feed back the judgment verdict (Alg. 2 line 22)."""
+        ...
+
+    def stats(self) -> dict:
+        """Introspection counters (pool sizes etc.) for logging."""
+        ...
+
+
+@runtime_checkable
+class ClientStrategy(Protocol):
+    """Owns the local-update rule and all of its cross-round state."""
+
+    spec: Any                      # hyperparameters (LocalSpec)
+    doubles_uplink: bool           # True if uplink carries control variates
+
+    def init_state(self, global_params: Params,
+                   num_clients: int) -> StrategyState:
+        """Build the strategy's state (None if stateless)."""
+        ...
+
+    def update_state(self, state: StrategyState, global_params: Params,
+                     out: dict, idx, num_clients: int) -> StrategyState:
+        """Fold the round's client outputs back into the state."""
+        ...
+
+
+@runtime_checkable
+class Judge(Protocol):
+    """Decides which selected devices' models aggregate (Alg. 1)."""
+
+    def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
+                 ) -> tuple[list[int], list[int], float]:
+        """Return (accepted, rejected, entropy) — positions are *relative*
+        indices into the round's selection, entropy is the final group
+        entropy over the accepted set (NaN if not entropy-based)."""
+        ...
+
+
+@runtime_checkable
+class Aggregator(Protocol):
+    """Merges admitted client models into the next global model."""
+
+    def __call__(self, global_params: Params, out: dict,
+                 sizes: torch.Tensor, mask: torch.Tensor) -> Params:
+        """``out`` is the stacked client-update dict (leading axis = |S_t|);
+        ``mask`` is the judge's 0/1 admission mask over that axis."""
+        ...

@@ -1,0 +1,97 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and never served a stale library.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for every one of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("entropy_judge", "fused_aggregate")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin); "
+            "the CUDA kernels build only where the CUDA toolkit is "
+            "installed")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together.
+
+    Returns, for each library built by this call, the seconds its
+    ``nvcc`` took and its output (``-Xptxas -v`` lists registers, shared
+    memory and spills). Raises with the compiler's output if any build
+    fails; no process outlives the call.
+    """
+    missing = [n for n in names if not library_path(n).exists()]
+    if not missing:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in missing:
+            out = library_path(name)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out, time.perf_counter())
+        built = {}
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+            built[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        return built
+    finally:
+        for proc, tmp, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build((name,))
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        return lib
