@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (exit code non-zero):
 
-1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all at once;
 2. hold the entropy-judge kernel (K1) against its plain PyTorch version;
 3. hold the fused-aggregation kernel (K2) against its plain version;
 4. drive the paper's FedEntropy round at full width — the CIFAR-shaped
@@ -13,7 +14,20 @@ Phases, each of which raises on failure (exit code non-zero):
    rounds through both kernels, show by launch counts that it did, and
    repeat the rounds on the plain versions to check the result;
 5. time both kernels, their plain versions and the PyTorch library call
-   for K2, at the main path's shapes.
+   for K2, at the main path's shapes;
+6. hold flash attention (K3), decode attention (K4) and the SSD chunk
+   scan (K5) against their plain versions, in float32 and bfloat16, at
+   the JAX kernel tests' shapes and at the serve path's;
+7. serve Zamba2-2.7B at full width (random weights, float32): 4 prompts
+   of 1024 tokens, then 32 greedy tokens, through ``build_model(...,
+   kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
+   replay the prompts and tokens through the plain route to check the
+   logits;
+8. time K3, K4 and K5 at the serve path's shapes beside their plain
+   versions, their bounds and the PyTorch library call where one exists.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 a JSON object with every kernel's launches, error, times and bound.
@@ -36,15 +50,21 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import fl  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.judgment import judge_np  # noqa: E402
 from repro_torch.data.corpus import ClientCorpus  # noqa: E402
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention)
 from repro_torch.kernels.entropy_judge import entropy_judge_sweep  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_aggregate import (  # noqa: E402
     masked_weighted_sum)
+from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
 # tensor cores.
@@ -55,6 +75,28 @@ K1_ATOL = 1e-4          # the JAX package's kernel-test tolerance
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
 PARAMS_RTOL = 1e-5      # cuda-route vs plain-route global params
 ROUNDS = 3
+# tests/test_kernels.py's tolerances for K3, K4, K5: (atol, rtol) by dtype
+K3_TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (5e-2, 1e-2)}
+K4_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (5e-2, 0.0)}
+K5_TOL = {torch.float32: (2e-4, 5e-2), torch.bfloat16: (5e-1, 5e-2)}
+# serve path: Zamba2-2.7B, B prompts of S tokens, then GEN greedy tokens
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_GEN = "zamba2-2.7b", 4, 1024, 32
+LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
+
+WRAPPERS = {"entropy_judge_sweep": entropy_judge_sweep,
+            "masked_weighted_sum": masked_weighted_sum,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "ssd_chunked": ssd_chunked}
+
+
+def _reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def _phase(name: str) -> None:
@@ -248,15 +290,13 @@ def main_path():
           f"{time.perf_counter() - t0:.1f} s")
 
     judge = RecordingJudge(fl.MaxEntropyJudge(backend="cuda"))
-    entropy_judge_sweep.launches = 0
-    masked_weighted_sum.launches = 0
+    _reset_counts()
     server, walls = run_rounds(params, corpus, "cuda", judge=judge)
     metrics = server.evaluate(xte, yte)
-    launches = {"entropy_judge_sweep": entropy_judge_sweep.launches,
-                "masked_weighted_sum": masked_weighted_sum.launches}
+    launches = _read_counts()
     print(f"eval: {metrics}; launches in {ROUNDS} rounds: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("entropy_judge_sweep", "masked_weighted_sum"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     if not (0.0 <= metrics["accuracy"] <= 1.0
             and math.isfinite(metrics["loss"])):
@@ -349,6 +389,312 @@ def time_kernels(judge_inputs, p: int) -> dict:
                    (m, p))}
 
 
+# ------------------------------------------------------------------ LM path
+
+DEV = "cuda"            # where the LM phases run
+
+def _randn(shape, gen, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def _check_close(name, label, got, want, tol) -> float:
+    atol, rtol = tol
+    err = float((got.float() - want.float()).abs().max())
+    print(f"{name} {label}: max_abs_err={err:.3e}")
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=atol, rtol=rtol,
+        msg=lambda m: f"{name} {label} disagrees with its plain version: "
+                      f"{m}")
+    return err
+
+
+def _tags(b, t, index):
+    """Slot tags of a cache filled up to each row's ``index`` (-1 past
+    it), and the index as a (B,) int32 tensor."""
+    index = torch.as_tensor(index, dtype=torch.int32, device=DEV)
+    index = index.reshape(-1).expand(b).contiguous()
+    slots = torch.arange(t, dtype=torch.int32, device=DEV)[None]
+    return torch.where(slots <= index[:, None], slots, -1).contiguous(), index
+
+
+def check_k3() -> float:
+    """K3 against mha_reference; returns the largest float32 error."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    cases = [  # (b, s, t, h, kh, d, window)
+        (2, 64, 64, 4, 2, 32, 0), (1, 37, 37, 4, 4, 16, 0),
+        (2, 128, 128, 8, 1, 64, 0), (1, 16, 80, 4, 2, 32, 0),  # JAX tests
+        (2, 64, 64, 4, 2, 32, 24),                          # JAX window
+        (SERVE_B, SERVE_S, SERVE_S, 32, 32, 80, 0),         # Zamba2 prefill
+        (SERVE_B, SERVE_S, SERVE_S, 32, 32, 80, 256),       # ... windowed
+        (2, 512, 512, 16, 8, 128, 0),                       # Qwen3 GQA
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, t, h, kh, d, window in cases:
+            q = _randn((b, s, h, d), gen, dtype)
+            k = _randn((b, t, kh, d), gen, dtype)
+            v = _randn((b, t, kh, d), gen, dtype)
+            causal = s == t
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.mha_reference(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = _check_close(
+                "K3", f"b={b} s={s} t={t} h={h} kh={kh} d={d} causal="
+                f"{causal} window={window} {str(dtype)[6:]}", got, want,
+                K3_TOL[dtype])
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    return worst
+
+
+def check_k4() -> float:
+    """K4 against mha_reference with per-row q_offset; returns the largest
+    float32 error."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    t_serve = SERVE_S + SERVE_GEN
+    cases = [  # (b, t, h, kh, d, window, index per row)
+        (2, 64, 4, 2, 32, 0, 54), (2, 40, 8, 8, 16, 12, 30),
+        (2, 100, 4, 1, 32, 16, 90),                         # JAX tests
+        (SERVE_B, t_serve, 32, 32, 80, 0, 1040),            # Zamba2 decode
+        (SERVE_B, t_serve, 32, 32, 80, 256, 1040),          # ... windowed
+        (SERVE_B, t_serve, 32, 32, 80, 0, [1055, 900, 700, 1030]),  # ragged
+        (SERVE_B, t_serve, 16, 8, 128, 0, 1040),            # Qwen3 GQA
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, h, kh, d, window, index in cases:
+            q = _randn((b, 1, h, d), gen, dtype)
+            k = _randn((b, t, kh, d), gen, dtype)
+            v = _randn((b, t, kh, d), gen, dtype)
+            tags, idx = _tags(b, t, index)
+            got = decode_attention(q, k, v, tags, idx, window=window)
+            want = ref.mha_reference(q, k, v, causal=True, window=window,
+                                     q_offset=idx[:, None],
+                                     kv_positions=tags)
+            torch.cuda.synchronize()
+            err = _check_close(
+                "K4", f"b={b} t={t} h={h} kh={kh} d={d} window={window} "
+                f"index={index} {str(dtype)[6:]}", got, want, K4_TOL[dtype])
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    return worst
+
+
+def _ssd_inputs(gen, b, l, h, p, g, n, dtype=torch.float32):
+    x = _randn((b, l, h, p), gen, dtype)
+    dt = torch.rand((b, l, h), generator=gen, device=DEV) * 0.099 + 0.001
+    a = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
+    return (x, dt, a, _randn((b, l, g, n), gen, dtype),
+            _randn((b, l, g, n), gen, dtype))
+
+
+def check_k5() -> float:
+    """K5 against ssd_chunked_reference; returns the largest float32
+    error."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    cases = [  # (b, l, h, p, g, n, chunk)
+        (2, 64, 4, 8, 2, 16, 16), (1, 50, 4, 8, 1, 16, 16),
+        (2, 32, 6, 16, 2, 8, 8), (1, 128, 2, 32, 1, 32, 32),  # JAX tests
+        (SERVE_B, SERVE_S, 80, 64, 1, 64, 256),             # Zamba2 prefill
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, l, h, p, g, n, q in cases:
+            x, dt, a, bm, cm = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
+            y1, h1 = ssd_chunked(x, dt, a, bm, cm, chunk=q)
+            y0, h0 = ref.ssd_chunked_reference(x, dt, a, bm, cm, chunk=q)
+            torch.cuda.synchronize()
+            label = (f"b={b} l={l} h={h} p={p} g={g} n={n} chunk={q} "
+                     f"{str(dtype)[6:]}")
+            err = max(_check_close("K5 y", label, y1, y0, K5_TOL[dtype]),
+                      _check_close("K5 state", label, h1, h0,
+                                   K5_TOL[dtype]))
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    return worst
+
+
+def _profiled(fn) -> tuple[float, float, dict]:
+    """(wall s, summed kernel s, kernel us by name) of one ``fn()`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = _kernel_us(prof)
+    return wall, sum(by_kernel.values()) / 1e6, by_kernel
+
+
+def _print_profile(what, wall, busy, by_kernel, top=8) -> None:
+    print(f"profiled {what}: wall {wall * 1e3:.3f} ms, kernels "
+          f"{busy * 1e3:.3f} ms, device idle share {1 - busy / wall:.3f} "
+          f"(profiler on)")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+def serve_path() -> dict:
+    """Zamba2-2.7B at full width through the port's entry points, on the
+    kernel route, then replayed on the plain route."""
+    cfg = ARCHS[SERVE_ARCH].replace(remat="none", param_dtype="float32",
+                                    dtype="float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV, kernels="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    print(f"{cfg.name}: {n_params} params ({n_params * 4 / 1e9:.2f} GB "
+          f"float32), random init on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)), device=DEV)
+    cache_len = SERVE_S + SERVE_GEN
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_logits, cache = model.prefill({"tokens": prompts},
+                                          cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = prefill_logits[:, -1:].argmax(-1)
+    tokens, step_logits, step_ms = [tok], [], []
+    for _ in range(SERVE_GEN - 1):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_logits.append(logits)
+        tokens.append(tok)
+    launches = _read_counts()
+
+    groups, per = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
+    expect = {"entropy_judge_sweep": 0, "masked_weighted_sum": 0,
+              "flash_attention": groups, "decode_attention":
+              groups * (SERVE_GEN - 1), "ssd_chunked": groups * per}
+    print(f"launches in one request batch: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"serve launches {launches} != {expect}")
+    gen_tokens = torch.cat(tokens, dim=1)
+    if prefill_logits.shape != (SERVE_B, SERVE_S, cfg.padded_vocab) or \
+            gen_tokens.shape != (SERVE_B, SERVE_GEN):
+        raise AssertionError("serve output shapes are wrong")
+    if not (bool(torch.isfinite(prefill_logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError("non-finite serve logits")
+    print(f"prefill {SERVE_B}x{SERVE_S} (first call): {prefill_s:.4f} s; "
+          f"decode median {statistics.median(step_ms):.3f} ms/step over "
+          f"{SERVE_GEN - 1} steps (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f})")
+    print(f"  seq0: {gen_tokens[0].tolist()}")
+
+    # the same prompts and the kernel route's tokens on the plain route
+    plain = build_model(cfg, device=DEV, kernels="torch", seed=0)
+    plain.net.load_state_dict(model.net.state_dict())
+    lg, pcache = plain.prefill({"tokens": prompts}, cache_len=cache_len)
+    rel = [float((lg - prefill_logits).abs().max() /
+                 prefill_logits.abs().max())]
+    agree = int((lg[:, -1:].argmax(-1) == tokens[0]).sum())
+    for i in range(SERVE_GEN - 1):
+        lg, pcache = plain.decode_step(pcache, tokens[i])
+        rel.append(float((lg - step_logits[i]).abs().max() /
+                         step_logits[i].abs().max()))
+        agree += int((lg[:, -1:].argmax(-1) == tokens[i + 1]).sum())
+    del plain, pcache, lg
+    print(f"kernel route vs plain route (teacher-forced): max |diff| / max "
+          f"|logit| = {rel[0]:.3e} on the prefill, {max(rel[1:]):.3e} over "
+          f"the decode steps (tolerance {LOGITS_RTOL}); greedy tokens "
+          f"equal in {agree} of {SERVE_B * SERVE_GEN} (information)")
+    if not max(rel) <= LOGITS_RTOL:
+        raise AssertionError(f"kernel and plain route logits differ: "
+                             f"{max(rel)} > {LOGITS_RTOL}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill({"tokens": prompts}, cache_len=cache_len)
+    torch.cuda.synchronize()
+    warm_prefill_s = time.perf_counter() - t0
+    print(f"prefill {SERVE_B}x{SERVE_S} (warm): {warm_prefill_s:.4f} s")
+    prof_prefill = _profiled(
+        lambda: model.prefill({"tokens": prompts}, cache_len=cache_len))
+    _print_profile("prefill", *prof_prefill)
+    prof_step = _profiled(lambda: model.decode_step(cache, tok))
+    _print_profile("decode step", *prof_step)
+    del model, cache, prefill_logits, step_logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": prefill_s,
+            "warm_prefill_s": warm_prefill_s,
+            "decode_ms": statistics.median(step_ms), "rel": max(rel)}
+
+
+def time_lm_kernels() -> dict:
+    """K3, K4, K5 at the serve path's shapes, float32: (ms per call, plain
+    ms, library ms or None, bound ms, bound_by)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    kw = dict(iters=20, warmup=3)
+    b, s, h, d = SERVE_B, SERVE_S, 32, 80
+    t = SERVE_S + SERVE_GEN
+    out = {}
+
+    q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
+    call = lambda: flash_attention(q, k, v, causal=True)
+    ms, plain_ms = _time_pair(
+        call, lambda: ref.mha_reference(q, k, v, causal=True), **kw)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), **kw)
+    dev_ms = _device_ms(call, ("flash_fwd",), iters=10)
+    out["flash_attention"] = (ms, plain_ms, lib_ms, *_bound_ms(
+        4 * b * s * h * d * 4, 2 * b * h * d * s * (s + 1)), dev_ms)
+    del q, k, v, qt, kt, vt
+
+    q = _randn((b, 1, h, d), gen)
+    kc, vc = (_randn((b, t, h, d), gen) for _ in range(2))
+    tags, idx = _tags(b, t, t - 1)
+    call = lambda: decode_attention(q, kc, vc, tags, idx)
+    ms, plain_ms = _time_pair(
+        call, lambda: ref.mha_reference(q, kc, vc, causal=True,
+                                        q_offset=idx[:, None],
+                                        kv_positions=tags), **kw)
+    mask = ((tags >= 0) & (tags <= idx[:, None]))[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    lib_ms = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), **kw)
+    dev_ms = _device_ms(call, ("decode_kernel",), iters=10)
+    seen = int(mask.sum()) // b        # valid slots per row in this run
+    out["decode_attention"] = (ms, plain_ms, lib_ms, *_bound_ms(
+        (2 * b * seen * h * d + 2 * b * h * d + b * t + b) * 4,
+        4 * b * h * seen * d), dev_ms)
+    del q, kc, vc, qt, kt, vt
+
+    hs, p, g, n, chunk = 80, 64, 1, 64, 256
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, s, hs, p, g, n)
+    call = lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk)
+    ms, plain_ms = _time_pair(
+        call, lambda: ref.ssd_chunked_reference(x, dt, a, bm, cm,
+                                                chunk=chunk), **kw)
+    dev_ms = _device_ms(call, ("ssd_kernel",), iters=10)
+    chunks = -(-s // chunk)
+    # the causal half of each chunk's two Q x Q products, plus C h^T and
+    # the state update
+    flops = 2 * chunks * b * hs * (chunk * (chunk + 1) // 2 * (n + p) +
+                                   2 * chunk * p * n)
+    nbytes = (2 * b * s * hs * p + 2 * b * s * g * n + b * s * hs + hs +
+              b * hs * p * n) * 4
+    out["ssd_chunked"] = (ms, plain_ms, None, *_bound_ms(nbytes, flops),
+                          dev_ms)
+    for name, (ms, plain_ms, lib_ms, bound, by, dev_ms) in out.items():
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+        print(f"{name}: {ms:.5f} ms per call (kernel alone {dev_ms:.5f} "
+              f"ms), plain {plain_ms:.5f} ms, library {lib}, bound "
+              f"{bound:.5f} ms ({by})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -389,6 +735,16 @@ def main() -> int:
     print(f"round wall s: {[round(x, 4) for x in walls]}, median "
           f"{statistics.median(walls):.4f}")
 
+    _phase("6. K3 flash_attention, K4 decode_attention, K5 ssd_chunked "
+           "vs plain")
+    lm_err = {"flash_attention": check_k3(), "decode_attention": check_k4(),
+              "ssd_chunked": check_k5()}
+    _phase(f"7. serve {SERVE_ARCH} at full width: {SERVE_B} prompts of "
+           f"{SERVE_S} tokens, {SERVE_GEN} greedy tokens")
+    served = serve_path()
+    _phase("8. LM kernel times at the serve shapes (float32)")
+    lm_times = time_lm_kernels()
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -408,6 +764,20 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib},
     ]
+    sources = {"flash_attention": ("flash_attention.cu",
+                                   "flash_attention.py:75"),
+               "decode_attention": ("decode_attention.cu",
+                                    "decode_attention.py:60"),
+               "ssd_chunked": ("ssd_scan.cu", "ssd_scan.py:73")}
+    for name, (cu, tpu) in sources.items():
+        ms, plain_ms, lib_ms, bound, by, _ = lm_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{cu}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": served["launches"][name],
+            "max_abs_err": lm_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

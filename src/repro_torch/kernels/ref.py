@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels (from ``repro.kernels.ref``).
 
 Each function here computes what its kernel computes, with ordinary
 tensor ops on any device. The kernel wrappers take them for CPU tensors,
@@ -8,6 +8,151 @@ holds every kernel against them on the card.
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30          # score of a masked key, as in the JAX package
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_offset: torch.Tensor | int = 0,
+                  kv_positions: torch.Tensor | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention with causal / sliding-window masking — the
+    plain version of the flash-attention (K3) and decode-attention (K4)
+    kernels.
+
+    q: (B, S, H, D); k, v: (B, T, KH, D) with KH | H (q-head h reads kv-head
+    h // (H / KH)). ``q_offset`` is the global position of q[:, 0], a scalar
+    or one per row ((B,) or (B, 1)); ``kv_positions`` (B, T) tags each kv
+    slot with its global position, -1 for an empty slot. Masked scores are
+    -1e30, as in the JAX package, so a row without any valid key averages
+    all values uniformly. Accumulates in float32; returns q's dtype.
+    """
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d ** -0.5 if scale is None else scale
+    dev = q.device
+    qq = q.reshape(b, s, kh, g, d).to(torch.float32)
+    logits = torch.einsum("bskgd,btkd->bkgst", qq,
+                          k.to(torch.float32)) * scale
+    off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+    q_pos = torch.arange(s, device=dev)[None, :] + off           # (1|B, S)
+    if kv_positions is None:
+        kv_pos = torch.arange(t, device=dev)[None, :]            # (1, T)
+        valid = torch.ones((1, t), dtype=torch.bool, device=dev)
+    else:
+        kv_pos = kv_positions.to(dev)
+        valid = kv_pos >= 0
+    mask = valid[:, None, :]                                     # (B,1,T)
+    if causal:
+        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    logits = torch.where(mask[:, None, None, :, :], logits,
+                         torch.tensor(NEG_INF, device=dev))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                  init_state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (exact) SSD recurrence, one step per token:
+    h_t = exp(dt_t a) h_{t-1} + dt_t x_t (outer) b_t;  y_t = h_t . c_t.
+
+    x (B, L, H, P), dt (B, L, H) (post-softplus), a (H,), b_mat / c_mat
+    (B, L, G, N). Returns (y (B, L, H, P) in x's dtype, final state
+    (B, H, P, N) float32).
+    """
+    bsz, l, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    bh = b_mat.repeat_interleave(rep, dim=2).to(torch.float32)   # (B,L,H,N)
+    ch = c_mat.repeat_interleave(rep, dim=2).to(torch.float32)
+    decay = torch.exp(dt * a[None, None, :])                     # (B, L, H)
+    hstate = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                          device=x.device)
+              if init_state is None else init_state.to(torch.float32))
+    ys = []
+    for t in range(l):
+        dx = (dt[:, t, :, None] * x[:, t]).to(torch.float32)    # (B,H,P)
+        upd = dx[..., :, None] * bh[:, t, :, None, :]            # (B,H,P,N)
+        hstate = decay[:, t, :, None, None] * hstate + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", hstate, ch[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return y, hstate
+
+
+def ssd_chunked_reference(x: torch.Tensor, dt: torch.Tensor,
+                          a: torch.Tensor, b_mat: torch.Tensor,
+                          c_mat: torch.Tensor, *, chunk: int = 256,
+                          init_state: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel SSD (Mamba2 Sec. 6) — the plain version of the SSD
+    chunk-scan kernel (K5): a quadratic intra-chunk part plus a
+    sequential scan of the chunk states. Equal to :func:`ssd_reference`;
+    a ragged tail is padded with dt = 0 steps (decay 1, no update), which
+    is exact.
+    """
+    bsz, l, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    q = min(chunk, l)
+    if l % q:
+        pad = q - l % q
+        y, h_t = ssd_chunked_reference(
+            _pad_seq(x, pad), _pad_seq(dt, pad), a, _pad_seq(b_mat, pad),
+            _pad_seq(c_mat, pad), chunk=q, init_state=init_state)
+        return y[:, :l], h_t
+    c = l // q
+    rep = h // g
+    f32 = torch.float32
+    bh = b_mat.repeat_interleave(rep, dim=2).reshape(bsz, c, q, h, n)
+    ch = c_mat.repeat_interleave(rep, dim=2).reshape(bsz, c, q, h, n)
+    xg = x.reshape(bsz, c, q, h, p)
+    dtg = dt.reshape(bsz, c, q, h).to(f32)
+    adt = dtg * a[None, None, None, :]                       # log decays
+    cums = torch.cumsum(adt, dim=2)                           # (B,C,Q,H)
+
+    # intra-chunk (quadratic)
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]     # (B,C,Q,Q,H)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=x.device))
+    lmat = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                       torch.zeros((), device=x.device))
+    dtx = dtg[..., None] * xg.to(f32)                          # (B,C,Q,H,P)
+    cb = torch.einsum("bcqhn,bckhn->bcqkh", ch.to(f32), bh.to(f32))
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", cb * lmat, dtx)
+
+    # chunk summary states
+    decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)       # (B,C,Q,H)
+    states = torch.einsum("bcqhn,bcqhp->bchpn",
+                          decay_to_end[..., None] * bh.to(f32), dtx)
+    chunk_decay = torch.exp(cums[:, :, -1, :])                # (B,C,H)
+
+    # inter-chunk recurrence (sequential over the C chunks)
+    hstate = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+              if init_state is None else init_state.to(f32))
+    prevs = []
+    for ci in range(c):
+        prevs.append(hstate)
+        hstate = chunk_decay[:, ci, :, None, None] * hstate + states[:, ci]
+    h_prevs = torch.stack(prevs, dim=1)                       # (B,C,H,P,N)
+
+    # inter-chunk contribution
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp",
+                         torch.exp(cums)[..., None] * ch.to(f32), h_prevs)
+    y = (y_diag + y_off).reshape(bsz, l, h, p).to(x.dtype)
+    return y, hstate
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 (the sequence axis) at the end by ``pad``."""
+    shape = list(t.shape)
+    shape[1] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=1)
 
 
 def entropy_judge_sweep_reference(soft_labels: torch.Tensor,

@@ -1,0 +1,75 @@
+"""Uniform model API of the port: ``build_model(cfg)`` -> ``Model`` with
+forward / hidden / prefill / decode_step / init_cache, the port of
+``repro.models.api`` (``input_specs`` waits with the dry-run).
+
+``build_model`` draws random weights on the card unless the caller asks
+for the CPU, and fixes the kernel route: ``kernels="cuda"`` sends prefill
+attention to K3, decode attention to K4 and the SSD scan to K5;
+``kernels="torch"`` runs their plain versions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from ..kernels import ops
+from . import transformer
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    net: transformer.Transformer
+    device: torch.device
+    kernels: str
+
+    def _batch(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in batch.items()}
+
+    def forward(self, batch: dict, *, window: int | None = None):
+        """(logits (B, S, V), aux) of a full sequence."""
+        return transformer.forward(self.net, self._batch(batch),
+                                   window=window)
+
+    def hidden(self, batch: dict, *, window: int | None = None):
+        return transformer.hidden(self.net, self._batch(batch),
+                                  window=window)
+
+    @torch.inference_mode()
+    def prefill(self, batch: dict, *, window: int | None = None,
+                cache_len: int | None = None):
+        """(logits (B, S, V), cache) after a full-sequence prefill."""
+        return transformer.prefill(self.net, self._batch(batch),
+                                   window=window, cache_len=cache_len)
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens: torch.Tensor, *,
+                    window: int | None = None):
+        """(logits (B, 1, V), cache); the cache is updated in place."""
+        return transformer.decode_step(self.net, cache,
+                                       tokens.to(self.device),
+                                       window=window)
+
+    def init_cache(self, batch: int, cache_len: int,
+                   dtype: torch.dtype | None = None) -> dict:
+        return transformer.init_cache(self.cfg, batch, cache_len, dtype,
+                                      self.device)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.net.parameters())
+
+
+def build_model(cfg: ModelConfig, *, device="cuda", kernels: str = "cuda",
+                seed: int = 0) -> Model:
+    """A model of ``cfg`` with random weights from a generator seeded with
+    ``seed`` on ``device``; raises if ``device`` is the card and none is
+    present."""
+    ops._check(kernels)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    net = transformer.init(cfg, gen, kernels)
+    return Model(cfg=cfg, net=net, device=device, kernels=kernels)

@@ -1,0 +1,192 @@
+"""Shared building blocks of the LM models — the port of
+``repro.models.layers``: norms, dense layers, the MLP, RoPE, the
+embedding and the logits.
+
+Modules hold the weights under the JAX package's names (``w``, ``b``,
+``scale``, ``embed``, ``head``), so ``convert.lm_params_from_numpy`` maps
+a JAX parameter tree onto a state dict key by key; the arithmetic is in
+plain functions on tensors. Every module draws its initial weights from
+an explicit ``torch.Generator`` on the device the weights live on.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def pdtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def normal(gen: torch.Generator, shape, std: float,
+           dtype: torch.dtype) -> nn.Parameter:
+    """A parameter of N(0, std^2) draws from ``gen``, on its device."""
+    w = torch.randn(shape, generator=gen, device=gen.device) * std
+    return nn.Parameter(w.to(dtype))
+
+
+def constant(value: float, shape, dtype: torch.dtype,
+             device) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
+
+
+# ------------------------------------------------------------------ norms
+
+def norm_apply(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None = None, *, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last axis, computed in float32."""
+    xf = x.to(torch.float32)
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    return norm_apply(x, scale, kind="rmsnorm", eps=eps)
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, dim: int, device):
+        super().__init__()
+        self.kind, self.eps = cfg.norm, cfg.norm_eps
+        self.scale = constant(1.0, (dim,), pdtype_of(cfg), device)
+        self.bias = (constant(0.0, (dim,), pdtype_of(cfg), device)
+                     if cfg.norm == "layernorm" else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return norm_apply(x, self.scale, self.bias, kind=self.kind,
+                          eps=self.eps)
+
+
+# ------------------------------------------------------------------ linear
+
+def dense_apply(w: torch.Tensor, b: torch.Tensor | None,
+                x: torch.Tensor) -> torch.Tensor:
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+class Dense(nn.Module):
+    """``x @ w (+ b)`` with w (din, dout), the JAX package's layout."""
+
+    def __init__(self, cfg: ModelConfig, din: int, dout: int,
+                 gen: torch.Generator, bias: bool = False,
+                 scale: float | None = None):
+        super().__init__()
+        std = scale if scale is not None else din ** -0.5
+        self.w = normal(gen, (din, dout), std, pdtype_of(cfg))
+        self.b = (constant(0.0, (dout,), pdtype_of(cfg), gen.device)
+                  if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_apply(self.w, self.b, x)
+
+
+# ------------------------------------------------------------------ MLP
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, d: int, f: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.activation = cfg.activation
+        self.w_in = Dense(cfg, d, f, gen,
+                          bias=cfg.attn_bias and cfg.family == "encdec")
+        self.w_out = Dense(cfg, f, d, gen)
+        self.w_gate = (Dense(cfg, d, f, gen)
+                       if cfg.activation in ("silu", "geglu") else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+        h = self.w_in(x)
+        if self.activation == "silu":
+            h = F.silu(self.w_gate(x)) * h
+        elif self.activation == "geglu":
+            h = F.gelu(self.w_gate(x), approximate="tanh") * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return self.w_out(h)
+
+
+# ------------------------------------------------------------------ RoPE
+
+def rope_freqs(rot_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                                         device=device) / rot_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               style: str = "full") -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int. style full|half|none.
+
+    Rotates interleaved pairs (x[..., 0::2], x[..., 1::2]), as the JAX
+    package does, not the half-split ``rotate_half``. ``half`` is
+    ChatGLM's 2d RoPE: only the first hd/2 channels rotate.
+    """
+    if style == "none":
+        return x
+    hd = x.shape[-1]
+    rot = hd if style == "full" else hd // 2
+    freqs = rope_freqs(rot, theta, x.device)                   # (rot/2,)
+    ang = positions[..., None].to(torch.float32) * freqs       # (B,S,rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot].to(torch.float32)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ------------------------------------------------------------------ embed
+
+class Embed(nn.Module):
+    """Token embedding (padded vocabulary) and the output logits."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.embed = normal(gen, (v, d), d ** -0.5, pdtype_of(cfg))
+        self.head = (None if cfg.tie_embeddings else
+                     normal(gen, (d, v), d ** -0.5, pdtype_of(cfg)))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed.to(dtype_of(self.cfg))[tokens]
+        if self.cfg.embed_scale:
+            x = x * self.cfg.d_model ** 0.5
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = x @ self.embed.to(x.dtype).T
+        else:
+            logits = x @ self.head.to(x.dtype)
+        v = cfg.padded_vocab
+        if v != cfg.vocab_size:                 # mask padded vocab slots
+            real = torch.arange(v, device=x.device) < cfg.vocab_size
+            logits = torch.where(real, logits,
+                                 torch.tensor(-1e9, dtype=logits.dtype,
+                                              device=x.device))
+        return logits

@@ -53,3 +53,18 @@ def test_entry_points_default_to_the_card():
     server = fl.build("fedentropy", cnn.apply, params, data,
                       fl.ServerConfig(num_clients=2), device="cpu")
     assert server.device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = ARCHS["zamba2-2.7b"].reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-2.7b", "--reduced"])
+    model = build_model(cfg, device="cpu")
+    assert model.device.type == "cpu" and model.kernels == "cuda"

@@ -1,0 +1,362 @@
+"""The port's LM kernels (K3 flash attention, K4 decode attention, K5 SSD
+chunk scan) against the JAX package's Pallas kernels.
+
+On the CPU each wrapper takes its plain PyTorch version, which is held
+here against ``repro.kernels`` run as ``tests/test_kernels.py`` runs it
+(``interpret=True``), on the same numpy inputs, at that file's shapes and
+tolerances plus Zamba2's head width D = 80. The ``test_card_*`` cases hold
+each CUDA kernel against its plain version and skip without a card; they
+import nothing of JAX::
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_lm_kernels.py -k card
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_chunked
+
+_ATOL = {"float32": 2e-5, "bfloat16": 5e-2}     # tests/test_kernels.py
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The JAX package's kernels (imported here, not at the top, so the
+    card cases run where JAX is not installed)."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels.decode_attention import decode_attention
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.ssd_scan import ssd_chunked
+    return SimpleNamespace(jnp=jnp, flash=flash_attention,
+                           decode=decode_attention, ssd=ssd_chunked,
+                           ref=jref, ops=jops)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _j(pallas, x, dtype="float32"):
+    return pallas.jnp.asarray(x, getattr(pallas.jnp, dtype))
+
+
+def _t(x, dtype="float32"):
+    return torch.tensor(np.asarray(x, np.float32), dtype=_TORCH[dtype])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+# ------------------------------------------------------------ K3 flash
+
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 2, 32),     # GQA 2:1
+    (1, 37, 37, 4, 4, 16),     # odd seq (padding path), MHA
+    (2, 128, 128, 8, 1, 64),   # MQA
+    (1, 16, 80, 4, 2, 32),     # cross-length (q shorter than kv)
+    (1, 48, 48, 4, 4, 80),     # Zamba2's head width
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,t,h,kh,d", FLASH_SHAPES)
+def test_flash_plain_matches_pallas(pallas, b, s, t, h, kh, d, dtype):
+    rng = np.random.default_rng(s * t + d)
+    q = rng.normal(size=(b, s, h, d))
+    k = rng.normal(size=(b, t, kh, d))
+    v = rng.normal(size=(b, t, kh, d))
+    causal = s == t
+    want = pallas.flash(_j(pallas, q, dtype), _j(pallas, k, dtype),
+                        _j(pallas, v, dtype), causal=causal, block_q=16,
+                        block_k=16)
+    before = flash_attention.launches
+    got = flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                          causal=causal)
+    assert flash_attention.launches == before      # CPU: no kernel
+    assert got.dtype == _TORCH[dtype] and got.shape == (b, s, h, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_ATOL[dtype],
+                               rtol=1e-2)
+
+
+@pytest.mark.parametrize("window,d", [(8, 32), (24, 32), (64, 32),
+                                      (24, 80)])
+def test_flash_window_plain_matches_pallas(pallas, window, d):
+    b, s, h = 2, 64, 4
+    rng = np.random.default_rng(window + d)
+    q = rng.normal(size=(b, s, h, d))
+    k = rng.normal(size=(b, s, 2, d))
+    v = rng.normal(size=(b, s, 2, d))
+    want = pallas.flash(_j(pallas, q), _j(pallas, k), _j(pallas, v),
+                        causal=True, window=window, block_q=16, block_k=16)
+    got = ops.attention(_t(q), _t(k), _t(v), causal=True, window=window,
+                        backend="cuda")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# ------------------------------------------------------------ K4 decode
+
+def _decode_case(rng, b, t, h, kh, d):
+    return (rng.normal(size=(b, 1, h, d)), rng.normal(size=(b, t, kh, d)),
+            rng.normal(size=(b, t, kh, d)))
+
+
+@pytest.mark.parametrize("t,h,kh,d,win", [
+    (64, 4, 2, 32, 0), (40, 8, 8, 16, 12), (100, 4, 1, 32, 16),
+    (72, 4, 4, 80, 0), (72, 4, 4, 80, 20),      # Zamba2's head width
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas(pallas, t, h, kh, d, win, dtype):
+    rng = np.random.default_rng(t + d)
+    b, idx = 2, t - 10
+    q, k, v = _decode_case(rng, b, t, h, kh, d)
+    tags = np.broadcast_to(np.where(np.arange(t) <= idx, np.arange(t), -1),
+                           (b, t)).astype(np.int32)
+    want = pallas.decode(_j(pallas, q, dtype), _j(pallas, k, dtype),
+                         _j(pallas, v, dtype), pallas.jnp.asarray(tags),
+                         idx, window=win, block_k=16)
+    before = decode_attention.launches
+    got = decode_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                           torch.from_numpy(tags), idx, window=win)
+    assert decode_attention.launches == before
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_ATOL[dtype])
+
+
+def test_decode_ring_buffer_tags_plain_matches_pallas(pallas):
+    """Ring-buffer semantics: tags are slot -> position, unordered."""
+    rng = np.random.default_rng(5)
+    b, t, h, d, idx, win = 1, 32, 2, 16, 100, 24
+    q, k, v = _decode_case(rng, b, t, h, h, d)
+    perm = np.random.default_rng(1).permutation(32)
+    tags = (idx - 31 + perm)[None, :].astype(np.int32)
+    want = pallas.decode(_j(pallas, q), _j(pallas, k), _j(pallas, v),
+                         pallas.jnp.asarray(tags), idx, window=win,
+                         block_k=8)
+    got = decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(tags),
+                           idx, window=win)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("win", [0, 12])
+def test_decode_shared_index_equals_pallas_route(pallas, win):
+    """Every row at one position (the serving path): the Pallas route's
+    batch-wide max(kv_positions) and the port's per-row index agree."""
+    rng = np.random.default_rng(win)
+    b, t, h, kh, d, idx = 3, 48, 4, 2, 32, 30
+    q, k, v = _decode_case(rng, b, t, h, kh, d)
+    tags = np.broadcast_to(np.where(np.arange(t) <= idx, np.arange(t), -1),
+                           (b, t)).astype(np.int32)
+    offs = np.full((b, 1), idx, np.int32)
+    want = pallas.ops.attention(
+        _j(pallas, q), _j(pallas, k), _j(pallas, v), causal=True,
+        window=win, q_offset=pallas.jnp.asarray(offs),
+        kv_positions=pallas.jnp.asarray(tags), backend="pallas")
+    got = ops.attention(_t(q), _t(k), _t(v), causal=True, window=win,
+                        q_offset=torch.from_numpy(offs[:, 0]),
+                        kv_positions=torch.from_numpy(tags), backend="cuda")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("win", [0, 8])
+def test_decode_ragged_index_equals_reference(pallas, win):
+    """Rows at different positions: the port takes each row's own index,
+    as ``ref.mha_reference`` with a per-row ``q_offset`` does."""
+    rng = np.random.default_rng(7 + win)
+    b, t, h, kh, d = 3, 40, 4, 2, 32
+    index = np.array([39, 25, 11], np.int32)
+    q, k, v = _decode_case(rng, b, t, h, kh, d)
+    tags = np.where(np.arange(t)[None] <= index[:, None], np.arange(t),
+                    -1).astype(np.int32)
+    want = pallas.ref.mha_reference(
+        _j(pallas, q), _j(pallas, k), _j(pallas, v), causal=True,
+        window=win, q_offset=pallas.jnp.asarray(index[:, None]),
+        kv_positions=pallas.jnp.asarray(tags))
+    got = decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(tags),
+                           torch.from_numpy(index), window=win)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# ------------------------------------------------------------ K5 ssd
+
+SSD_SHAPES = [
+    (2, 64, 4, 8, 2, 16, 16),
+    (1, 50, 4, 8, 1, 16, 16),      # padded tail
+    (2, 32, 6, 16, 2, 8, 8),
+    (1, 128, 2, 32, 1, 32, 32),
+    (1, 72, 4, 64, 1, 64, 32),     # Zamba2's P = N = 64, padded tail
+]
+
+
+def _ssd_case(rng, b, l, h, p, g, n):
+    return (rng.normal(size=(b, l, h, p)),
+            rng.uniform(0.001, 0.1, size=(b, l, h)).astype(np.float32),
+            -np.exp(rng.normal(size=(h,))).astype(np.float32),
+            rng.normal(size=(b, l, g, n)), rng.normal(size=(b, l, g, n)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,p,g,n,q", SSD_SHAPES)
+def test_ssd_plain_matches_pallas(pallas, b, l, h, p, g, n, q, dtype):
+    x, dt, a, bm, cm = _ssd_case(np.random.default_rng(l + p), b, l, h, p,
+                                 g, n)
+    jnp = pallas.jnp
+    y0, h0 = pallas.ssd(_j(pallas, x, dtype), jnp.asarray(dt),
+                        jnp.asarray(a), _j(pallas, bm, dtype),
+                        _j(pallas, cm, dtype), chunk=q)
+    before = ssd_chunked.launches
+    y1, h1 = ssd_chunked(_t(x, dtype), torch.from_numpy(dt),
+                         torch.from_numpy(a), _t(bm, dtype), _t(cm, dtype),
+                         chunk=q)
+    assert ssd_chunked.launches == before
+    assert y1.dtype == _TORCH[dtype] and h1.dtype == torch.float32
+    np.testing.assert_allclose(_f32(y1), _f32(y0), atol=_ATOL[dtype] * 10,
+                               rtol=5e-2)
+    np.testing.assert_allclose(_f32(h1), _f32(h0), atol=_ATOL[dtype] * 10,
+                               rtol=5e-2)
+
+
+def test_ssd_single_token_plain_matches_reference(pallas):
+    """One token goes to the exact sequential step on the torch route."""
+    x, dt, a, bm, cm = _ssd_case(np.random.default_rng(3), 2, 1, 4, 8, 2,
+                                 16)
+    jnp = pallas.jnp
+    y0, h0 = pallas.ref.ssd_reference(jnp.asarray(x, jnp.float32),
+                                      jnp.asarray(dt), jnp.asarray(a),
+                                      jnp.asarray(bm, jnp.float32),
+                                      jnp.asarray(cm, jnp.float32))
+    y1, h1 = ops.ssd(_t(x), torch.from_numpy(dt), torch.from_numpy(a),
+                     _t(bm), _t(cm), chunk=16, backend="torch")
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=2e-5)
+    np.testing.assert_allclose(h1.numpy(), np.asarray(h0), atol=2e-5)
+
+
+def test_ssd_kernel_refuses_an_initial_state():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(AssertionError, match="zero init state"):
+        ssd_chunked(x, torch.zeros(1, 4, 2), torch.zeros(2),
+                    torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1, 8),
+                    init_state=torch.zeros(1, 2, 8, 8))
+
+
+def test_cuda_route_refuses_what_the_kernels_cannot_honour():
+    q = torch.zeros(1, 4, 2, 8)
+    k = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.attention(q, k, k, q_offset=3, backend="cuda")
+    with pytest.raises(ValueError, match="one query token"):
+        ops.attention(q, k, k, backend="cuda",
+                      kv_positions=torch.zeros(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        ops.ssd(q, torch.zeros(1, 4, 2), torch.zeros(2), k, k,
+                backend="pallas")
+
+
+# ------------------------------------------------------------- card only
+
+def _randn(shape, gen, dev, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,d,causal,window,dtype", [
+    (2, 64, 64, 4, 2, 32, True, 0, torch.float32),
+    (1, 37, 37, 4, 4, 16, True, 0, torch.bfloat16),
+    (1, 16, 80, 4, 2, 32, False, 0, torch.float32),
+    (2, 300, 300, 4, 4, 80, True, 0, torch.float32),
+    (2, 200, 200, 16, 8, 128, True, 64, torch.float32),
+    (1, 70, 70, 2, 1, 256, True, 0, torch.bfloat16),
+])
+def test_card_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal,
+                                         window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = _randn((b, s, h, d), gen, cuda, dtype)
+    k = _randn((b, t, kh, d), gen, cuda, dtype)
+    v = _randn((b, t, kh, d), gen, cuda, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    atol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+
+
+@pytest.mark.parametrize("b,t,h,kh,d,window,ragged,dtype", [
+    (2, 64, 4, 2, 32, 0, False, torch.float32),
+    (4, 1056, 32, 32, 80, 0, False, torch.float32),
+    (4, 300, 16, 8, 128, 64, True, torch.float32),
+    (3, 100, 4, 1, 32, 16, True, torch.bfloat16),
+])
+def test_card_decode_kernel_matches_plain(cuda, b, t, h, kh, d, window,
+                                          ragged, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q = _randn((b, 1, h, d), gen, cuda, dtype)
+    k = _randn((b, t, kh, d), gen, cuda, dtype)
+    v = _randn((b, t, kh, d), gen, cuda, dtype)
+    index = torch.full((b,), t - 5, dtype=torch.int32, device=cuda)
+    if ragged:
+        index -= torch.arange(b, dtype=torch.int32, device=cuda) * 7
+    slots = torch.arange(t, dtype=torch.int32, device=cuda)[None]
+    tags = torch.where(slots <= index[:, None], slots, -1).contiguous()
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, tags, index, window=window)
+    want = ref.mha_reference(q, k, v, causal=True, window=window,
+                             q_offset=index[:, None], kv_positions=tags)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    atol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,q,dtype", [
+    (2, 64, 4, 8, 2, 16, 16, torch.float32),
+    (1, 50, 4, 8, 1, 16, 16, torch.bfloat16),
+    (1, 128, 2, 32, 1, 32, 32, torch.float32),
+    (2, 600, 8, 64, 1, 64, 256, torch.float32),
+    (1, 300, 4, 64, 2, 128, 256, torch.float32),
+])
+def test_card_ssd_kernel_matches_plain(cuda, b, l, h, p, g, n, q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    x = _randn((b, l, h, p), gen, cuda, dtype)
+    dt = torch.rand((b, l, h), generator=gen, device=cuda) * 0.099 + 0.001
+    a = -torch.exp(torch.randn((h,), generator=gen, device=cuda))
+    bm = _randn((b, l, g, n), gen, cuda, dtype)
+    cm = _randn((b, l, g, n), gen, cuda, dtype)
+    before = ssd_chunked.launches
+    y1, h1 = ssd_chunked(x, dt, a, bm, cm, chunk=q)
+    y0, h0 = ref.ssd_chunked_reference(x, dt, a, bm, cm, chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_chunked.launches == before + 1
+    atol = 2e-4 if dtype == torch.float32 else 5e-1
+    torch.testing.assert_close(y1.float(), y0.float(), atol=atol, rtol=5e-2)
+    torch.testing.assert_close(h1, h0, atol=atol, rtol=5e-2)
+
+
+def test_card_lm_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 4, 2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q, q)
+    tags = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention(q, q, q, tags, 0)              # S = 4, not 1
+    with pytest.raises(ValueError):
+        decode_attention(q[:, :1], q, q, tags.long(), 0)
+    with pytest.raises(TypeError):
+        ssd_chunked(q.half(), torch.zeros(1, 4, 2, device=cuda),
+                    torch.zeros(2, device=cuda), q.half(), q.half())
