@@ -6,15 +6,18 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, all at once;
+   one process per source, all at once, and count the tensor-core (HMMA)
+   instructions in the flash-attention library where cuobjdump exists;
 2. hold the entropy-judge kernel (K1) against its plain PyTorch version;
-3. hold the fused-aggregation kernel (K2) against its plain version;
+3. hold the fused-aggregation kernel (K2) against its plain version, bit
+   for bit;
 4. drive the paper's FedEntropy round at full width — the CIFAR-shaped
    CNN, N = 100 clients, 10% participation, E = 5, batch 50 — for three
    rounds through both kernels, show by launch counts that it did, and
    repeat the rounds on the plain versions to check the result;
-5. time both kernels, their plain versions and the PyTorch library call
-   for K2, at the main path's shapes;
+5. time both kernels at the main path's shapes in turns with their plain
+   versions and, for K2, the PyTorch library call ``w @ flat``; print K2's
+   host microseconds per call by piece of its wrapper;
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
    the JAX kernel tests' shapes and at the serve path's;
@@ -23,14 +26,17 @@ Phases, each of which raises on failure (exit code non-zero):
    kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
    replay the prompts and tokens through the plain route to check the
    logits;
-8. time K3, K4 and K5 at the serve path's shapes beside their plain
-   versions, their bounds and the PyTorch library call where one exists.
+8. time K3, K4 and K5 at the serve path's shapes in turns with their
+   plain versions and the PyTorch library call where one exists (SDPA for
+   K3 and K4), and print K3's two bounds: on the CUDA cores and on the
+   tensor cores in 3xTF32.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-a JSON object with every kernel's launches, error, times and bound.
+a JSON object with every kernel's launches, error, times (``ms`` per
+wrapper call, ``kernel_ms`` of device time) and bounds.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -55,7 +61,7 @@ from repro_torch.core.judgment import judge_np  # noqa: E402
 from repro_torch.data.corpus import ClientCorpus  # noqa: E402
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, fused_aggregate, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention)
 from repro_torch.kernels.entropy_judge import entropy_judge_sweep  # noqa: E402
@@ -67,12 +73,12 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
-# tensor cores.
+# tensor cores, TF32 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 K1_ATOL = 1e-4          # the JAX package's kernel-test tolerance
-K2_RTOL, K2_ATOL = 1e-5, 1e-6
 PARAMS_RTOL = 1e-5      # cuda-route vs plain-route global params
 ROUNDS = 3
 # tests/test_kernels.py's tolerances for K3, K4, K5: (atol, rtol) by dtype
@@ -118,14 +124,15 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _time_pair(kernel, plain, **kw) -> tuple[float, float]:
-    """(kernel ms, plain ms), measured in turns: plain, kernel, kernel,
-    plain."""
-    p1 = _time_ms(plain, **kw)
-    k1 = _time_ms(kernel, **kw)
-    k2 = _time_ms(kernel, **kw)
-    p2 = _time_ms(plain, **kw)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def _time_turns(fns: dict, **kw) -> dict:
+    """Mean ms per call of each function of ``fns``, measured in turns:
+    the others first and the kernel (the first entry) in the middle, then
+    back again (plain, library, kernel, kernel, library, plain)."""
+    order = list(fns)[1:] + list(fns)[:1]
+    times = {name: [] for name in fns}
+    for name in order + order[::-1]:
+        times[name].append(_time_ms(fns[name], **kw))
+    return {name: sum(ts) / len(ts) for name, ts in times.items()}
 
 
 def _kernel_us(prof, names=()) -> dict:
@@ -158,9 +165,12 @@ def _device_ms(fn, names, iters: int = 50) -> float:
     return sum(_kernel_us(prof, names).values()) / iters / 1e3
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float,
+              flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """(least ms, what bounds it) for moving ``nbytes`` and doing ``flops``
+    at ``flop_per_s`` (float32 outside the tensor cores by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -222,18 +232,20 @@ def check_k1() -> float:
 def check_k2() -> float:
     worst = 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # values in [0, 1) and weights in (0, 1]: sums without cancellation,
-    # so the relative tolerance bounds a correct float32 sum
-    for m, p in [(10, 62006), (3, 1), (16, 16 * 2 ** 20), (300, 4099)]:
+    # values in [0, 1) and weights in (0, 1], one weight 0 (a client the
+    # judgment left out)
+    for m, p in [(10, 62006), (1, 62006), (17, 62006), (3, 1),
+                 (16, 16 * 2 ** 20), (300, 4099)]:
         flat = torch.rand((m, p), generator=gen, device="cuda")
         w = torch.rand(m, generator=gen, device="cuda") + 1e-3
-        w[0] = 0.0                                   # a masked-out client
+        w[0] = 0.0
         got = masked_weighted_sum(flat, w)
         want = ref.masked_weighted_sum_reference(flat, w)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         print(f"K2 ({m}, {p}): max_abs_err={err:.3e}")
-        torch.testing.assert_close(got, want, rtol=K2_RTOL, atol=K2_ATOL)
+        # the kernel's arithmetic is the plain version's: equal bit for bit
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
         worst = max(worst, err)
         del flat
     return worst
@@ -357,36 +369,77 @@ def profile_round(server) -> None:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
+def k2_host_us(flat, w, calls: int = 10000) -> dict:
+    """Host microseconds per call of each piece of K2's wrapper, over
+    ``calls`` calls each: its checks, the output's allocation, the stream
+    lookup and the ctypes call that launches the kernel; beside them the
+    whole wrapper and the library call ``w @ flat``."""
+    m, p = flat.shape
+    index = flat.get_device()
+    fn = fused_aggregate._fn()
+    out = flat.new_empty(p)
+    stream = _build.current_stream(index)
+    ptrs = (flat.data_ptr(), w.data_ptr(), out.data_ptr())
+    pieces = {
+        "checks": lambda: fused_aggregate._checked(flat, w,
+                                                   fused_aggregate.BLOCK),
+        "empty": lambda: flat.new_empty(p),
+        "stream": lambda: _build.current_stream(index),
+        "ctypes call": lambda: fn(*ptrs, m, p, fused_aggregate.BLOCK,
+                                  stream),
+        "whole wrapper": lambda: masked_weighted_sum(flat, w),
+        "w @ flat": lambda: w @ flat,
+    }
+    us = {}
+    for name, piece in pieces.items():
+        for _ in range(100):
+            piece()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            piece()
+        us[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
 def time_kernels(judge_inputs, p: int) -> dict:
     """K1 on the first round's soft labels and sizes with every device
-    active; K2 on a (M, P) buffer of the main path's shape."""
+    active; K2 on a (M, P) buffer of the main path's shape. Each: (ms per
+    call, plain ms, library ms or None, bound ms, bound_by, kernel ms,
+    shape)."""
     soft, sizes = judge_inputs
     m, c = soft.shape
     mask = torch.ones(m, device=soft.device)
-    k1_ms, k1_plain = _time_pair(
-        lambda: entropy_judge_sweep(soft, sizes, mask),
-        lambda: ref.entropy_judge_sweep_reference(soft, sizes, mask))
+    k1_call = lambda: entropy_judge_sweep(soft, sizes, mask)
+    k1 = _time_turns({"kernel": k1_call,
+                      "plain": lambda: ref.entropy_judge_sweep_reference(
+                          soft, sizes, mask)})
     k1_bytes = m * c * 4 + 2 * m * 4 + (m + 1) * 4
     k1_flops = 2 * m * c + 3 * c + 6 * m * c
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flat = torch.randn((m, p), generator=gen, device="cuda")
     w = torch.rand(m, generator=gen, device="cuda")
-    k2_ms, k2_plain = _time_pair(lambda: masked_weighted_sum(flat, w),
-                                 lambda: ref.masked_weighted_sum_reference(
-                                     flat, w))
-    k2_lib = _time_ms(lambda: w @ flat)
+    k2_call = lambda: masked_weighted_sum(flat, w)
+    k2 = _time_turns({"kernel": k2_call,
+                      "plain": lambda: ref.masked_weighted_sum_reference(
+                          flat, w),
+                      "library": lambda: w @ flat}, iters=2000, warmup=200)
     k2_bytes = (m * p + m + p) * 4
     k2_flops = 2 * m * p
-    k1_call = lambda: entropy_judge_sweep(soft, sizes, mask)
-    k2_call = lambda: masked_weighted_sum(flat, w)
+    k1_dev = _device_ms(k1_call, ("judge_",))
+    k2_dev = _device_ms(k2_call, ("masked_weighted_sum",))
     print(f"device time per call (torch.profiler): K1's two kernels "
-          f"{_device_ms(k1_call, ('judge_',)):.5f} ms, every kernel of "
-          f"the K1 wrapper {_device_ms(k1_call, ()):.5f} ms, K2 kernel "
-          f"{_device_ms(k2_call, ('masked_weighted_sum',)):.5f} ms")
-    return {"k1": (k1_ms, k1_plain, *_bound_ms(k1_bytes, k1_flops), (m, c)),
-            "k2": (k2_ms, k2_plain, k2_lib, *_bound_ms(k2_bytes, k2_flops),
-                   (m, p))}
+          f"{k1_dev:.5f} ms, every kernel of the K1 wrapper "
+          f"{_device_ms(k1_call, ()):.5f} ms, K2 kernel {k2_dev:.5f} ms")
+    host = k2_host_us(flat, w)
+    print("K2 host us per call over 10000 calls: " + ", ".join(
+        f"{name} {us:.3f}" for name, us in host.items()))
+    return {"k1": (k1["kernel"], k1["plain"], None,
+                   *_bound_ms(k1_bytes, k1_flops), k1_dev, (m, c)),
+            "k2": (k2["kernel"], k2["plain"], k2["library"],
+                   *_bound_ms(k2_bytes, k2_flops), k2_dev, (m, p))}
 
 
 # ------------------------------------------------------------------ LM path
@@ -427,6 +480,10 @@ def check_k3() -> float:
         (SERVE_B, SERVE_S, SERVE_S, 32, 32, 80, 0),         # Zamba2 prefill
         (SERVE_B, SERVE_S, SERVE_S, 32, 32, 80, 256),       # ... windowed
         (2, 512, 512, 16, 8, 128, 0),                       # Qwen3 GQA
+        (2, 100, 100, 4, 2, 20, 0),                         # D % 8 != 0
+        (1, 90, 90, 4, 4, 17, 0),                           # odd D
+        (2, 300, 300, 4, 4, 80, 24),          # fully masked leading tiles
+        (1, 16, 300, 4, 2, 80, 0),                          # S < T, T % 64
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -633,8 +690,9 @@ def serve_path() -> dict:
 
 
 def time_lm_kernels() -> dict:
-    """K3, K4, K5 at the serve path's shapes, float32: (ms per call, plain
-    ms, library ms or None, bound ms, bound_by)."""
+    """K3, K4, K5 at the serve path's shapes, float32, each in turns with
+    its plain version and the library call where one exists: (ms per call,
+    plain ms, library ms or None, bound ms, bound_by, kernel ms)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     gen = torch.Generator(device=DEV).manual_seed(8)
     kw = dict(iters=20, warmup=3)
@@ -643,30 +701,47 @@ def time_lm_kernels() -> dict:
     out = {}
 
     q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
-    call = lambda: flash_attention(q, k, v, causal=True)
-    ms, plain_ms = _time_pair(
-        call, lambda: ref.mha_reference(q, k, v, causal=True), **kw)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), **kw)
+    call = lambda: flash_attention(q, k, v, causal=True)
+    ms = _time_turns({
+        "kernel": call,
+        "plain": lambda: ref.mha_reference(q, k, v, causal=True),
+        "library": lambda: sdpa(qt, kt, vt, is_causal=True)}, **kw)
     dev_ms = _device_ms(call, ("flash_fwd",), iters=10)
-    out["flash_attention"] = (ms, plain_ms, lib_ms, *_bound_ms(
-        4 * b * s * h * d * 4, 2 * b * h * d * s * (s + 1)), dev_ms)
+    nbytes, flops = 4 * b * s * h * d * 4, 2 * b * h * d * s * (s + 1)
+    # K3 runs both products on the tensor cores in 3xTF32, three TF32
+    # products for each float32 one: that is its bound. The CUDA-core
+    # bound (float32 FMA) is kept beside it for the earlier kernel.
+    out["flash_attention"] = (ms["kernel"], ms["plain"], ms["library"],
+                              *_bound_ms(nbytes, 3 * flops,
+                                         TF32_FLOP_PER_S), dev_ms)
+    cc_bound, _ = _bound_ms(nbytes, flops)
+    print(f"K3 bounds at ({b}, {s}, {h}, {d}) causal: tensor cores in "
+          f"3xTF32 {out['flash_attention'][3]:.5f} ms "
+          f"({out['flash_attention'][4]}; 3 x {flops / 1e9:.2f} GFLOP at "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32), CUDA cores "
+          f"{cc_bound:.5f} ms ({flops / 1e9:.2f} GFLOP at "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s), {nbytes / 1e6:.1f} MB "
+          f"moved")
+    out["cuda_core_bound_ms"] = cc_bound
     del q, k, v, qt, kt, vt
 
     q = _randn((b, 1, h, d), gen)
     kc, vc = (_randn((b, t, h, d), gen) for _ in range(2))
     tags, idx = _tags(b, t, t - 1)
-    call = lambda: decode_attention(q, kc, vc, tags, idx)
-    ms, plain_ms = _time_pair(
-        call, lambda: ref.mha_reference(q, kc, vc, causal=True,
-                                        q_offset=idx[:, None],
-                                        kv_positions=tags), **kw)
     mask = ((tags >= 0) & (tags <= idx[:, None]))[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
-    lib_ms = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), **kw)
+    call = lambda: decode_attention(q, kc, vc, tags, idx)
+    ms = _time_turns({
+        "kernel": call,
+        "plain": lambda: ref.mha_reference(q, kc, vc, causal=True,
+                                           q_offset=idx[:, None],
+                                           kv_positions=tags),
+        "library": lambda: sdpa(qt, kt, vt, attn_mask=mask)}, **kw)
     dev_ms = _device_ms(call, ("decode_kernel",), iters=10)
     seen = int(mask.sum()) // b        # valid slots per row in this run
-    out["decode_attention"] = (ms, plain_ms, lib_ms, *_bound_ms(
+    out["decode_attention"] = (ms["kernel"], ms["plain"], ms["library"],
+                               *_bound_ms(
         (2 * b * seen * h * d + 2 * b * h * d + b * t + b) * 4,
         4 * b * h * seen * d), dev_ms)
     del q, kc, vc, qt, kt, vt
@@ -674,9 +749,10 @@ def time_lm_kernels() -> dict:
     hs, p, g, n, chunk = 80, 64, 1, 64, 256
     x, dt, a, bm, cm = _ssd_inputs(gen, b, s, hs, p, g, n)
     call = lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk)
-    ms, plain_ms = _time_pair(
-        call, lambda: ref.ssd_chunked_reference(x, dt, a, bm, cm,
-                                                chunk=chunk), **kw)
+    ms = _time_turns({
+        "kernel": call,
+        "plain": lambda: ref.ssd_chunked_reference(x, dt, a, bm, cm,
+                                                   chunk=chunk)}, **kw)
     dev_ms = _device_ms(call, ("ssd_kernel",), iters=10)
     chunks = -(-s // chunk)
     # the causal half of each chunk's two Q x Q products, plus C h^T and
@@ -685,14 +761,30 @@ def time_lm_kernels() -> dict:
                                    2 * chunk * p * n)
     nbytes = (2 * b * s * hs * p + 2 * b * s * g * n + b * s * hs + hs +
               b * hs * p * n) * 4
-    out["ssd_chunked"] = (ms, plain_ms, None, *_bound_ms(nbytes, flops),
-                          dev_ms)
-    for name, (ms, plain_ms, lib_ms, bound, by, dev_ms) in out.items():
+    out["ssd_chunked"] = (ms["kernel"], ms["plain"], None,
+                          *_bound_ms(nbytes, flops), dev_ms)
+    for name in ("flash_attention", "decode_attention", "ssd_chunked"):
+        ms, plain_ms, lib_ms, bound, by, dev_ms = out[name]
         lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"{name}: {ms:.5f} ms per call (kernel alone {dev_ms:.5f} "
-              f"ms), plain {plain_ms:.5f} ms, library {lib}, bound "
-              f"{bound:.5f} ms ({by})")
+              f"ms), plain {plain_ms:.5f} ms, library {lib} (in turns), "
+              f"bound {bound:.5f} ms ({by})")
     return out
+
+
+def count_hmma(name: str = "flash_attention") -> str:
+    """How many tensor-core (HMMA) instructions the built library of
+    ``csrc/<name>.cu`` holds, by cuobjdump where the toolkit has it."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return f"cuobjdump does not exist beside nvcc ({cuobjdump})"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return (f"{name}: {sass.count('HMMA')} HMMA (tensor-core) and "
+            f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in "
+            f"its SASS, by cuobjdump")
 
 
 def main() -> int:
@@ -716,6 +808,7 @@ def main() -> int:
     for name, info in built.items():
         print(f"-- nvcc {name} ({info['seconds']:.2f} s):\n"
               f"{info['log'].strip()}")
+    print(count_hmma())
 
     _phase("2. K1 entropy_judge_sweep vs plain")
     k1_err = check_k1()
@@ -724,14 +817,13 @@ def main() -> int:
     _phase("4. main path: fedentropy, N=100, CNN at 32x32x3, 10 classes")
     launches, walls, judge_inputs, n_params = main_path()
     _phase("5. times")
-    t = time_kernels(judge_inputs, n_params)
-    k1_ms, k1_plain, k1_bound, k1_by, k1_shape = t["k1"]
-    k2_ms, k2_plain, k2_lib, k2_bound, k2_by, k2_shape = t["k2"]
-    print(f"K1 {k1_shape}: {k1_ms:.5f} ms, plain {k1_plain:.5f} ms, "
-          f"bound {k1_bound:.3e} ms ({k1_by})")
-    print(f"K2 {k2_shape}: {k2_ms:.5f} ms, plain {k2_plain:.5f} ms, "
-          f"library (w @ flat) {k2_lib:.5f} ms, bound {k2_bound:.3e} ms "
-          f"({k2_by})")
+    fl_times = time_kernels(judge_inputs, n_params)
+    for label, key in (("K1", "k1"), ("K2", "k2")):
+        ms, plain_ms, lib_ms, bound, by, dev_ms, shape = fl_times[key]
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+        print(f"{label} {shape}: {ms:.5f} ms per call (kernel alone "
+              f"{dev_ms:.5f} ms), plain {plain_ms:.5f} ms, library {lib} "
+              f"(in turns), bound {bound:.3e} ms ({by})")
     print(f"round wall s: {[round(x, 4) for x in walls]}, median "
           f"{statistics.median(walls):.4f}")
 
@@ -750,34 +842,36 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(smi)
-    kernels = [
-        {"name": "entropy_judge_sweep", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/entropy_judge.cu",
-         "replaces": "src/repro/kernels/entropy_judge.py:68",
-         "launches": launches["entropy_judge_sweep"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
-        {"name": "masked_weighted_sum", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/fused_aggregate.cu",
-         "replaces": "src/repro/kernels/fused_aggregate.py:65",
-         "launches": launches["masked_weighted_sum"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib},
-    ]
-    sources = {"flash_attention": ("flash_attention.cu",
-                                   "flash_attention.py:75"),
-               "decode_attention": ("decode_attention.cu",
-                                    "decode_attention.py:60"),
-               "ssd_chunked": ("ssd_scan.cu", "ssd_scan.py:73")}
-    for name, (cu, tpu) in sources.items():
-        ms, plain_ms, lib_ms, bound, by, _ = lm_times[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{cu}",
-            "replaces": f"src/repro/kernels/{tpu}",
-            "launches": served["launches"][name],
-            "max_abs_err": lm_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    sources = {  # wrapper: (its phase-5 key or None, CUDA source, TPU kernel)
+        "entropy_judge_sweep": ("k1", "entropy_judge.cu",
+                                "entropy_judge.py:68"),
+        "masked_weighted_sum": ("k2", "fused_aggregate.cu",
+                                "fused_aggregate.py:65"),
+        "flash_attention": (None, "flash_attention.cu",
+                            "flash_attention.py:75"),
+        "decode_attention": (None, "decode_attention.cu",
+                             "decode_attention.py:60"),
+        "ssd_chunked": (None, "ssd_scan.cu", "ssd_scan.py:73")}
+    errors = {"entropy_judge_sweep": k1_err, "masked_weighted_sum": k2_err,
+              **lm_err}
+    kernels = []
+    for name, (fl_key, cu, tpu) in sources.items():
+        if fl_key:
+            ms, plain_ms, lib_ms, bound, by, dev_ms, _ = fl_times[fl_key]
+            count = launches[name]
+        else:
+            ms, plain_ms, lib_ms, bound, by, dev_ms = lm_times[name]
+            count = served["launches"][name]
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{cu}",
+               "replaces": f"src/repro/kernels/{tpu}", "launches": count,
+               "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+               "kernel_ms": dev_ms}
+        if name == "flash_attention":
+            row["tensor_core_bound_ms"] = bound
+            row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

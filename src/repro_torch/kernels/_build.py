@@ -2,14 +2,20 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and never served a stale library.
-:func:`build` starts one ``nvcc`` per missing library, all at once, and
-waits for every one of them.
+takes seconds). The library's file name carries a hash of its source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt
+and never served a stale library. :func:`build` starts one ``nvcc`` per
+missing library, all at once, and waits for every one of them.
+
+:func:`bind` and :func:`launch` are the wrappers' lean launch path: a C
+function is looked up and typed once, and a launch reads the current
+stream once and switches the current device only when the tensors lie on
+another one.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -17,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -41,8 +49,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -96,3 +106,33 @@ def load(name: str) -> ctypes.CDLL:
                 build((name,))
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+@functools.cache
+def bind(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu``, typed with
+    ``argtypes`` and an ``int`` result (a CUDA error code); looked up once."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def current_stream(index: int) -> int:
+    """The ``cudaStream_t`` of device ``index``'s current stream, read as
+    PyTorch's own generated launchers read it (the public
+    ``torch.cuda.current_stream`` builds a Stream object first)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, index: int, *args) -> None:
+    """Calls ``fn(*args, stream)`` with the current stream of CUDA device
+    ``index``, made the current device only if it is not; raises if the C
+    function returns a CUDA error."""
+    if index == torch._C._cuda_getDevice():   # the current device
+        err = fn(*args, current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, current_stream(index))
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -31,7 +31,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -185,9 +188,8 @@ int launch(const void* q, const void* k, const void* v, const void* tags,
   const size_t smem =
       sizeof(float) * (2 * kWarps * G + static_cast<size_t>(kWarps) * G * d);
   auto kernel = decode_kernel<T, G, DCH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = allow_smem_once(kernel, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(kh, b);
   kernel<<<grid, kThreads, smem, stream>>>(

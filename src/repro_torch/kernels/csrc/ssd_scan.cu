@@ -40,7 +40,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -288,9 +291,8 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
            int g, int n, int chunk, cudaStream_t stream) {
   const size_t smem = smem_bytes(p, n, chunk);
   auto kernel = ssd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = allow_smem_once(kernel, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b);
   kernel<<<grid, kThreads, smem, stream>>>(

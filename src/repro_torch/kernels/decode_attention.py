@@ -14,28 +14,19 @@ plain version, :func:`.ref.mha_reference` with ``q_offset=index``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import ref
-from ._build import load
+from ._build import bind, launch
 
 _KERNELS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 8          # query heads per kv head
 
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("decode_attention")
-    for name in _KERNELS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
+    ctypes.c_float, ctypes.c_void_p)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,15 +77,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: inputs on different devices")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    fn = getattr(_lib(), _KERNELS[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_positions.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                 b, t, h, kh, d, int(window), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    launch(bind("decode_attention", _KERNELS[q.dtype], _ARGTYPES),
+           q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           kv_positions.data_ptr(), idx.data_ptr(), out.data_ptr(), b, t, h,
+           kh, d, int(window), float(scale))
     decode_attention.launches += 1
     return out
 

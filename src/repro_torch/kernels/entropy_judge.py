@@ -12,29 +12,19 @@ plain version, :func:`.ref.entropy_judge_sweep_reference`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from . import ref
-from ._build import load
+from ._build import bind, launch
 
 _EPS = 1e-12
 _BLOCK_C = 1024         # classes per thread block (shared memory: 4 KB)
 _KERNELS = {torch.float32: "entropy_judge_sweep_f32",
             torch.bfloat16: "entropy_judge_sweep_bf16"}
 
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("entropy_judge")
-    for name in _KERNELS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def entropy_judge_sweep(soft_labels: torch.Tensor, sizes: torch.Tensor,
@@ -71,15 +61,10 @@ def entropy_judge_sweep(soft_labels: torch.Tensor, sizes: torch.Tensor,
     nblocks = -(-c // _BLOCK_C)
     partial = torch.empty((nblocks, m + 1), dtype=torch.float32, device=dev)
     out = torch.empty(m + 1, dtype=torch.float32, device=dev)
-    fn = getattr(_lib(), _KERNELS[soft_labels.dtype])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(soft_labels.data_ptr(), w.data_ptr(), tot.data_ptr(),
-                 den.data_ptr(), partial.data_ptr(), out.data_ptr(), m, c,
-                 _BLOCK_C, stream)
-    if err != 0:
-        raise RuntimeError(f"entropy_judge kernel launch failed: CUDA error "
-                           f"{err}")
+    launch(bind("entropy_judge", _KERNELS[soft_labels.dtype], _ARGTYPES),
+           soft_labels.get_device(), soft_labels.data_ptr(), w.data_ptr(),
+           tot.data_ptr(), den.data_ptr(), partial.data_ptr(),
+           out.data_ptr(), m, c, _BLOCK_C)
     entropy_judge_sweep.launches += 1
     ent = torch.where(tot[0] > 0, out[0], math.log(c))
     loo = torch.where(tot - w > _EPS, out[1:], -1.0)

@@ -13,27 +13,17 @@ plain version, :func:`.ref.mha_reference`.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import ref
-from ._build import load
+from ._build import bind, launch
 
 _KERNELS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (
+    ctypes.c_float, ctypes.c_void_p)
 MAX_HEAD_DIM = 256
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("flash_attention")
-    for name in _KERNELS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,15 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v on different devices")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    fn = getattr(_lib(), _KERNELS[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, t, h, kh, d, int(causal), int(window), float(scale),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    launch(bind("flash_attention", _KERNELS[q.dtype], _ARGTYPES),
+           q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), b, s, t, h, kh, d, int(causal), int(window),
+           float(scale))
     flash_attention.launches += 1
     return out
 

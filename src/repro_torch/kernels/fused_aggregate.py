@@ -11,34 +11,26 @@ plain version, :func:`.ref.masked_weighted_sum_reference`.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import ref
-from ._build import load
+from ._build import bind, launch
+
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_void_p)
+BLOCK = 128  # threads per block: at P = 62,006, 243 blocks on 132 SMs
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("fused_aggregate")
-    fn = lib.masked_weighted_sum_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def _fn():
+    return bind("fused_aggregate", "masked_weighted_sum_f32", _ARGTYPES)
 
 
-def masked_weighted_sum(flat: torch.Tensor, weights: torch.Tensor, *,
-                        block: int = 256) -> torch.Tensor:
-    """Returns (P,) float32 = sum_i weights[i] * flat[i, :].
-
-    flat: (M, P) float32, contiguous; weights: (M,). ``block`` is the
-    number of threads per block (a multiple of 32, at most 1024).
-    """
-    if flat.device.type == "cpu":
-        return ref.masked_weighted_sum_reference(flat, weights)
-    if flat.device.type != "cuda":
+def _checked(flat: torch.Tensor, weights: torch.Tensor, block: int):
+    """The wrapper's checks on a CUDA ``flat``: returns the weights as a
+    float32 (M,) on flat's device (as given when they already are). Each
+    check reads plain attributes, so a call costs little host time."""
+    if not flat.is_cuda:
         raise ValueError(f"masked_weighted_sum: unsupported device "
                          f"{flat.device}")
     if flat.dtype != torch.float32 or flat.dim() != 2:
@@ -49,22 +41,32 @@ def masked_weighted_sum(flat: torch.Tensor, weights: torch.Tensor, *,
     if block % 32 or not 32 <= block <= 1024:
         raise ValueError(f"masked_weighted_sum: block={block} must be a "
                          "multiple of 32 in [32, 1024]")
+    w = weights
+    if not (w.dtype == torch.float32 and w.is_contiguous()
+            and w.get_device() == flat.get_device()):
+        w = w.to(flat.device, torch.float32).contiguous()
+    if w.dim() != 1 or w.numel() != flat.size(0):
+        raise ValueError(f"masked_weighted_sum: weights must be "
+                         f"({flat.size(0)},), got {tuple(w.shape)}")
+    return w
+
+
+def masked_weighted_sum(flat: torch.Tensor, weights: torch.Tensor, *,
+                        block: int = BLOCK) -> torch.Tensor:
+    """Returns (P,) float32 = sum_i weights[i] * flat[i, :].
+
+    flat: (M, P) float32, contiguous; weights: (M,). ``block`` is the
+    number of threads per block (a multiple of 32, at most 1024).
+    """
+    if not flat.is_cuda and flat.device.type == "cpu":
+        return ref.masked_weighted_sum_reference(flat, weights)
+    w = _checked(flat, weights, block)
     m, p = flat.shape
-    w = weights.to(flat.device, torch.float32).contiguous()
-    if w.shape != (m,):
-        raise ValueError(f"masked_weighted_sum: weights must be ({m},), "
-                         f"got {tuple(w.shape)}")
-    out = torch.empty(p, dtype=torch.float32, device=flat.device)
+    out = flat.new_empty(p)
     if p == 0:
         return out
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = _lib().masked_weighted_sum_f32(
-            flat.data_ptr(), w.data_ptr(), out.data_ptr(), m, p, block,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"fused_aggregate kernel launch failed: CUDA "
-                           f"error {err}")
+    launch(_fn(), flat.get_device(), flat.data_ptr(), w.data_ptr(),
+           out.data_ptr(), m, p, block)
     masked_weighted_sum.launches += 1
     return out
 

@@ -18,24 +18,20 @@ import functools
 import torch
 
 from . import ref
-from ._build import load
+from ._build import bind, launch, load
 
 _KERNELS = {torch.float32: "ssd_chunk_scan_f32",
             torch.bfloat16: "ssd_chunk_scan_bf16"}
 MAX_SMEM_BYTES = 232448        # shared memory a block may use on an H100
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("ssd_scan")
-    for name in _KERNELS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.ssd_chunk_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.ssd_chunk_scan_smem_bytes.restype = ctypes.c_longlong
-    return lib
+def _smem_bytes():
+    fn = load("ssd_scan").ssd_chunk_scan_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -73,8 +69,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             c_mat.is_contiguous()):
         raise ValueError("ssd_chunked: x, b_mat, c_mat must be contiguous")
     q = min(chunk, l)
-    lib = _lib()
-    smem = lib.ssd_chunk_scan_smem_bytes(p, n, q)
+    smem = _smem_bytes()(p, n, q)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_chunked: P={p}, N={n}, chunk={q} need "
                          f"{smem} bytes of shared memory, more than a "
@@ -82,15 +77,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32,
                         device=x.device)
-    fn = getattr(lib, _KERNELS[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                 b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), bsz, l, h, p, g, n, q, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    launch(bind("ssd_scan", _KERNELS[x.dtype], _ARGTYPES), x.get_device(),
+           x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+           c_mat.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, l, h, p,
+           g, n, q)
     ssd_chunked.launches += 1
     return y, state
 

@@ -57,7 +57,7 @@ class Model:
     def init_cache(self, batch: int, cache_len: int,
                    dtype: torch.dtype | None = None) -> dict:
         return transformer.init_cache(self.cfg, batch, cache_len, dtype,
-                                      self.device)
+                                      device=self.device)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())

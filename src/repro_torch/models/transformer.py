@@ -155,7 +155,7 @@ def forward(model: Transformer, batch: dict, *,
 # --------------------------------------------------------------- serving
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype: torch.dtype | None = None, device="cpu") -> dict:
+               dtype: torch.dtype | None = None, *, device) -> dict:
     """An empty decode cache: every slot tagged -1, index 0."""
     dtype = dtype or dtype_of(cfg)
     kind = _block_kind(cfg)

@@ -149,7 +149,7 @@ def test_card_entropy_judge_kernel_matches_plain(cuda, m, c, dtype):
 
 
 @pytest.mark.parametrize("m,p", [(10, 62006), (3, 1), (16, 1 << 20),
-                                 (300, 4099)])
+                                 (300, 4099), (1, 62006), (17, 62006)])
 def test_card_masked_weighted_sum_kernel_matches_plain(cuda, m, p):
     gen = torch.Generator(device=cuda).manual_seed(0)
     flat = torch.rand((m, p), generator=gen, device=cuda)

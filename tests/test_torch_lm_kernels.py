@@ -264,6 +264,183 @@ def test_cuda_route_refuses_what_the_kernels_cannot_honour():
                 backend="pallas")
 
 
+# ------------------------------------ K3's tensor-core arithmetic, emulated
+#
+# csrc/flash_attention.cu runs both products on mma.m16n8k8 with TF32
+# operands. These tests emulate, in numpy, the two things the card cannot
+# show one by one: the 3xTF32 split's error, and the fragment index maps
+# (with the k slots permuted) that hand S's accumulator to P V as it stands.
+
+_K3_F32_TOL = (2e-5, 1e-2)      # (atol, rtol) of K3 in float32
+
+
+def _tf32_rna(x):
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away: the
+    kernel's ``tf32_rna`` on the float32 bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(np.float32(x) - hi)
+
+
+def _mma(acc, a, b):
+    """One mma step: exact products of TF32 values, summed and added to
+    the float32 accumulator with one rounding."""
+    return (acc.astype(np.float64) +
+            a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def _tc_product(a, b, passes):
+    """a @ b (batched over leading axes) in 8-deep k steps as the kernel
+    issues them: ``passes`` 3 is lo*hi + hi*lo + hi*hi (3xTF32), 1 is
+    hi*hi (one TF32 pass)."""
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        a_hi, a_lo = _split(a[..., k0:k0 + 8])
+        b_hi, b_lo = _split(b[..., k0:k0 + 8, :])
+        if passes == 3:
+            acc = _mma(acc, a_lo, b_hi)
+            acc = _mma(acc, a_hi, b_lo)
+        acc = _mma(acc, a_hi, b_hi)
+    return acc
+
+
+def _margin(got, want):
+    atol, rtol = _K3_F32_TOL
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+@pytest.mark.parametrize("what,m,k,n", [("scores", 64, 80, 64),
+                                        ("pv", 64, 64, 80)])
+def test_3xtf32_error_sits_inside_k3_tolerance(what, m, k, n):
+    """A 64x80 . 80x64 score tile and a 64x64 . 64x80 P V tile at
+    unit-normal inputs against float64: 3xTF32 uses under a tenth of K3's
+    float32 tolerance (atol + rtol |x|) everywhere; one TF32 pass exceeds it
+    (margin = the largest |error| / tolerance)."""
+    rng = np.random.default_rng(14)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    three = _margin(_tc_product(a, b, 3), want)
+    one = _margin(_tc_product(a, b, 1), want)
+    print(f"{what}: margin 3xTF32 {three:.3e}, one pass {one:.3e}")
+    assert three < 0.1
+    assert one > 1.0
+
+
+def _tc_attention(q, k, v, passes, keys=64):
+    """Causal attention of (H, S, D) float32 q, k, v as the kernel computes
+    it: q scaled by scale * log2(e), S and P V on the emulated tensor cores,
+    an online softmax in exp2 over 64-key tiles, all state in float32."""
+    s_len, d = q.shape[1:]
+    qs = q * np.float32(1.4426950408889634 / np.sqrt(d))
+    m = np.full((q.shape[0], s_len, 1), -1e30, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape, np.float32)
+    rows = np.arange(s_len)[:, None]
+    for k0 in range(0, s_len, keys):
+        s = _tc_product(qs, np.swapaxes(k[:, k0:k0 + keys], 1, 2), passes)
+        s = np.where(np.arange(k0, k0 + keys) <= rows, s, np.float32(-1e30))
+        mx = np.maximum(m, s.max(-1, keepdims=True))
+        alpha = np.exp2(m - mx)
+        p = np.exp2(s - mx)
+        m = mx
+        l = alpha * l + p.sum(-1, keepdims=True, dtype=np.float32)
+        acc = acc * alpha + _tc_product(p, v[:, k0:k0 + keys], passes)
+    return acc / np.maximum(l, np.float32(1e-30))
+
+
+def test_3xtf32_attention_sits_inside_k3_tolerance():
+    """Whole causal rows at the serve path's length and head width (two
+    heads of S = T = 1024, D = 80, unit-normal q, k, v), the scores' error
+    carried through the softmax and P V, against float64 attention: 3xTF32
+    uses under a tenth of K3's float32 tolerance, and one TF32 pass exceeds
+    it (about 1% of the outputs, by up to about 9x), so the averaging over
+    keys does not hide a single pass."""
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.standard_normal((2, 1024, 80)).astype(np.float32)
+               for _ in range(3))
+    q64, k64, v64 = (x.astype(np.float64) for x in (q, k, v))
+    s = q64 @ np.swapaxes(k64, 1, 2) / np.sqrt(80)
+    s = np.where(np.tril(np.ones((1024, 1024), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = (p @ v64) / p.sum(-1, keepdims=True)
+    three = _margin(_tc_attention(q, k, v, 3), want)
+    one = _margin(_tc_attention(q, k, v, 1), want)
+    print(f"attention: margin 3xTF32 {three:.3e}, one pass {one:.3e}")
+    assert three < 0.1
+    assert one > 1.0
+
+
+def _lanes():
+    return [divmod(lane, 4) for lane in range(32)]       # (g, t)
+
+
+def _mma_from_fragments(a_frag, b_frag):
+    """The 16x8 product an m16n8k8 computes from its 32 lanes' fragments,
+    laid out as the PTX ISA's .tf32 tables say: A a0..a3 at (g, t),
+    (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 at (t, g), (t + 4, g)."""
+    a = np.zeros((16, 8))
+    b = np.zeros((8, 8))
+    for lane, (g, t) in enumerate(_lanes()):
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = a_frag[lane]
+        b[t, g], b[t + 4, g] = b_frag[lane]
+    return a @ b
+
+
+def _c_fragment(c, lane):
+    """A lane's C fragment of a 16x8 tile: (g, 2t), (g, 2t+1), (g+8, 2t),
+    (g+8, 2t+1)."""
+    g, t = divmod(lane, 4)
+    return c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t], c[g + 8, 2 * t + 1]
+
+
+def test_fragment_maps_hand_s_to_pv_without_moving_data():
+    """The kernel's index maps for one warp (16 rows, a 64-key tile, D = 80)
+    in float64: Q K^T with d permuted in each step of 8 (slot t = element
+    2t, slot t + 4 = 2t + 1), then P V with P's A fragment taken straight
+    from S's C fragments as (c0, c2, c1, c3) and V read at keys 2t, 2t + 1.
+    Each must equal the plain product."""
+    rng = np.random.default_rng(1)
+    d, keys = 80, 64
+    q = rng.standard_normal((16, d))
+    k = rng.standard_normal((keys, d))
+    v = rng.standard_normal((keys, d))
+
+    # S = Q K^T: column tile n (8 keys), k step kk (8 of d)
+    s_tiles = []
+    for n in range(keys // 8):
+        c = np.zeros((16, 8))
+        for kk in range(d // 8):
+            a_frag = [(q[g, 8 * kk + 2 * t], q[g + 8, 8 * kk + 2 * t],
+                       q[g, 8 * kk + 2 * t + 1], q[g + 8, 8 * kk + 2 * t + 1])
+                      for g, t in _lanes()]
+            b_frag = [(k[8 * n + g, 8 * kk + 2 * t],
+                       k[8 * n + g, 8 * kk + 2 * t + 1]) for g, t in _lanes()]
+            c += _mma_from_fragments(a_frag, b_frag)
+        s_tiles.append(c)
+    s = np.concatenate(s_tiles, axis=1)
+    np.testing.assert_allclose(s, q @ k.T, rtol=1e-12, atol=1e-12)
+
+    # O = P V with P = S as the lanes hold it: no shuffle, no shared tile
+    p = s
+    out = np.zeros((16, d))
+    for n in range(d // 8):
+        for j in range(keys // 8):
+            a_frag = []
+            for lane in range(32):
+                c0, c1, c2, c3 = _c_fragment(s_tiles[j], lane)
+                a_frag.append((c0, c2, c1, c3))
+            b_frag = [(v[8 * j + 2 * t, 8 * n + g],
+                       v[8 * j + 2 * t + 1, 8 * n + g]) for g, t in _lanes()]
+            out[:, 8 * n:8 * n + 8] += _mma_from_fragments(a_frag, b_frag)
+    np.testing.assert_allclose(out, p @ v, rtol=1e-12, atol=1e-12)
+
+
 # ------------------------------------------------------------- card only
 
 def _randn(shape, gen, dev, dtype=torch.float32):
@@ -277,6 +454,11 @@ def _randn(shape, gen, dev, dtype=torch.float32):
     (2, 300, 300, 4, 4, 80, True, 0, torch.float32),
     (2, 200, 200, 16, 8, 128, True, 64, torch.float32),
     (1, 70, 70, 2, 1, 256, True, 0, torch.bfloat16),
+    (2, 100, 100, 4, 2, 20, True, 0, torch.float32),    # D % 8 != 0
+    (1, 90, 90, 4, 4, 17, True, 0, torch.float32),      # odd D: 4-byte copies
+    (1, 90, 90, 4, 4, 17, True, 0, torch.bfloat16),
+    (2, 300, 300, 4, 4, 80, True, 24, torch.float32),   # masked leading tiles
+    (4, 1024, 1024, 32, 32, 80, True, 0, torch.float32),  # the serve shape
 ])
 def test_card_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal,
                                          window, dtype):
