@@ -6,8 +6,10 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, all at once, and count the tensor-core (HMMA)
-   instructions in the flash-attention library where cuobjdump exists;
+   one process per source, all at once; count the tensor-core (HMMA) and
+   cp.async (LDGSTS) instructions in the flash-attention and SSD-scan
+   libraries where cuobjdump exists, and print the SSD scan's ptxas
+   register and spill lines;
 2. hold the entropy-judge kernel (K1) against its plain PyTorch version;
 3. hold the fused-aggregation kernel (K2) against its plain version, bit
    for bit;
@@ -20,7 +22,9 @@ Phases, each of which raises on failure (exit code non-zero):
    host microseconds per call by piece of its wrapper;
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
-   the JAX kernel tests' shapes and at the serve path's;
+   the JAX kernel tests' shapes and at the serve path's (K5 also with
+   strong decay over 16 chunks, and twice on the same inputs, which must
+   give the same bits);
 7. serve Zamba2-2.7B at full width (random weights, float32): 4 prompts
    of 1024 tokens, then 32 greedy tokens, through ``build_model(...,
    kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
@@ -28,8 +32,9 @@ Phases, each of which raises on failure (exit code non-zero):
    logits;
 8. time K3, K4 and K5 at the serve path's shapes in turns with their
    plain versions and the PyTorch library call where one exists (SDPA for
-   K3 and K4), and print K3's two bounds: on the CUDA cores and on the
-   tensor cores in 3xTF32.
+   K3 and K4), and print K3's and K5's two bounds: on the CUDA cores and
+   on the tensor cores in 3xTF32; time K5 once more at L = 8192 (32
+   chunks).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -68,7 +73,8 @@ from repro_torch.kernels.entropy_judge import entropy_judge_sweep  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_aggregate import (  # noqa: E402
     masked_weighted_sum)
-from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 
@@ -85,6 +91,9 @@ ROUNDS = 3
 K3_TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (5e-2, 1e-2)}
 K4_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (5e-2, 0.0)}
 K5_TOL = {torch.float32: (2e-4, 5e-2), torch.bfloat16: (5e-1, 5e-2)}
+# the kernels of K5's three passes, by name
+K5_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+              "ssd_chunk_out_kernel")
 # serve path: Zamba2-2.7B, B prompts of S tokens, then GEN greedy tokens
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_GEN = "zamba2-2.7b", 4, 1024, 32
 LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
@@ -154,7 +163,9 @@ def _kernel_us(prof, names=()) -> dict:
 
 def _device_ms(fn, names, iters: int = 50) -> float:
     """Device time per call, in ms, of the kernels ``fn`` launches whose
-    names contain one of ``names`` (torch.profiler, warm caches)."""
+    names contain one of ``names`` (every kernel when empty;
+    torch.profiler, warm caches). Raises if a name matches no kernel, or
+    if there is no kernel at all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -162,7 +173,13 @@ def _device_ms(fn, names, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(_kernel_us(prof, names).values()) / iters / 1e3
+    by_kernel = _kernel_us(prof, names)
+    missing = [n for n in names if not any(n in k for k in by_kernel)]
+    if missing or not by_kernel:
+        raise AssertionError(f"no kernel named {missing or names} in the "
+                             f"profile; kernels seen: "
+                             f"{sorted(_kernel_us(prof))}")
+    return sum(by_kernel.values()) / iters / 1e3
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -537,10 +554,15 @@ def check_k4() -> float:
     return worst
 
 
-def _ssd_inputs(gen, b, l, h, p, g, n, dtype=torch.float32):
+def _ssd_inputs(gen, b, l, h, p, g, n, dtype=torch.float32, strong=False):
+    """dt ~ U(0.001, 0.1) and a = -exp(N(0, 1)); ``strong`` decay takes a
+    ~ U(-20, -1), so cums reaches about -500 inside a 256-step chunk."""
     x = _randn((b, l, h, p), gen, dtype)
     dt = torch.rand((b, l, h), generator=gen, device=DEV) * 0.099 + 0.001
-    a = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
+    if strong:
+        a = -1.0 - 19.0 * torch.rand((h,), generator=gen, device=DEV)
+    else:
+        a = -torch.exp(torch.randn((h,), generator=gen, device=DEV))
     return (x, dt, a, _randn((b, l, g, n), gen, dtype),
             _randn((b, l, g, n), gen, dtype))
 
@@ -549,25 +571,38 @@ def check_k5() -> float:
     """K5 against ssd_chunked_reference; returns the largest float32
     error."""
     gen = torch.Generator(device=DEV).manual_seed(5)
-    cases = [  # (b, l, h, p, g, n, chunk)
-        (2, 64, 4, 8, 2, 16, 16), (1, 50, 4, 8, 1, 16, 16),
-        (2, 32, 6, 16, 2, 8, 8), (1, 128, 2, 32, 1, 32, 32),  # JAX tests
-        (SERVE_B, SERVE_S, 80, 64, 1, 64, 256),             # Zamba2 prefill
+    cases = [  # (b, l, h, p, g, n, chunk, strong decay)
+        (2, 64, 4, 8, 2, 16, 16, False), (1, 50, 4, 8, 1, 16, 16, False),
+        (2, 32, 6, 16, 2, 8, 8, False),
+        (1, 128, 2, 32, 1, 32, 32, False),                  # JAX tests
+        (SERVE_B, SERVE_S, 80, 64, 1, 64, 256, False),      # Zamba2 prefill
+        (1, 4096, 8, 64, 1, 64, 256, True),     # 16 chunks, cums to -500
+        (2, 300, 4, 64, 2, 128, 256, False),    # mamba2-130m's N, ragged
+        (1, 1, 4, 64, 1, 64, 256, False),                   # one token
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for b, l, h, p, g, n, q in cases:
-            x, dt, a, bm, cm = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
+        for b, l, h, p, g, n, q, strong in cases:
+            x, dt, a, bm, cm = _ssd_inputs(gen, b, l, h, p, g, n, dtype,
+                                           strong)
             y1, h1 = ssd_chunked(x, dt, a, bm, cm, chunk=q)
             y0, h0 = ref.ssd_chunked_reference(x, dt, a, bm, cm, chunk=q)
             torch.cuda.synchronize()
-            label = (f"b={b} l={l} h={h} p={p} g={g} n={n} chunk={q} "
+            label = (f"b={b} l={l} h={h} p={p} g={g} n={n} chunk={q}"
+                     f"{' strong decay' if strong else ''} "
                      f"{str(dtype)[6:]}")
             err = max(_check_close("K5 y", label, y1, y0, K5_TOL[dtype]),
                       _check_close("K5 state", label, h1, h0,
                                    K5_TOL[dtype]))
             if dtype == torch.float32:
                 worst = max(worst, err)
+    # the same inputs twice give the same bits (no atomics, fixed order)
+    x, dt, a, bm, cm = _ssd_inputs(gen, SERVE_B, SERVE_S, 80, 64, 1, 64)
+    y1, h1 = ssd_chunked(x, dt, a, bm, cm)
+    y2, h2 = ssd_chunked(x, dt, a, bm, cm)
+    if not (torch.equal(y1, y2) and torch.equal(h1, h2)):
+        raise AssertionError("K5 gives other bits on a second call")
+    print("K5 at the serve shape: two calls equal bit for bit")
     return worst
 
 
@@ -633,7 +668,8 @@ def serve_path() -> dict:
     groups, per = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
     expect = {"entropy_judge_sweep": 0, "masked_weighted_sum": 0,
               "flash_attention": groups, "decode_attention":
-              groups * (SERVE_GEN - 1), "ssd_chunked": groups * per}
+              groups * (SERVE_GEN - 1),
+              "ssd_chunked": groups * per * K5_LAUNCHES_PER_CALL}
     print(f"launches in one request batch: {launches} (expected {expect})")
     if launches != expect:
         raise AssertionError(f"serve launches {launches} != {expect}")
@@ -753,16 +789,35 @@ def time_lm_kernels() -> dict:
         "kernel": call,
         "plain": lambda: ref.ssd_chunked_reference(x, dt, a, bm, cm,
                                                    chunk=chunk)}, **kw)
-    dev_ms = _device_ms(call, ("ssd_kernel",), iters=10)
-    chunks = -(-s // chunk)
-    # the causal half of each chunk's two Q x Q products, plus C h^T and
-    # the state update
-    flops = 2 * chunks * b * hs * (chunk * (chunk + 1) // 2 * (n + p) +
-                                   2 * chunk * p * n)
-    nbytes = (2 * b * s * hs * p + 2 * b * s * g * n + b * s * hs + hs +
-              b * hs * p * n) * 4
-    out["ssd_chunked"] = (ms["kernel"], ms["plain"], None,
-                          *_bound_ms(nbytes, flops), dev_ms)
+    dev_ms = _device_ms(call, K5_KERNELS, iters=10)
+    # K5 runs its products on the tensor cores in 3xTF32: its bound_ms is
+    # that bound; the CUDA-core bound is kept beside it
+    k5_tc, k5_cc, k5_by = _k5_bounds(b, s, hs, p, g, n, chunk)
+    out["ssd_chunked"] = (ms["kernel"], ms["plain"], None, k5_tc, k5_by,
+                          dev_ms)
+    out["k5_cuda_core_bound_ms"] = k5_cc
+    flops = _k5_flops(b, s, hs, p, g, n, chunk)
+    per_head = _k5_flops(b, s, hs, p, g, n, chunk, per_head_scores=True)
+    print(f"K5 bounds at ({b}, {s}, {hs}, {p}, {g}, {n}, {chunk}): tensor "
+          f"cores in 3xTF32 {k5_tc:.5f} ms ({k5_by}; 3 x "
+          f"{flops / 1e9:.2f} GFLOP at {TF32_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s TF32), CUDA cores {k5_cc:.5f} ms; with C B^T counted "
+          f"once per head ({per_head / 1e9:.2f} GFLOP): "
+          f"{3 * per_head / TF32_FLOP_PER_S * 1e3:.5f} and "
+          f"{per_head / F32_FLOP_PER_S * 1e3:.5f} ms")
+    del x, dt, a, bm, cm
+    # a long sequence: 32 chunks, which the kernel runs side by side
+    long_l = 8 * s
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, long_l, hs, p, g, n)
+    call = lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk)
+    long_ms = _time_ms(call, iters=10, warmup=2)
+    long_dev = _device_ms(call, K5_KERNELS, iters=5)
+    long_tc, long_cc, _ = _k5_bounds(b, long_l, hs, p, g, n, chunk)
+    print(f"K5 at ({b}, {long_l}, {hs}, {p}, {g}, {n}, {chunk}): "
+          f"{long_ms:.5f} ms per call (kernel alone {long_dev:.5f} ms), "
+          f"bound {long_tc:.5f} ms in 3xTF32, {long_cc:.5f} ms on the "
+          f"CUDA cores")
+    del x, dt, a, bm, cm
     for name in ("flash_attention", "decode_attention", "ssd_chunked"):
         ms, plain_ms, lib_ms, bound, by, dev_ms = out[name]
         lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
@@ -770,6 +825,38 @@ def time_lm_kernels() -> dict:
               f"ms), plain {plain_ms:.5f} ms, library {lib} (in turns), "
               f"bound {bound:.5f} ms ({by})")
     return out
+
+
+def _k5_flops(b, l, h, p, g, n, chunk, per_head_scores=False) -> int:
+    """K5's operations: for each chunk and head the causal half of
+    (C B^T o L)(dt x) and the chunk state, C h^T for every chunk but the
+    first (which enters with h = 0), and the causal half of the scores
+    C B^T once per head group (once per head, as the kernel before the
+    redesign computed them, with ``per_head_scores``)."""
+    chunks = -(-l // chunk)
+    half = chunk * (chunk + 1) // 2
+    scores = (h if per_head_scores else g) * half * n
+    return 2 * b * (chunks * (h * (half * p + chunk * p * n) + scores) +
+                    (chunks - 1) * h * chunk * p * n)
+
+
+def _k5_bounds(b, l, h, p, g, n, chunk) -> tuple[float, float, str]:
+    """K5's (3xTF32 tensor-core bound ms, CUDA-core bound ms, what bounds
+    the first) for the operations of :func:`_k5_flops` against x, y, B,
+    C, dt, a and the state moved once."""
+    flops = _k5_flops(b, l, h, p, g, n, chunk)
+    nbytes = (2 * b * l * h * p + 2 * b * l * g * n + b * l * h + h +
+              b * h * p * n) * 4
+    tc, by = _bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    cc, _ = _bound_ms(nbytes, flops)
+    return tc, cc, by
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """The entry, register and spill lines of an ``nvcc -Xptxas -v`` log."""
+    keep = ("Compiling entry function", "Used ", "spill")
+    return [line.strip() for line in log.splitlines()
+            if any(k in line for k in keep)]
 
 
 def count_hmma(name: str = "flash_attention") -> str:
@@ -809,6 +896,10 @@ def main() -> int:
         print(f"-- nvcc {name} ({info['seconds']:.2f} s):\n"
               f"{info['log'].strip()}")
     print(count_hmma())
+    print(count_hmma("ssd_scan"))
+    if "ssd_scan" in built:
+        print("ssd_scan ptxas:\n  " + "\n  ".join(
+            ptxas_lines(built["ssd_scan"]["log"])))
 
     _phase("2. K1 entropy_judge_sweep vs plain")
     k1_err = check_k1()
@@ -871,6 +962,9 @@ def main() -> int:
         if name == "flash_attention":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
+        if name == "ssd_chunked":
+            row["tensor_core_bound_ms"] = bound
+            row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,9 @@
 //   product; one TF32 pass keeps about 2^-11 and misses the float32
 //   tolerance (tests/test_torch_lm_kernels.py emulates both). bfloat16
 //   values are exact in TF32, so K and V have lo = 0 there and that pass
-//   is skipped. mma.sync and not wgmma: TF32 wgmma reads B only K-major
+//   is skipped. The split, the mma and the cp.async helpers live in
+//   tf32_mma.cuh, shared with the SSD chunk scan (K5). mma.sync and not
+//   wgmma: TF32 wgmma reads B only K-major
 //   from shared memory, and V stored [key][d] is MN-major in P V, while
 //   mma.sync takes both operands from registers, where the split happens.
 // - No P hand-off. In the m16n8k8 TF32 fragments (PTX ISA, "Matrix
@@ -74,7 +76,6 @@
 // - K tiles that the causal or window mask removes for every row of the
 //   q tile are skipped; the masks are applied only on tiles that cross
 //   the diagonal, the window's edge or T.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -84,6 +85,7 @@
 #include <type_traits>
 
 #include "smem_limit.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -106,79 +108,6 @@ struct Tile {
   static constexpr size_t kSmem =
       sizeof(float) * (kStages * kStage + (kQInRegs ? 0 : kBQ * kLdK));
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to about 2^-22 of x, both TF32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// c += a b on the tensor cores: A 16x8, B 8x8, TF32 in, float32 out
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in 3xTF32 (lo*hi + hi*lo + hi*hi); B's lo pass is skipped when
-// B is exact in TF32 (bfloat16 inputs)
-template <bool kExactB>
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4],
-                                           float b0, float b1) {
-  if constexpr (kExactB) {
-    const uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1);
-    mma_tf32(c, a_lo, h0, h1);
-    mma_tf32(c, a_hi, h0, h1);
-  } else {
-    uint32_t h0, l0, h1, l1;
-    split(b0, h0, l0);
-    split(b1, h1, l1);
-    mma_tf32(c, a_lo, h0, h1);
-    mma_tf32(c, a_hi, l0, l1);
-    mma_tf32(c, a_hi, h0, h1);
-  }
-}
-
-// Asynchronous copies global -> shared; src_size 0 zero-fills the slot
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Stages keys k0 .. k0 + BK - 1 of one kv head into ks [BK][kLdK] and
 // vs [BK][kLdV]; rows past T become zeros. float32 goes by cp.async,

@@ -148,6 +148,70 @@ def ssd_chunked_reference(x: torch.Tensor, dt: torch.Tensor,
     return y, hstate
 
 
+def ssd_chunk_passes_reference(x: torch.Tensor, dt: torch.Tensor,
+                               a: torch.Tensor, b_mat: torch.Tensor,
+                               c_mat: torch.Tensor, *, chunk: int = 256
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunk scan from a zero state, split into the three passes of
+    the CUDA kernel (K5); the tests hold it against the Pallas kernel and
+    :func:`ssd_chunked_reference`, and the main path does not use it.
+
+    1. chunk states S_c = sum_j exp(cums_Q - cums_j) dt_j x_j (outer) B_j
+       and decays exp(cums_Q), and the scores C B^T of each chunk and head
+       group (shared by the group's heads), every chunk at once;
+    2. the state entering each chunk, h_0 = 0 and h_c+1 = exp(cums_Q) h_c
+       + S_c, in chunk order;
+    3. chunk outputs y_i = sum_{j<=i} (C_i . B_j) exp(cums_i - cums_j)
+       dt_j x_j + exp(cums_i) C_i . h_c, every chunk at once.
+
+    A ragged tail takes dt = 0 steps. Returns (y in x's dtype, final state
+    (B, H, P, N) float32).
+    """
+    bsz, l, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    q = min(chunk, l)
+    nc = -(-l // q)
+    pad = nc * q - l
+    f32 = torch.float32
+
+    def chunks(t):          # (B, L, H or G, W) -> (B, nc, Q, H, W) float32
+        t = _pad_seq(t, pad).to(f32).repeat_interleave(h // t.shape[2], 2)
+        return t.reshape(bsz, nc, q, h, -1)
+
+    xs, bs, cs = chunks(x), chunks(b_mat), chunks(c_mat)
+    dts = _pad_seq(dt.to(f32), pad).reshape(bsz, nc, q, h)
+    bg = _pad_seq(b_mat, pad).to(f32).reshape(bsz, nc, q, g, n)
+    cg = _pad_seq(c_mat, pad).to(f32).reshape(bsz, nc, q, g, n)
+    cums = torch.cumsum(dts * a.to(f32), dim=2)              # (B,nc,Q,H)
+    c_last = cums[:, :, -1:, :]
+
+    # 1. chunk states and decays; the scores C B^T, once per head group
+    w = torch.exp(c_last - cums) * dts
+    states = torch.einsum("bcqhp,bcqhn->bhcpn", w[..., None] * xs, bs)
+    decay = torch.exp(c_last[:, :, 0, :]).transpose(1, 2)    # (B, H, nc)
+    scores = torch.einsum("bcign,bcjgn->bcijg", cg, bg)       # (B,nc,i,j,G)
+
+    # 2. the state entering each chunk
+    hcur = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(hcur)
+        hcur = decay[:, :, ci, None, None] * hcur + states[:, :, ci]
+    h_in = torch.stack(h_in, dim=2)                          # (B,H,nc,P,N)
+
+    # 3. chunk outputs
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]    # (B,nc,i,j,H)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    scale = torch.where(causal, torch.exp(seg),
+                        torch.zeros((), device=x.device)) * dts[:, :, None]
+    scores = scores.repeat_interleave(h // g, dim=4) * scale
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xs)
+    y = y + torch.exp(cums)[..., None] * torch.einsum(
+        "bcihn,bhcpn->bcihp", cs, h_in)
+    return y.reshape(bsz, nc * q, h, p)[:, :l].to(x.dtype), hcur
+
+
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad axis 1 (the sequence axis) at the end by ``pad``."""
     shape = list(t.shape)

@@ -7,8 +7,15 @@ dt = 0. Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N)
 float32). x, b_mat, c_mat are float32 or bfloat16; dt and a are taken in
 float32, as the TPU kernel does.
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version, :func:`.ref.ssd_chunked_reference`.
+A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
+plain version, :func:`.ref.ssd_chunked_reference`. One call launches three
+kernels in stream order (the chunk states, the state pass over the chunks,
+the chunk outputs; :func:`.ref.ssd_chunk_passes_reference` is the same
+decomposition in plain PyTorch), with three float32 scratch tensors: the
+chunk states (B, H, nc, P, N), nc = ceil(L / chunk), their decays
+(B, H, nc), and the scores C B^T of each chunk and head group
+(B, nc, G, Qp, Qp), Qp = chunk rounded up to 64, which the group's heads
+share.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ from ._build import bind, launch, load
 _KERNELS = {torch.float32: "ssd_chunk_scan_f32",
             torch.bfloat16: "ssd_chunk_scan_bf16"}
 MAX_SMEM_BYTES = 232448        # shared memory a block may use on an H100
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 +
+             (ctypes.c_void_p,))
+LAUNCHES_PER_CALL = 3          # kernels one call launches
 
 
 @functools.cache
@@ -74,14 +83,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_chunked: P={p}, N={n}, chunk={q} need "
                          f"{smem} bytes of shared memory, more than a "
                          f"block has ({MAX_SMEM_BYTES})")
+    nc, qp = -(-l // q), -(-q // 64) * 64
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32,
-                        device=x.device)
+    state = torch.empty((bsz, h, p, n), **f32)
+    states = torch.empty((bsz, h, nc, p, n), **f32)
+    decay = torch.empty((bsz, h, nc), **f32)
+    scores = torch.empty((bsz, nc, g, qp, qp), **f32)
     launch(bind("ssd_scan", _KERNELS[x.dtype], _ARGTYPES), x.get_device(),
            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-           c_mat.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, l, h, p,
-           g, n, q)
-    ssd_chunked.launches += 1
+           c_mat.data_ptr(), y.data_ptr(), state.data_ptr(),
+           states.data_ptr(), decay.data_ptr(), scores.data_ptr(), bsz, l, h,
+           p, g, n, q)
+    ssd_chunked.launches += LAUNCHES_PER_CALL
     return y, state
 
 

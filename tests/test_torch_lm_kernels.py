@@ -10,13 +10,16 @@ import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_lm_kernels.py -k card
 """
+import ctypes
+import shutil
+import subprocess
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref, ssd_scan
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_chunked
@@ -228,6 +231,50 @@ def test_ssd_plain_matches_pallas(pallas, b, l, h, p, g, n, q, dtype):
                                rtol=5e-2)
 
 
+@pytest.mark.parametrize("b,l,h,p,g,n,q", SSD_SHAPES)
+def test_ssd_passes_plain_matches_pallas(pallas, b, l, h, p, g, n, q):
+    """K5's three passes in plain PyTorch (chunk states, the state pass,
+    chunk outputs) against the Pallas kernel in interpret mode."""
+    x, dt, a, bm, cm = _ssd_case(np.random.default_rng(l + p), b, l, h, p,
+                                 g, n)
+    jnp = pallas.jnp
+    y0, h0 = pallas.ssd(_j(pallas, x), jnp.asarray(dt), jnp.asarray(a),
+                        _j(pallas, bm), _j(pallas, cm), chunk=q)
+    y1, h1 = ref.ssd_chunk_passes_reference(
+        _t(x), torch.from_numpy(dt), torch.from_numpy(a), _t(bm), _t(cm),
+        chunk=q)
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=2e-4,
+                               rtol=5e-2)
+    np.testing.assert_allclose(h1.numpy(), np.asarray(h0), atol=2e-4,
+                               rtol=5e-2)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,q,strong", [
+    (1, 4096, 2, 16, 1, 16, 256, False),     # 16 chunks
+    (1, 1024, 4, 16, 2, 16, 256, True),      # a down to -20: cums to -500
+    (2, 1, 4, 8, 2, 16, 256, False),         # one token
+    (1, 600, 2, 8, 1, 16, 256, False),       # ragged tail of 88 steps
+    (1, 600, 2, 8, 1, 16, 256, True),
+])
+def test_ssd_passes_plain_matches_chunked_reference(b, l, h, p, g, n, q,
+                                                    strong):
+    """The three passes against the chunked plain version (one sequential
+    scan of the chunk states) in float32: the same sums taken in another
+    order, so they agree to float32 rounding."""
+    rng = np.random.default_rng(l + h)
+    x, dt, a, bm, cm = _ssd_case(rng, b, l, h, p, g, n)
+    if strong:
+        a = rng.uniform(-20.0, -1.0, size=(h,)).astype(np.float32)
+    args = (_t(x), torch.from_numpy(dt), torch.from_numpy(a), _t(bm),
+            _t(cm))
+    y0, h0 = ref.ssd_chunked_reference(*args, chunk=q)
+    y1, h1 = ref.ssd_chunk_passes_reference(*args, chunk=q)
+    assert y1.shape == (b, l, h, p) and h1.shape == (b, h, p, n)
+    assert bool(torch.isfinite(y1).all()) and bool(torch.isfinite(h1).all())
+    torch.testing.assert_close(y1, y0, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(h1, h0, atol=1e-5, rtol=1e-4)
+
+
 def test_ssd_single_token_plain_matches_reference(pallas):
     """One token goes to the exact sequential step on the torch route."""
     x, dt, a, bm, cm = _ssd_case(np.random.default_rng(3), 2, 1, 4, 8, 2,
@@ -376,6 +423,76 @@ def test_3xtf32_attention_sits_inside_k3_tolerance():
     assert one > 1.0
 
 
+_K5_F32_TOL = (2e-4, 5e-2)      # (atol, rtol) of K5 in float32
+
+
+def _k5_margin(got, want):
+    atol, rtol = _K5_F32_TOL
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def _tc_ssd_chunk(x, dt, a, bm, cm, h_in, passes):
+    """One chunk of K5 as its kernels compute it, with the products on the
+    emulated tensor cores: cums in float32, the chunk state (w x)^T B with
+    w_j = exp(cums_Q - cums_j) dt_j, the scores C B^T scaled by
+    exp(cums_i - cums_j) dt_j and masked to j <= i, their product with x,
+    and exp(cums_i) C h_in^T. Returns (y, the state after the chunk)."""
+    cums = np.cumsum(dt * a, dtype=np.float32)
+    w = np.exp(cums[-1] - cums) * dt
+    s_c = _tc_product(np.ascontiguousarray((x * w[:, None]).T), bm, passes)
+    h_out = np.exp(cums[-1]) * h_in + s_c
+    q = len(dt)
+    scores = _tc_product(cm, np.ascontiguousarray(bm.T), passes)
+    scale = np.exp(cums[:, None] - cums[None, :]) * dt[None, :]
+    scores = np.where(np.tril(np.ones((q, q), bool)), scores * scale,
+                      np.float32(0)).astype(np.float32)
+    carried = np.exp(cums)[:, None] * _tc_product(
+        cm, np.ascontiguousarray(h_in.T), passes)
+    return carried + _tc_product(scores, x, passes), h_out
+
+
+def _ssd_chunk_f64(x, dt, a, bm, cm, h_in):
+    x, dt, bm, cm, h_in = (v.astype(np.float64) for v in (x, dt, bm, cm,
+                                                           h_in))
+    cums = np.cumsum(dt * np.float64(a))
+    q = len(dt)
+    lmat = np.where(np.tril(np.ones((q, q), bool)),
+                    np.exp(cums[:, None] - cums[None, :]), 0.0)
+    y = ((cm @ bm.T) * lmat * dt[None, :]) @ x + \
+        np.exp(cums)[:, None] * (cm @ h_in.T)
+    h_out = np.exp(cums[-1]) * h_in + \
+        ((x * (np.exp(cums[-1] - cums) * dt)[:, None]).T @ bm)
+    return y, h_out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_3xtf32_ssd_chunk_sits_inside_k5_tolerance(seed):
+    """One 256-step chunk at P = N = 64 with an incoming state (x, B, C,
+    h unit-normal, dt ~ U(0.001, 0.1), a = -exp(N(0, 1))), every product
+    of K5 (C B^T, the masked scores times x, C h^T, the chunk state) on
+    the emulated tensor cores, against float64 (margin = the largest
+    |error| / (atol 2e-4 + rtol 5e-2 |want|), K5's float32 tolerance):
+    3xTF32 keeps y and the new state within 0.005-0.011 of it over these
+    seeds, and one TF32 pass exceeds it on y by 5.2-8.5x."""
+    rng = np.random.default_rng(seed)
+    q, p, n = 256, 64, 64
+    x = rng.standard_normal((q, p)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, q).astype(np.float32)
+    a = np.float32(-np.exp(rng.standard_normal()))
+    bm, cm = (rng.standard_normal((q, n)).astype(np.float32)
+              for _ in range(2))
+    h_in = rng.standard_normal((p, n)).astype(np.float32)
+    y64, h64 = _ssd_chunk_f64(x, dt, a, bm, cm, h_in)
+    y3, h3 = _tc_ssd_chunk(x, dt, a, bm, cm, h_in, 3)
+    y1, h1 = _tc_ssd_chunk(x, dt, a, bm, cm, h_in, 1)
+    three = max(_k5_margin(y3, y64), _k5_margin(h3, h64))
+    one = _k5_margin(y1, y64)
+    print(f"seed {seed}: margin 3xTF32 {three:.3e}, one pass {one:.3e} "
+          f"(state {_k5_margin(h1, h64):.3e})")
+    assert three < 0.05
+    assert one > 1.0
+
+
 def _lanes():
     return [divmod(lane, 4) for lane in range(32)]       # (g, t)
 
@@ -504,28 +621,104 @@ def test_card_decode_kernel_matches_plain(cuda, b, t, h, kh, d, window,
                                rtol=0)
 
 
-@pytest.mark.parametrize("b,l,h,p,g,n,q,dtype", [
-    (2, 64, 4, 8, 2, 16, 16, torch.float32),
-    (1, 50, 4, 8, 1, 16, 16, torch.bfloat16),
-    (1, 128, 2, 32, 1, 32, 32, torch.float32),
-    (2, 600, 8, 64, 1, 64, 256, torch.float32),
-    (1, 300, 4, 64, 2, 128, 256, torch.float32),
+@pytest.mark.parametrize("b,l,h,p,g,n,q,dtype,strong", [
+    (2, 64, 4, 8, 2, 16, 16, torch.float32, False),
+    (1, 50, 4, 8, 1, 16, 16, torch.bfloat16, False),
+    (1, 128, 2, 32, 1, 32, 32, torch.float32, False),
+    (2, 600, 8, 64, 1, 64, 256, torch.float32, False),
+    (1, 300, 4, 64, 2, 128, 256, torch.float32, False),
+    (4, 1024, 80, 64, 1, 64, 256, torch.float32, False),  # the serve shape
+    (2, 600, 8, 64, 1, 64, 256, torch.bfloat16, False),
+    (1, 300, 4, 64, 2, 128, 256, torch.bfloat16, False),
+    (1, 200, 4, 96, 1, 32, 64, torch.float32, False),     # two P tiles
+    (1, 130, 2, 16, 1, 256, 64, torch.float32, False),    # N = 256
+    (3, 1, 4, 64, 1, 64, 256, torch.float32, False),      # one token
+    (1, 250, 4, 32, 4, 32, 100, torch.float32, False),    # chunk % 64, G = H
+    (2, 100, 6, 20, 3, 24, 48, torch.bfloat16, False),    # odd widths
+    (1, 90, 2, 17, 1, 18, 32, torch.float32, False),      # 4-byte copies
+    # 16 chunks of 256 steps side by side, with a down to -20
+    (2, 4096, 8, 64, 1, 64, 256, torch.float32, True),
+    (2, 4096, 8, 64, 1, 64, 256, torch.bfloat16, True),
 ])
-def test_card_ssd_kernel_matches_plain(cuda, b, l, h, p, g, n, q, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(l)
-    x = _randn((b, l, h, p), gen, cuda, dtype)
-    dt = torch.rand((b, l, h), generator=gen, device=cuda) * 0.099 + 0.001
-    a = -torch.exp(torch.randn((h,), generator=gen, device=cuda))
-    bm = _randn((b, l, g, n), gen, cuda, dtype)
-    cm = _randn((b, l, g, n), gen, cuda, dtype)
+def test_card_ssd_kernel_matches_plain(cuda, b, l, h, p, g, n, q, dtype,
+                                       strong):
+    x, dt, a, bm, cm = _ssd_card_case(cuda, l, b, l, h, p, g, n, dtype,
+                                      strong)
     before = ssd_chunked.launches
     y1, h1 = ssd_chunked(x, dt, a, bm, cm, chunk=q)
     y0, h0 = ref.ssd_chunked_reference(x, dt, a, bm, cm, chunk=q)
     torch.cuda.synchronize()
-    assert ssd_chunked.launches == before + 1
+    assert ssd_chunked.launches == before + 3     # three kernels a call
+    assert bool(torch.isfinite(y1.float()).all())
     atol = 2e-4 if dtype == torch.float32 else 5e-1
     torch.testing.assert_close(y1.float(), y0.float(), atol=atol, rtol=5e-2)
     torch.testing.assert_close(h1, h0, atol=atol, rtol=5e-2)
+
+
+def _ssd_card_case(dev, seed, b, l, h, p, g, n, dtype=torch.float32,
+                   strong=False):
+    """dt ~ U(0.001, 0.1), a = -exp(N(0, 1)) or, for ``strong`` decay,
+    a ~ U(-20, -1) (cums near -500 inside a 256-step chunk)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn((b, l, h, p), gen, dev, dtype)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
+    if strong:
+        a = -1.0 - 19.0 * torch.rand((h,), generator=gen, device=dev)
+    else:
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    bm = _randn((b, l, g, n), gen, dev, dtype)
+    cm = _randn((b, l, g, n), gen, dev, dtype)
+    return x, dt, a, bm, cm
+
+
+def test_card_ssd_kernel_repeats_bit_for_bit(cuda):
+    """No atomics and no order between blocks: two calls on the same
+    inputs give the same bits."""
+    x, dt, a, bm, cm = _ssd_card_case(cuda, 2, 4, 1024, 80, 64, 1, 64)
+    y1, h1 = ssd_chunked(x, dt, a, bm, cm)
+    y2, h2 = ssd_chunked(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_card_ssd_one_tf32_pass_misses_k5_tolerance(cuda, tmp_path,
+                                                    monkeypatch):
+    """K5's float32 tolerance tells 3xTF32 from one TF32 pass on the card:
+    ssd_scan.cu built with its float32 products in one pass (hi*hi, the
+    two lo passes of tf32_mma.cuh's mma_3xtf32_b taken out) misses it at
+    the serve shape, where the kernel as built meets it. Prints each
+    one's share of the tolerance, the largest |error| / (atol + rtol
+    |want|) over y and the state."""
+    header = (_build.CSRC / "tf32_mma.cuh").read_text()
+    lo_passes = ("  mma_tf32(c, a_lo, h0, h1);\n"
+                 "  if constexpr (!kExactB) mma_tf32(c, a_hi, l0, l1);\n")
+    assert header.count(lo_passes) == 1
+    for src in _build.CSRC.glob("*.cuh"):
+        shutil.copy(src, tmp_path)
+    (tmp_path / "tf32_mma.cuh").write_text(header.replace(lo_passes, ""))
+    shutil.copy(_build.CSRC / "ssd_scan.cu", tmp_path)
+    lib = tmp_path / "libssd_scan_one_pass.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(tmp_path / "ssd_scan.cu")], check=True,
+                   capture_output=True, timeout=600)
+    one_pass = ctypes.CDLL(str(lib)).ssd_chunk_scan_f32
+    one_pass.argtypes = list(ssd_scan._ARGTYPES)
+    one_pass.restype = ctypes.c_int
+
+    x, dt, a, bm, cm = _ssd_card_case(cuda, 2, 4, 1024, 80, 64, 1, 64)
+    want = ref.ssd_chunked_reference(x, dt, a, bm, cm)
+
+    def share():
+        got = ssd_chunked(x, dt, a, bm, cm)
+        return max(float(((g - w).abs() / (2e-4 + 5e-2 * w.abs())).max())
+                   for g, w in zip(got, want))
+
+    three = share()
+    monkeypatch.setattr(ssd_scan, "bind", lambda *_: one_pass)
+    one = share()
+    print(f"K5 at (4, 1024, 80, 64, 1, 64, 256) float32, share of its "
+          f"tolerance: 3xTF32 {three:.4g}, one TF32 pass {one:.4g}")
+    assert three < 1 < one, (three, one)
 
 
 def test_card_lm_kernel_wrappers_reject_what_they_do_not_take(cuda):
