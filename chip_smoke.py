@@ -10,16 +10,25 @@ Phases, each of which raises on failure (exit code non-zero):
    cp.async (LDGSTS) instructions in the flash-attention and SSD-scan
    libraries where cuobjdump exists, and print the SSD scan's ptxas
    register and spill lines;
-2. hold the entropy-judge kernel (K1) against its plain PyTorch version;
+2. hold the entropy-judge kernels (K1) against their plain PyTorch
+   versions: the sweep, with its emptying conventions, and the greedy
+   loop of Alg. 1 in one launch, on random active, protected and cap
+   settings with tied duplicate rows, at every cluster size (1-16 CTAs)
+   at 151,936 classes, and twice on the same inputs (same bits);
 3. hold the fused-aggregation kernel (K2) against its plain version, bit
    for bit;
 4. drive the paper's FedEntropy round at full width — the CIFAR-shaped
    CNN, N = 100 clients, 10% participation, E = 5, batch 50 — for three
-   rounds through both kernels, show by launch counts that it did, and
-   repeat the rounds on the plain versions to check the result;
-5. time both kernels at the main path's shapes in turns with their plain
-   versions and, for K2, the PyTorch library call ``w @ flat``; print K2's
-   host microseconds per call by piece of its wrapper;
+   rounds through K1's loop kernel (one launch a round, the sweep never)
+   and K2, show by launch counts that it did, and repeat the rounds on
+   the plain versions to check the result;
+5. time K1's sweep and loop and K2 at the main path's shapes in turns with
+   their plain versions and, for K2, the PyTorch library call
+   ``w @ flat``; time one whole judgment by route in turns (plain, kernel,
+   kernel, plain); print K1's and K2's host microseconds per call by piece
+   of the wrapper, the loop at 151,936 classes per iteration beside its
+   bytes bound and the sweep per iteration, and the launch floor (an
+   empty kernel launched the same way);
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
    the JAX kernel tests' shapes and at the serve path's (K5 also with
@@ -62,19 +71,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import fl  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.core.judgment import judge_np  # noqa: E402
+from repro_torch.core.entropy import group_entropy_np  # noqa: E402
+from repro_torch.core.judgment import _TOL as TOL, judge_np  # noqa: E402
 from repro_torch.data.corpus import ClientCorpus  # noqa: E402
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
-from repro_torch.kernels import _build, fused_aggregate, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, entropy_judge, fused_aggregate, ref)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention)
-from repro_torch.kernels.entropy_judge import entropy_judge_sweep  # noqa: E402
+from repro_torch.kernels.entropy_judge import (  # noqa: E402
+    entropy_judge_loop, entropy_judge_sweep)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_aggregate import (  # noqa: E402
     masked_weighted_sum)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
+from repro_torch.launch.time_judge import judgment_ms  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 
@@ -99,6 +112,7 @@ SERVE_ARCH, SERVE_B, SERVE_S, SERVE_GEN = "zamba2-2.7b", 4, 1024, 32
 LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
 
 WRAPPERS = {"entropy_judge_sweep": entropy_judge_sweep,
+            "entropy_judge_loop": entropy_judge_loop,
             "masked_weighted_sum": masked_weighted_sum,
             "flash_attention": flash_attention,
             "decode_attention": decode_attention,
@@ -161,24 +175,55 @@ def _kernel_us(prof, names=()) -> dict:
     return out
 
 
-def _device_ms(fn, names, iters: int = 50) -> float:
+def _queued_ms(fn, iters: int = 50) -> float:
+    """Device time per call of everything ``fn`` launches: CUDA events
+    around ``iters`` calls queued behind a kernel that sleeps longer than
+    the host takes to launch them, so the card runs them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)          # about 25 ms at 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, names, iters: int = 50, tries: int = 3) -> float:
     """Device time per call, in ms, of the kernels ``fn`` launches whose
     names contain one of ``names`` (every kernel when empty;
-    torch.profiler, warm caches). Raises if a name matches no kernel, or
-    if there is no kernel at all."""
+    torch.profiler, warm caches). A profile that recorded no kernel at all
+    is taken again after a pause, up to ``tries`` times; when none
+    records one, the time of everything ``fn`` launches, queued behind a
+    sleeping kernel (:func:`_queued_ms`), stands in, and a line says so.
+    Raises if a name matches no kernel of a profile that has kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = _kernel_us(prof)
+        if seen:
+            break
+    else:
+        ms = _queued_ms(fn, iters)
+        print(f"(torch.profiler recorded no kernel in {tries} tries: "
+              f"{ms:.5f} ms by CUDA events behind a sleeping kernel, for "
+              f"{names or 'every kernel'})")
+        return ms
     by_kernel = _kernel_us(prof, names)
     missing = [n for n in names if not any(n in k for k in by_kernel)]
     if missing or not by_kernel:
         raise AssertionError(f"no kernel named {missing or names} in the "
-                             f"profile; kernels seen: "
-                             f"{sorted(_kernel_us(prof))}")
+                             f"profile; kernels seen: {sorted(seen)}")
     return sum(by_kernel.values()) / iters / 1e3
 
 
@@ -205,7 +250,7 @@ def _k1_inputs(m, c, seed, dtype=torch.float32, mask=None):
             torch.tensor(mask, dtype=torch.float32, device=dev))
 
 
-def check_k1() -> float:
+def check_k1_sweep() -> float:
     worst = 0.0
     cases = [((10, 10), torch.float32, None), ((8, 10), torch.float32, None),
              ((16, 1000), torch.float32, None),
@@ -214,7 +259,9 @@ def check_k1() -> float:
              ((10, 151936), torch.float32, None),
              ((16, 1000), torch.bfloat16, None),
              ((10, 10), torch.float32, "single"),
-             ((10, 10), torch.float32, "empty")]
+             ((10, 10), torch.float32, "empty"),
+             ((10, 4096), torch.float32, "single"),
+             ((10, 4096), torch.float32, "empty")]
     for i, ((m, c), dtype, special) in enumerate(cases):
         mask = None
         if special == "single":
@@ -243,6 +290,147 @@ def check_k1() -> float:
                     bool((loo_k == -1.0).all())):
                 raise AssertionError("K1 empty-set conventions broken")
         worst = max(worst, err)
+    return worst
+
+
+def _loop_inputs(m, c, seed):
+    """K1 loop inputs on the card: Dirichlet(0.3) rows with rows 1 and
+    m - 1 equal outliers (a tie: the first index must win) and, by seed
+    % 3, everything active and nothing protected, random active and
+    protected rows, or protected rows and a cap of 2."""
+    rng = np.random.default_rng(seed)
+    soft = rng.dirichlet(np.full(c, 0.3), size=m).astype(np.float32)
+    sizes = rng.integers(10, 500, m).astype(np.float32)
+    if m > 2:
+        soft[[1, m - 1]] = 0.1 / c
+        soft[[1, m - 1], 3] += 0.9
+        sizes[[1, m - 1]] = 450.0
+    active = protected = cap = None
+    if seed % 3 == 1:
+        active = (rng.random(m) < 0.8).astype(np.float32)
+        active[[0, 1, m - 1]] = 1.0
+    if seed % 3:
+        protected = (rng.random(m) < 0.2).astype(np.float32)
+        protected[[1, m - 1]] = 0.0
+    if seed % 3 == 2:
+        cap = 2
+    t = lambda a: None if a is None else torch.tensor(a, device="cuda")
+    return t(soft), t(sizes), t(active), t(protected), cap
+
+
+def _split_margin(args, order_k, order_p) -> tuple[int, float]:
+    """Where two removal orders on the same inputs part, and by how much
+    the two choices differ in float64: (step, |gap|). At a step where both
+    remove a device, the gap is between the group entropies after either
+    removal; where one stops and the other removes, it is the removal's
+    improvement less the 1e-6 margin of Alg. 1."""
+    soft, sizes, active, _, _ = args
+    p64 = soft.double().cpu().numpy()
+    s64 = sizes.double().cpu().numpy()
+    mask = (np.ones(len(s64)) if active is None
+            else active.double().cpu().numpy())
+    step = next(i for i in range(len(mask) + 1)
+                if i >= len(order_k) or i >= len(order_p)
+                or order_k[i] != order_p[i])
+    mask[list(order_k[:step])] = 0.0
+
+    def without(k):
+        trial = mask.copy()
+        trial[k] = 0.0
+        return group_entropy_np(p64, s64, trial)
+
+    if step < len(order_k) and step < len(order_p):
+        return step, abs(without(order_k[step]) - without(order_p[step]))
+    k = (order_k if step < len(order_k) else order_p)[step]
+    return step, abs(without(k) - group_entropy_np(p64, s64, mask) - TOL)
+
+
+def _loop_kernel_of(m: int, c: int, cluster: int | None = None) -> str:
+    """Which kernel the loop runs at this shape, cluster size forced or
+    not: "one warp" or "cluster of G"."""
+    kernel, ctas = entropy_judge.loop_kernel(m, c, cluster)
+    return "one warp" if kernel == "warp" else f"cluster of {ctas}"
+
+
+def _loop_err(label, got, want, args) -> float:
+    """Verdicts equal (mask, order, number removed) or raise; returns the
+    larger entropy error. One exception, printed: the orders part at a
+    step whose two choices differ by less than Alg. 1's own 1e-6 margin
+    in float64 — a tie that float32 sums in another order decide either
+    way (repro's xla and pallas routes part on such inputs too); then the
+    orders must agree before it, and the entropies within K1_ATOL."""
+    g, w = ref.unpack_judgment(got), ref.unpack_judgment(want)
+    same = (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+            and int(g[2]) == int(w[2]))
+    err = max(abs(float(g[3]) - float(w[3])), abs(float(g[4]) - float(w[4])))
+    print(f"K1 loop {label}: removed {int(g[2])} "
+          f"{g[1][:int(g[2])].tolist()}, entropy {float(g[3]):.6f}, "
+          f"max_abs_err={err:.3e}")
+    if not same:
+        order_k = g[1][:int(g[2])].tolist()
+        order_p = w[1][:int(w[2])].tolist()
+        step, gap = _split_margin(args, order_k, order_p)
+        if not gap < TOL:
+            raise AssertionError(f"K1 loop {label}: verdicts differ from the "
+                                 f"plain version at step {step} by {gap} in "
+                                 f"float64: {order_k} vs {order_p}")
+        print(f"  float32 tie: the plain version parts at step {step} "
+              f"({order_p[step:step + 3]}...), where the two choices differ "
+              f"by {gap:.3e} < {TOL} in float64; orders equal before it")
+    if not err <= K1_ATOL:
+        raise AssertionError(f"K1 loop {label}: entropies differ from the "
+                             f"plain version: {err} > {K1_ATOL}")
+    return err
+
+
+def check_k1_loop() -> float:
+    """The loop kernel against its plain version: every shape with three
+    settings each, one active row and an empty active set, each cluster
+    size at 151,936 classes, and two calls on the same inputs."""
+    worst = 0.0
+    shapes = [(10, 10), (8, 10), (100, 10), (16, 1000), (10, 517),
+              (32, 4096), (10, 151936)]
+    for i, (m, c) in enumerate(shapes):
+        for seed in range(3):
+            args = _loop_inputs(m, c, 3 * i + seed)
+            got = entropy_judge_loop(*args)
+            want = ref.entropy_judge_loop_reference(*args)
+            torch.cuda.synchronize()
+            kernel = _loop_kernel_of(m, c)
+            worst = max(worst, _loop_err(f"({m}, {c}) setting {seed}, "
+                                         f"{kernel}", got, want, args))
+    soft, sizes, _, _, _ = _loop_inputs(10, 10, 0)
+    for label in ("single", "empty"):
+        active = torch.zeros(10, device="cuda")
+        if label == "single":
+            active[3] = 1.0
+        got = entropy_judge_loop(soft, sizes, active)
+        want = ref.entropy_judge_loop_reference(soft, sizes, active)
+        worst = max(worst, _loop_err(f"(10, 10) active={label}", got, want,
+                                     (soft, sizes, active, None, None)))
+        _, _, removed, ent, init = ref.unpack_judgment(got)
+        if int(removed) != 0 or float(ent) != float(init):
+            raise AssertionError(f"K1 loop {label}: removed a device")
+        if label == "empty" and abs(float(init) - math.log(10)) > 1e-6:
+            raise AssertionError("K1 loop empty set: entropy is not ln C")
+    for m, c, clusters in ((10, 151936, (1, 2, 4, 8, 16)),
+                           (10, 10, (1, 2))):
+        args = _loop_inputs(m, c, 0)
+        want = ref.entropy_judge_loop_reference(*args)
+        for cluster in clusters:
+            got = entropy_judge_loop(*args, _cluster=cluster)
+            worst = max(worst, _loop_err(
+                f"({m}, {c}) forced {_loop_kernel_of(m, c, cluster)}", got,
+                want, args))
+    for m, c in ((10, 10), (100, 10), (10, 151936)):
+        args = _loop_inputs(m, c, 1)
+        first = entropy_judge_loop(*args)
+        second = entropy_judge_loop(*args)
+        if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+            raise AssertionError(f"K1 loop ({m}, {c}): a second call gives "
+                                 f"other bits")
+    print("K1 loop: two calls on the same inputs equal bit for bit at "
+          "(10, 10), (100, 10) and (10, 151936)")
     return worst
 
 
@@ -324,9 +512,14 @@ def main_path():
     metrics = server.evaluate(xte, yte)
     launches = _read_counts()
     print(f"eval: {metrics}; launches in {ROUNDS} rounds: {launches}")
-    for name in ("entropy_judge_sweep", "masked_weighted_sum"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    if launches["masked_weighted_sum"] <= 0:
+        raise AssertionError("the main path never launched "
+                             "masked_weighted_sum")
+    # Alg. 1 runs in one launch of the loop kernel a round, the sweep never
+    if launches["entropy_judge_loop"] != ROUNDS or \
+            launches["entropy_judge_sweep"] != 0:
+        raise AssertionError(f"K1 launches in {ROUNDS} rounds: {launches}; "
+                             f"expected {ROUNDS} loop launches and no sweep")
     if not (0.0 <= metrics["accuracy"] <= 1.0
             and math.isfinite(metrics["loss"])):
         raise AssertionError(f"bad eval metrics {metrics}")
@@ -386,27 +579,9 @@ def profile_round(server) -> None:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
-def k2_host_us(flat, w, calls: int = 10000) -> dict:
-    """Host microseconds per call of each piece of K2's wrapper, over
-    ``calls`` calls each: its checks, the output's allocation, the stream
-    lookup and the ctypes call that launches the kernel; beside them the
-    whole wrapper and the library call ``w @ flat``."""
-    m, p = flat.shape
-    index = flat.get_device()
-    fn = fused_aggregate._fn()
-    out = flat.new_empty(p)
-    stream = _build.current_stream(index)
-    ptrs = (flat.data_ptr(), w.data_ptr(), out.data_ptr())
-    pieces = {
-        "checks": lambda: fused_aggregate._checked(flat, w,
-                                                   fused_aggregate.BLOCK),
-        "empty": lambda: flat.new_empty(p),
-        "stream": lambda: _build.current_stream(index),
-        "ctypes call": lambda: fn(*ptrs, m, p, fused_aggregate.BLOCK,
-                                  stream),
-        "whole wrapper": lambda: masked_weighted_sum(flat, w),
-        "w @ flat": lambda: w @ flat,
-    }
+def _host_us(pieces: dict, calls: int) -> dict:
+    """Host microseconds per call of each function of ``pieces``, over
+    ``calls`` calls each after 100 to warm up."""
     us = {}
     for name, piece in pieces.items():
         for _ in range(100):
@@ -420,20 +595,101 @@ def k2_host_us(flat, w, calls: int = 10000) -> dict:
     return us
 
 
+def k2_host_us(flat, w, calls: int = 10000) -> dict:
+    """Host microseconds per call of each piece of K2's wrapper, over
+    ``calls`` calls each: its checks, the output's allocation, the stream
+    lookup and the ctypes call that launches the kernel; beside them the
+    whole wrapper and the library call ``w @ flat``."""
+    m, p = flat.shape
+    index = flat.get_device()
+    fn = fused_aggregate._fn()
+    out = flat.new_empty(p)
+    stream = _build.current_stream(index)
+    ptrs = (flat.data_ptr(), w.data_ptr(), out.data_ptr())
+    return _host_us({
+        "checks": lambda: fused_aggregate._checked(flat, w,
+                                                   fused_aggregate.BLOCK),
+        "empty": lambda: flat.new_empty(p),
+        "stream": lambda: _build.current_stream(index),
+        "ctypes call": lambda: fn(*ptrs, m, p, fused_aggregate.BLOCK,
+                                  stream),
+        "whole wrapper": lambda: masked_weighted_sum(flat, w),
+        "w @ flat": lambda: w @ flat,
+    }, calls)
+
+
+def k1_host_us(soft, sizes, mask, calls: int = 10000) -> dict:
+    """Host microseconds per call of each piece of K1's sweep wrapper at a
+    shape of one launch (C <= 1024), over ``calls`` calls each: its
+    checks, the output's allocation, the stream lookup, the ctypes call
+    that launches the kernel, and the whole wrapper."""
+    m, c = soft.shape
+    assert c <= entropy_judge._BLOCK_C
+    index = soft.get_device()
+    fn = entropy_judge._sweep_fn(soft.dtype)
+    out = torch.empty(m + 1, dtype=torch.float32, device=soft.device)
+    stream = _build.current_stream(index)
+    ptrs = (soft.data_ptr(), sizes.data_ptr(), mask.data_ptr(), None,
+            out.data_ptr())
+    return _host_us({
+        "checks": lambda: entropy_judge._checked(soft, sizes, mask),
+        "empty": lambda: torch.empty(m + 1, dtype=torch.float32,
+                                     device=soft.device),
+        "stream": lambda: _build.current_stream(index),
+        "ctypes call": lambda: fn(*ptrs, m, c, entropy_judge._BLOCK_C,
+                                  stream),
+        "whole wrapper": lambda: entropy_judge_sweep(soft, sizes, mask),
+    }, calls)
+
+
+def launch_floor() -> tuple[float, float]:
+    """(ms per call, device ms) of an empty kernel of K1's library,
+    launched through ``_build.launch`` as every wrapper launches."""
+    fn = entropy_judge.empty_fn()
+    index = torch.cuda.current_device()
+    call = lambda: _build.launch(fn, index)
+    return (_time_ms(call, iters=2000, warmup=200),
+            _device_ms(call, ("empty_kernel",)))
+
+
+def _k1_sweep_work(m: int, c: int) -> tuple[int, int]:
+    """(bytes, operations) of one sweep: P read once, sizes and mask, the
+    M + 1 results; per class the weighted sum (2 M) and the group term
+    (3), per row and class its leave-one-out term (6)."""
+    return m * c * 4 + 2 * m * 4 + (m + 1) * 4, 2 * m * c + 3 * c + 6 * m * c
+
+
+def _k1_loop_work(m: int, c: int, packed) -> tuple[int, int, int]:
+    """(bytes, operations, iterations) of one loop call with every row
+    active and none protected, counted from its result: P read once, the
+    sizes, the packed result; iteration i sums the M - i rows still in
+    the set (2 per row and class) and forms their leave-one-out terms (6
+    per row and class), and the first one the group term (3 per class).
+    The last iteration is the sweep that found no improvement, unless
+    the cap (M - 1) stopped the loop."""
+    removed = int(ref.unpack_judgment(packed)[2])
+    iters = removed + (removed < m - 1)
+    ops = sum(8 * (m - i) * c for i in range(iters)) + 3 * c
+    return m * c * 4 + m * 4 + (2 * m + 3) * 4, ops, iters
+
+
 def time_kernels(judge_inputs, p: int) -> dict:
-    """K1 on the first round's soft labels and sizes with every device
-    active; K2 on a (M, P) buffer of the main path's shape. Each: (ms per
-    call, plain ms, library ms or None, bound ms, bound_by, kernel ms,
-    shape)."""
+    """K1's sweep and loop on the first round's soft labels and sizes with
+    every device active, and the whole judgment by route; K2 on a (M, P)
+    buffer of the main path's shape. Each kernel: (ms per call, plain ms,
+    library ms or None, bound ms, bound_by, kernel ms, shape)."""
     soft, sizes = judge_inputs
     m, c = soft.shape
     mask = torch.ones(m, device=soft.device)
-    k1_call = lambda: entropy_judge_sweep(soft, sizes, mask)
-    k1 = _time_turns({"kernel": k1_call,
-                      "plain": lambda: ref.entropy_judge_sweep_reference(
-                          soft, sizes, mask)})
-    k1_bytes = m * c * 4 + 2 * m * 4 + (m + 1) * 4
-    k1_flops = 2 * m * c + 3 * c + 6 * m * c
+    sweep_call = lambda: entropy_judge_sweep(soft, sizes, mask)
+    sweep = _time_turns({"kernel": sweep_call,
+                         "plain": lambda: ref.entropy_judge_sweep_reference(
+                             soft, sizes, mask)})
+    loop_call = lambda: entropy_judge_loop(soft, sizes)
+    loop = _time_turns({"kernel": loop_call,
+                        "plain": lambda: ref.entropy_judge_loop_reference(
+                            soft, sizes)})
+    loop_bytes, loop_ops, iters = _k1_loop_work(m, c, loop_call())
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flat = torch.randn((m, p), generator=gen, device="cuda")
@@ -445,18 +701,79 @@ def time_kernels(judge_inputs, p: int) -> dict:
                       "library": lambda: w @ flat}, iters=2000, warmup=200)
     k2_bytes = (m * p + m + p) * 4
     k2_flops = 2 * m * p
-    k1_dev = _device_ms(k1_call, ("judge_",))
+    sweep_dev = _device_ms(sweep_call, ("judge_sweep",))
+    loop_dev = _device_ms(loop_call, ("judge_loop",))
     k2_dev = _device_ms(k2_call, ("masked_weighted_sum",))
-    print(f"device time per call (torch.profiler): K1's two kernels "
-          f"{k1_dev:.5f} ms, every kernel of the K1 wrapper "
-          f"{_device_ms(k1_call, ()):.5f} ms, K2 kernel {k2_dev:.5f} ms")
+    print(f"device time per call (torch.profiler): K1 sweep "
+          f"{sweep_dev:.5f} ms, every kernel of the sweep wrapper "
+          f"{_device_ms(sweep_call, ()):.5f} ms, K1 loop {loop_dev:.5f} ms "
+          f"({iters} iterations, "
+          f"{_loop_kernel_of(m, c)}), every "
+          f"kernel of the loop wrapper {_device_ms(loop_call, ()):.5f} ms, "
+          f"K2 kernel {k2_dev:.5f} ms")
+    cluster_dev = _device_ms(lambda: entropy_judge_loop(
+        soft, sizes, _cluster=1), ("judge_loop",))
+    print(f"K1 loop at ({m}, {c}), kernel alone: {_loop_kernel_of(m, c)} "
+          f"{loop_dev:.5f} ms, the cluster kernel on one CTA "
+          f"{cluster_dev:.5f} ms")
+    whole, verdict = judgment_ms(soft, sizes)
+    print(f"whole judgment at ({m}, {c}), MaxEntropyJudge, host clock to "
+          f"the verdict on the host, in turns (plain, kernel, kernel, "
+          f"plain): plain loop {whole['torch']:.5f} ms, loop kernel "
+          f"{whole['cuda']:.5f} ms; rejected {verdict[1]}")
+    host = k1_host_us(soft, sizes, mask)
+    print("K1 host us per call over 10000 calls: " + ", ".join(
+        f"{name} {us:.3f}" for name, us in host.items()))
     host = k2_host_us(flat, w)
     print("K2 host us per call over 10000 calls: " + ", ".join(
         f"{name} {us:.3f}" for name, us in host.items()))
-    return {"k1": (k1["kernel"], k1["plain"], None,
-                   *_bound_ms(k1_bytes, k1_flops), k1_dev, (m, c)),
-            "k2": (k2["kernel"], k2["plain"], k2["library"],
-                   *_bound_ms(k2_bytes, k2_flops), k2_dev, (m, p))}
+    return {"entropy_judge_sweep": (
+                sweep["kernel"], sweep["plain"], None,
+                *_bound_ms(*_k1_sweep_work(m, c)), sweep_dev, (m, c)),
+            "entropy_judge_loop": (
+                loop["kernel"], loop["plain"], None,
+                *_bound_ms(loop_bytes, loop_ops), loop_dev, (m, c)),
+            "masked_weighted_sum": (
+                k2["kernel"], k2["plain"], k2["library"],
+                *_bound_ms(k2_bytes, k2_flops), k2_dev, (m, p))}
+
+
+def time_k1_wide(m: int = 10, c: int = 151936) -> None:
+    """K1 at Qwen's vocabulary: the loop per iteration against the bytes
+    bound of one read of P, each cluster size forced, and the sweep per
+    call (what each iteration of the loop cost before it was one
+    launch)."""
+    soft, sizes, _, _, _ = _loop_inputs(m, c, 0)
+    cluster = entropy_judge.cluster_size(c)
+    call = lambda: entropy_judge_loop(soft, sizes)
+    _, _, iters = _k1_loop_work(m, c, call())
+    ms = _time_ms(call, iters=50, warmup=5)
+    dev = _device_ms(call, ("judge_loop",), iters=20)
+    mask = torch.ones(m, device="cuda")
+    sweep_call = lambda: entropy_judge_sweep(soft, sizes, mask)
+    sweep_ms = _time_ms(sweep_call, iters=50, warmup=5)
+    sweep_dev = _device_ms(sweep_call, ("judge_sweep",), iters=20)
+    plain_ms = _time_ms(lambda: ref.entropy_judge_loop_reference(soft, sizes),
+                        iters=5, warmup=1)
+    per_iter_bound = m * c * 4 / HBM_BYTES_PER_S * 1e3
+    bound, by = _bound_ms(*_k1_loop_work(m, c, call())[:2])
+    print(f"K1 loop at ({m}, {c}), cluster {cluster}: {iters} iterations, "
+          f"{ms:.5f} ms per call, kernel alone {dev:.5f} ms, "
+          f"{dev / iters:.5f} ms per iteration = "
+          f"{per_iter_bound / (dev / iters):.3f} of the "
+          f"{per_iter_bound:.5f} ms bytes bound of one read of P; call "
+          f"bound {bound:.5f} ms ({by}); plain loop {plain_ms:.5f} ms")
+    print(f"K1 sweep at ({m}, {c}): {sweep_ms:.5f} ms per call, kernel "
+          f"alone {sweep_dev:.5f} ms; {iters} sweeps: {iters * sweep_ms:.5f} "
+          f"ms of calls, {iters * sweep_dev:.5f} ms of kernels")
+    forced = {g: _time_ms(lambda: entropy_judge_loop(
+        soft, sizes, _cluster=g), iters=10, warmup=2)
+        for g in (1, 2, 4, 8, 16)}
+    print("K1 loop ms per call by forced cluster size (CUDA events): " +
+          ", ".join(f"{g}: {t:.5f}" for g, t in forced.items()))
+    floor_ms, floor_dev = launch_floor()
+    print(f"launch floor: an empty kernel through _build.launch "
+          f"{floor_ms:.5f} ms per call, kernel alone {floor_dev:.5f} ms")
 
 
 # ------------------------------------------------------------------ LM path
@@ -666,7 +983,8 @@ def serve_path() -> dict:
     launches = _read_counts()
 
     groups, per = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
-    expect = {"entropy_judge_sweep": 0, "masked_weighted_sum": 0,
+    expect = {"entropy_judge_sweep": 0, "entropy_judge_loop": 0,
+              "masked_weighted_sum": 0,
               "flash_attention": groups, "decode_attention":
               groups * (SERVE_GEN - 1),
               "ssd_chunked": groups * per * K5_LAUNCHES_PER_CALL}
@@ -901,20 +1219,22 @@ def main() -> int:
         print("ssd_scan ptxas:\n  " + "\n  ".join(
             ptxas_lines(built["ssd_scan"]["log"])))
 
-    _phase("2. K1 entropy_judge_sweep vs plain")
-    k1_err = check_k1()
+    _phase("2. K1 entropy_judge_sweep and entropy_judge_loop vs plain")
+    k1_err = check_k1_sweep()
+    k1_loop_err = check_k1_loop()
     _phase("3. K2 masked_weighted_sum vs plain")
     k2_err = check_k2()
     _phase("4. main path: fedentropy, N=100, CNN at 32x32x3, 10 classes")
     launches, walls, judge_inputs, n_params = main_path()
     _phase("5. times")
     fl_times = time_kernels(judge_inputs, n_params)
-    for label, key in (("K1", "k1"), ("K2", "k2")):
-        ms, plain_ms, lib_ms, bound, by, dev_ms, shape = fl_times[key]
+    for name, (ms, plain_ms, lib_ms, bound, by, dev_ms,
+               shape) in fl_times.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
-        print(f"{label} {shape}: {ms:.5f} ms per call (kernel alone "
+        print(f"{name} {shape}: {ms:.5f} ms per call (kernel alone "
               f"{dev_ms:.5f} ms), plain {plain_ms:.5f} ms, library {lib} "
               f"(in turns), bound {bound:.3e} ms ({by})")
+    time_k1_wide()
     print(f"round wall s: {[round(x, 4) for x in walls]}, median "
           f"{statistics.median(walls):.4f}")
 
@@ -933,22 +1253,27 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(smi)
-    sources = {  # wrapper: (its phase-5 key or None, CUDA source, TPU kernel)
-        "entropy_judge_sweep": ("k1", "entropy_judge.cu",
+    sources = {  # wrapper: (timed in phase 5, CUDA source, TPU kernel)
+        "entropy_judge_sweep": (True, "entropy_judge.cu",
                                 "entropy_judge.py:68"),
-        "masked_weighted_sum": ("k2", "fused_aggregate.cu",
+        "entropy_judge_loop": (True, "entropy_judge.cu",
+                               "entropy_judge.py:68, run inside "
+                               "src/repro/core/judgment.py::judge's "
+                               "while_loop (:113)"),
+        "masked_weighted_sum": (True, "fused_aggregate.cu",
                                 "fused_aggregate.py:65"),
         "flash_attention": (None, "flash_attention.cu",
                             "flash_attention.py:75"),
         "decode_attention": (None, "decode_attention.cu",
                              "decode_attention.py:60"),
         "ssd_chunked": (None, "ssd_scan.cu", "ssd_scan.py:73")}
-    errors = {"entropy_judge_sweep": k1_err, "masked_weighted_sum": k2_err,
-              **lm_err}
+    errors = {"entropy_judge_sweep": k1_err,
+              "entropy_judge_loop": k1_loop_err,
+              "masked_weighted_sum": k2_err, **lm_err}
     kernels = []
-    for name, (fl_key, cu, tpu) in sources.items():
-        if fl_key:
-            ms, plain_ms, lib_ms, bound, by, dev_ms, _ = fl_times[fl_key]
+    for name, (on_fl_path, cu, tpu) in sources.items():
+        if on_fl_path:
+            ms, plain_ms, lib_ms, bound, by, dev_ms, _ = fl_times[name]
             count = launches[name]
         else:
             ms, plain_ms, lib_ms, bound, by, dev_ms = lm_times[name]

@@ -4,12 +4,12 @@ Two interchangeable implementations:
 
 * ``judge_np`` — literal float64 numpy transcription of Algorithm 1 (the
   host oracle; greedy per-iteration re-scan like the paper).
-* ``judge``    — the float32 greedy loop on tensors. Each iteration takes
-  the vectorized leave-one-out sweep (O(M*C)): the plain torch version
-  (``backend="torch"``) or the hand-written CUDA kernel
-  (``backend="cuda"``, ``kernels/csrc/entropy_judge.cu``). The loop itself
-  runs in Python, one host read of the stop flag per iteration, at most
-  M-1 iterations.
+* ``judge``    — the float32 greedy loop on tensors, as the reference's
+  jitted ``lax.while_loop``: ``backend="cuda"`` runs the whole loop in one
+  launch of the loop kernel (``kernels/csrc/entropy_judge.cu``) and reads
+  nothing back; ``backend="torch"`` is its plain version, a Python loop
+  over the vectorized leave-one-out sweep (O(M*C)) with one host read of
+  the stop flag per iteration.
 
 Both are exact greedy: per iteration, remove the single device whose
 removal maximally increases the size-weighted group entropy; stop when no
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .entropy import group_entropy, group_entropy_np, leave_one_out_entropies
+from .entropy import group_entropy_np
 
 # Strict-improvement tolerance: float32 entropy of broad (e.g. 151k-class)
 # distributions has ~1e-6 noise; require improvement above it.
@@ -33,8 +33,34 @@ class JudgmentResult(NamedTuple):
     mask: torch.Tensor             # (M,) float32 — 1.0 = positive device
     entropy: torch.Tensor          # () final group entropy over positives
     initial_entropy: torch.Tensor  # () entropy before any removal
-    num_removed: int               # |R|
+    num_removed: torch.Tensor      # () int32 — |R|
     removal_order: torch.Tensor    # (M,) int32 greedy-removal order, -1 pad
+
+
+def judge_packed(soft_labels: torch.Tensor, sizes: torch.Tensor,
+                 active: torch.Tensor | None = None,
+                 max_removals: int | None = None, backend: str = "torch",
+                 protected: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`judge`'s result as one (2M + 3,) float32 buffer on the device
+    of ``soft_labels`` (layout: ``kernels.ref.pack_judgment``), for a
+    caller that copies it to the host in one piece."""
+    from ..kernels import ops as kops
+
+    if backend not in kops.BACKENDS:
+        raise ValueError(f"unknown judge backend {backend!r}")
+    soft_labels = soft_labels.to(torch.float32)
+    sizes = sizes.to(device=soft_labels.device, dtype=torch.float32)
+    return kops.entropy_judge_loop(soft_labels, sizes, active, protected,
+                                   max_removals, backend=backend)
+
+
+def unpack(packed: torch.Tensor) -> JudgmentResult:
+    """The :class:`JudgmentResult` whose fields view ``packed``."""
+    from ..kernels.ref import unpack_judgment
+
+    mask, order, removed, ent, init_ent = unpack_judgment(packed)
+    return JudgmentResult(mask=mask, entropy=ent, initial_entropy=init_ent,
+                          num_removed=removed, removal_order=order)
 
 
 def judge(soft_labels: torch.Tensor, sizes: torch.Tensor,
@@ -49,49 +75,17 @@ def judge(soft_labels: torch.Tensor, sizes: torch.Tensor,
                         inactive devices are neither judged nor positive.
     max_removals: optional cap on |R| (default M-1; the set is never
                         emptied regardless).
-    backend:     "torch" (plain leave-one-out sweep) or "cuda" (the
-                        entropy_judge kernel on a CUDA tensor).
+    backend:     "torch" (the plain loop) or "cuda" (one launch of the
+                        loop kernel on a CUDA tensor; a CPU tensor takes
+                        the plain loop).
     protected:   (M,)   optional 0/1 mask of devices that count toward the
                         group entropy but are never removal candidates.
+
+    On the ``"cuda"`` route the host waits on nothing: every field is a
+    view of one buffer on the card.
     """
-    from ..kernels import ops as kops
-
-    if backend not in kops.BACKENDS:
-        raise ValueError(f"unknown judge backend {backend!r}")
-    soft_labels = soft_labels.to(torch.float32)
-    sizes = sizes.to(device=soft_labels.device, dtype=torch.float32)
-    m = soft_labels.shape[0]
-    dev = soft_labels.device
-    active = (torch.ones(m, device=dev) if active is None
-              else active.to(device=dev, dtype=torch.float32))
-    protected = (torch.zeros(m, device=dev) if protected is None
-                 else protected.to(device=dev, dtype=torch.float32))
-    cap = m - 1 if max_removals is None else int(max_removals)
-
-    init_ent = group_entropy(soft_labels, sizes, active)
-    mask, ent = active.clone(), init_ent
-    order = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    removed = 0
-    neg_inf = torch.tensor(-float("inf"), device=dev)
-    while removed < cap:
-        if backend == "cuda":
-            _, loo = kops.entropy_judge_sweep(soft_labels, sizes, mask,
-                                              backend="cuda")
-        else:
-            loo = leave_one_out_entropies(soft_labels, sizes, mask)
-        # only currently-active, unprotected devices are candidates
-        cand = torch.where((mask > 0) & (protected == 0), loo, neg_inf)
-        best = torch.argmax(cand)            # first index among ties
-        best_ent = cand[best]
-        # compared in float32, as the traced reference does
-        if not bool(best_ent > ent + _TOL):
-            break
-        mask[best] = 0.0
-        ent = best_ent
-        order[removed] = best.to(torch.int32)
-        removed += 1
-    return JudgmentResult(mask=mask, entropy=ent, initial_entropy=init_ent,
-                          num_removed=removed, removal_order=order)
+    return unpack(judge_packed(soft_labels, sizes, active, max_removals,
+                               backend, protected))
 
 
 def judge_np(soft_labels: np.ndarray, sizes: np.ndarray,

@@ -18,24 +18,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.judgment import JudgmentResult, judge, judge_np
+from ..core.judgment import judge_np, judge_packed
 from .registry import register
 
 
-def _result_to_lists(res: JudgmentResult
+def _result_to_lists(packed: torch.Tensor
                      ) -> tuple[list[int], list[int], float]:
-    mask = res.mask.cpu().numpy()
-    accepted = [i for i in range(len(mask)) if mask[i] > 0]
-    rejected = [int(k) for k in res.removal_order.cpu().numpy() if k >= 0]
-    return accepted, rejected, float(res.entropy)
+    """Accepted and rejected indices and the entropy from a packed
+    judgment (``kernels.ref.pack_judgment``'s layout), copied to the host
+    in one piece and read there with numpy."""
+    host = packed.cpu().numpy()
+    m = (host.size - 3) // 2
+    order = host[m:2 * m].view(np.int32)
+    accepted = np.flatnonzero(host[:m] > 0).tolist()
+    rejected = order[order >= 0].tolist()
+    return accepted, rejected, float(host[2 * m + 1])
 
 
 @register("judge", "maxent")
 class MaxEntropyJudge:
     """Paper Algorithm 1: drop devices whose removal raises group entropy.
 
-    backend: "numpy" (float64 host oracle), "torch" (plain float32
-    leave-one-out sweep) or "cuda" (the entropy_judge kernel).
+    backend: "numpy" (float64 host oracle), "torch" (the plain float32
+    loop) or "cuda" (Alg. 1 in one launch of the entropy_judge loop
+    kernel).
     """
 
     def __init__(self, backend: str = "numpy"):
@@ -48,8 +54,8 @@ class MaxEntropyJudge:
         if self.backend == "numpy":
             return judge_np(soft_labels.cpu().numpy().astype(np.float64),
                             sizes.cpu().numpy().astype(np.float64))
-        return _result_to_lists(judge(soft_labels, sizes,
-                                      backend=self.backend))
+        return _result_to_lists(judge_packed(soft_labels, sizes,
+                                             backend=self.backend))
 
 
 @register("judge", "none")

@@ -84,6 +84,19 @@ def entropy_judge_sweep(soft_labels, sizes, mask, *, backend="torch"):
     return ref.entropy_judge_sweep_reference(soft_labels, sizes, mask)
 
 
+def entropy_judge_loop(soft_labels, sizes, active=None, protected=None,
+                       cap=None, *, backend="torch"):
+    """Alg. 1's greedy loop; returns the packed buffer of
+    :func:`.ref.unpack_judgment`. The ``"cuda"`` route is one launch of
+    the loop kernel (K1)."""
+    _check(backend)
+    if backend == "cuda":
+        from .entropy_judge import entropy_judge_loop
+        return entropy_judge_loop(soft_labels, sizes, active, protected, cap)
+    return ref.entropy_judge_loop_reference(soft_labels, sizes, active,
+                                            protected, cap)
+
+
 def masked_weighted_sum(flat, weights, *, backend="torch"):
     _check(backend)
     if backend == "cuda":

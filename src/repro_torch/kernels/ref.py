@@ -232,6 +232,75 @@ def entropy_judge_sweep_reference(soft_labels: torch.Tensor,
     return group_entropy(p, w, k), leave_one_out_entropies(p, w, k)
 
 
+def pack_judgment(mask: torch.Tensor, order: torch.Tensor, removed: int,
+                  ent: torch.Tensor, init_ent: torch.Tensor) -> torch.Tensor:
+    """The loop kernel's output layout, one float32 buffer of 2M + 3:
+    mask (M) | removal order (M, int32 bits, -1 padded) | number removed
+    (int32 bits) | entropy | initial entropy."""
+    m = mask.numel()
+    buf = torch.empty(2 * m + 3, dtype=torch.float32, device=mask.device)
+    buf[:m] = mask
+    ints = buf[m:2 * m + 1].view(torch.int32)
+    ints[:m] = order
+    ints[m] = removed
+    buf[2 * m + 1] = ent
+    buf[2 * m + 2] = init_ent
+    return buf
+
+
+def unpack_judgment(buf: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Views (mask (M,), removal order (M,) int32, number removed () int32,
+    entropy (), initial entropy ()) of a buffer of :func:`pack_judgment`."""
+    m = (buf.numel() - 3) // 2
+    ints = buf[m:2 * m + 1].view(torch.int32)
+    return buf[:m], ints[:m], ints[m], buf[2 * m + 1], buf[2 * m + 2]
+
+
+def entropy_judge_loop_reference(soft_labels: torch.Tensor,
+                                 sizes: torch.Tensor,
+                                 active: torch.Tensor | None = None,
+                                 protected: torch.Tensor | None = None,
+                                 cap: int | None = None) -> torch.Tensor:
+    """Algorithm 1's greedy loop, one leave-one-out sweep and one host
+    read of the stop flag per iteration — the plain version of the loop
+    kernel, with the semantics of ``repro.core.judgment.judge``: the
+    candidates are the active rows that are not protected, ``argmax``
+    takes the first index among ties, a removal needs
+    ``best > ent + 1e-6`` in float32, at most ``cap`` (default M - 1)
+    removals. Returns the buffer of :func:`pack_judgment`."""
+    from ..core.entropy import group_entropy, leave_one_out_entropies
+    from ..core.judgment import _TOL
+    p = soft_labels.to(torch.float32)
+    dev = p.device
+    w = sizes.to(dev, torch.float32)
+    m = p.shape[0]
+    active = (torch.ones(m, device=dev) if active is None
+              else active.to(dev, torch.float32))
+    protected = (torch.zeros(m, device=dev) if protected is None
+                 else protected.to(dev, torch.float32))
+    cap = m - 1 if cap is None else int(cap)
+
+    init_ent = group_entropy(p, w, active)
+    mask, ent = active.clone(), init_ent
+    order = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    removed = 0
+    neg_inf = torch.tensor(-float("inf"), device=dev)
+    while removed < cap:
+        loo = leave_one_out_entropies(p, w, mask)
+        # only currently-active, unprotected devices are candidates
+        cand = torch.where((mask > 0) & (protected == 0), loo, neg_inf)
+        best = torch.argmax(cand)            # first index among ties
+        best_ent = cand[best]
+        # compared in float32, as the traced reference does
+        if not bool(best_ent > ent + _TOL):
+            break
+        mask[best] = 0.0
+        ent = best_ent
+        order[removed] = best.to(torch.int32)
+        removed += 1
+    return pack_judgment(mask, order, removed, ent, init_ent)
+
+
 def masked_weighted_sum_reference(flat: torch.Tensor,
                                   weights: torch.Tensor) -> torch.Tensor:
     """(P,) = sum_i weights[i] * flat[i, :] — the plain version of the

@@ -18,7 +18,11 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import SOURCES, library_path
-from repro_torch.kernels.entropy_judge import entropy_judge_sweep
+from repro_torch.core.judgment import judge, unpack
+from repro_torch.fl import MaxEntropyJudge
+from repro_torch.kernels.entropy_judge import (entropy_judge_loop,
+                                               entropy_judge_sweep,
+                                               loop_kernel)
 from repro_torch.kernels.fused_aggregate import masked_weighted_sum
 
 K1_ATOL = 1e-4        # tests/test_kernels.py's tolerance for this kernel
@@ -92,6 +96,74 @@ def test_entropy_judge_emptying_conventions(pallas, case):
     else:
         assert float(ent_t) == pytest.approx(math.log(c), abs=1e-6)
         assert bool((loo_t == -1.0).all())
+
+
+@pytest.mark.parametrize("case", ["one row", "sizes zero", "last two"])
+def test_entropy_judge_sweep_folded_conventions_plain(pallas, case):
+    """The conventions the kernel now applies itself, through the plain
+    version on the CPU: one row (its removal empties the set), active rows
+    of size 0 (an empty set: ln C, and every removal -1), and a removal
+    that leaves one row."""
+    m, c = {"one row": (1, 10)}.get(case, (5, 12))
+    soft, sizes, mask = _judge_case(m, c, seed=5, mask=np.ones(m))
+    if case == "sizes zero":
+        sizes[:] = 0.0
+    if case == "last two":
+        mask[2:] = 0.0
+    jnp = pallas.jnp
+    ent_j, loo_j = pallas.sweep(jnp.asarray(soft), jnp.asarray(sizes),
+                                jnp.asarray(mask), interpret=True)
+    ent_t, loo_t = ops.entropy_judge_sweep(
+        torch.from_numpy(soft), torch.from_numpy(sizes),
+        torch.from_numpy(mask), backend="cuda")
+    np.testing.assert_allclose(float(ent_t), float(ent_j), atol=K1_ATOL)
+    np.testing.assert_allclose(loo_t.numpy(), np.asarray(loo_j),
+                               atol=K1_ATOL)
+    if case == "sizes zero":
+        assert float(ent_t) == pytest.approx(math.log(c), abs=1e-6)
+    want_minus_one = {"one row": [0], "sizes zero": range(m),
+                      "last two": []}[case]
+    for k in range(m):
+        assert (float(loo_t[k]) == -1.0) == (k in want_minus_one), k
+
+
+def test_entropy_judge_loop_kernel_choice():
+    """One warp at the paper's shape; a cluster above it, one CTA up to
+    1024 classes, 16 at Qwen's 151,936; a forced size takes the cluster
+    kernel."""
+    assert loop_kernel(10, 10) == ("warp", 1)
+    assert loop_kernel(32, 32) == ("warp", 1)
+    assert loop_kernel(100, 10) == ("cluster", 1)
+    assert loop_kernel(10, 1024) == ("cluster", 1)
+    assert loop_kernel(10, 1025) == ("cluster", 2)
+    assert loop_kernel(32, 4096) == ("cluster", 4)
+    assert loop_kernel(10, 151936) == ("cluster", 16)
+    assert loop_kernel(10, 10, 2) == ("cluster", 2)
+
+
+def test_entropy_judge_loop_plain_packs_the_kernel_layout():
+    """On the CPU the loop wrapper takes its plain version (no launch) and
+    returns the kernel's packed layout: mask | order (int32) | removed
+    (int32) | entropy | initial entropy."""
+    soft, sizes, _ = _judge_case(6, 10, seed=2)
+    soft[[1, 4]] = np.eye(10, dtype=np.float32)[7] * 0.91 + 0.009
+    sizes[[1, 4]] = 400.0
+    before = entropy_judge_loop.launches
+    buf = entropy_judge_loop(torch.from_numpy(soft),
+                             torch.from_numpy(sizes))
+    assert entropy_judge_loop.launches == before
+    assert buf.dtype == torch.float32 and buf.shape == (2 * 6 + 3,)
+    mask, order, removed, ent, init = ref.unpack_judgment(buf)
+    res = judge(torch.from_numpy(soft), torch.from_numpy(sizes))
+    # compared as bits: the int32 -1 pad reads as a float NaN
+    assert torch.equal(buf.view(torch.int32), ref.pack_judgment(
+        res.mask, res.removal_order, int(res.num_removed), res.entropy,
+        res.initial_entropy).view(torch.int32))
+    n = int(removed)
+    assert order[:2].tolist() == [1, 4]       # the tie goes to row 1 first
+    assert n >= 2 and (order[n:] == -1).all()
+    assert mask[order[:n].long()].eq(0).all() and int(mask.sum()) == 6 - n
+    assert float(ent) > float(init)
 
 
 @pytest.mark.parametrize("m,p,block_m", [(10, 4099, None), (3, 1, None),
@@ -175,3 +247,171 @@ def test_card_kernel_wrappers_reject_what_they_do_not_take(cuda):
         entropy_judge_sweep(torch.zeros(2, 3, dtype=torch.float16,
                                         device=cuda),
                             torch.ones(2), torch.ones(2))
+
+
+def _loop_case(m, c, seed, dev):
+    """Soft labels and sizes with rows 1 and m - 1 equal outliers (their
+    leave-one-out entropies tie; the first index must win), and, by seed:
+    0 all active, nothing protected, no cap; 1 random active and protected
+    rows; 2 protected rows and a cap of 2."""
+    rng = np.random.default_rng(1000 + seed)
+    soft, sizes, _ = _judge_case(m, c, seed=m + seed)
+    if m > 2:
+        soft[[1, m - 1]] = 0.1 / c
+        soft[[1, m - 1], 3] += 0.9
+        sizes[[1, m - 1]] = 450.0
+    active = protected = cap = None
+    if seed == 1:
+        active = (rng.random(m) < 0.8).astype(np.float32)
+        active[[0, 1, m - 1]] = 1.0
+    if seed >= 1:
+        protected = (rng.random(m) < 0.2).astype(np.float32)
+        protected[[1, m - 1]] = 0.0
+    if seed == 2:
+        cap = 2
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)
+    return t(soft), t(sizes), t(active), t(protected), cap
+
+
+def _assert_same_verdicts(got, want, msg=""):
+    g, w = unpack(got), unpack(want)
+    assert torch.equal(g.mask, w.mask), msg
+    assert torch.equal(g.removal_order, w.removal_order), msg
+    assert int(g.num_removed) == int(w.num_removed), msg
+    for a, b in ((g.entropy, w.entropy),
+                 (g.initial_entropy, w.initial_entropy)):
+        assert abs(float(a) - float(b)) <= K1_ATOL, (msg, float(a), float(b))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("m,c", [(10, 10), (8, 10), (100, 10), (16, 1000),
+                                 (10, 517), (32, 4096), (10, 151936)])
+def test_card_entropy_judge_loop_matches_plain(cuda, m, c, seed):
+    args = _loop_case(m, c, seed, cuda)
+    before = entropy_judge_loop.launches
+    got = entropy_judge_loop(*args)
+    want = ref.entropy_judge_loop_reference(*args)
+    torch.cuda.synchronize()
+    assert entropy_judge_loop.launches == before + 1
+    _assert_same_verdicts(got, want, f"({m}, {c}) seed {seed}")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_card_entropy_judge_loop_cluster_sizes(cuda, cluster):
+    """Each cluster size, forced, gives the plain version's verdicts at
+    151,936 classes."""
+    args = _loop_case(10, 151936, 0, cuda)
+    got = entropy_judge_loop(*args, _cluster=cluster)
+    want = ref.entropy_judge_loop_reference(*args)
+    torch.cuda.synchronize()
+    assert int(unpack(got).num_removed) >= 2
+    _assert_same_verdicts(got, want, f"cluster {cluster}")
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2])
+@pytest.mark.parametrize("seed", range(3))
+def test_card_entropy_judge_loop_paper_shape_both_kernels(cuda, seed,
+                                                          cluster):
+    """At (10, 10) the loop runs in one warp; a forced cluster of 1 or 2
+    CTAs runs the cluster kernel. All give the plain version's verdicts."""
+    assert loop_kernel(10, 10, cluster)[0] == ("warp" if cluster is None
+                                              else "cluster")
+    args = _loop_case(10, 10, seed, cuda)
+    got = entropy_judge_loop(*args, _cluster=cluster)
+    want = ref.entropy_judge_loop_reference(*args)
+    torch.cuda.synchronize()
+    _assert_same_verdicts(got, want, f"seed {seed} cluster {cluster}")
+
+
+@pytest.mark.parametrize("m,c", [(10, 10), (100, 10), (10, 151936)])
+def test_card_entropy_judge_loop_same_bits(cuda, m, c):
+    args = _loop_case(m, c, 1, cuda)
+    first = entropy_judge_loop(*args)
+    second = entropy_judge_loop(*args)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def _cuda_kernels(fn, tries: int = 3) -> list[str]:
+    """Names of the kernels ``fn`` launches, by torch.profiler; a profile
+    that recorded no kernel at all is taken again, up to ``tries`` times
+    (the profiler now and then drops a whole trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "emcpy" not in e.name and "emset" not in e.name]
+        if names:
+            break
+    return names
+
+
+def test_card_judge_is_one_launch_without_a_host_read(cuda):
+    """judge(backend="cuda") launches the loop kernel once, the sweep
+    never, and makes no synchronising call before it returns;
+    MaxEntropyJudge makes one more (its one copy to the host)."""
+    soft, sizes, _, _, _ = _loop_case(10, 10, 0, cuda)
+    judge(soft, sizes, backend="cuda")           # built and bound
+    torch.cuda.synchronize()
+    loops, sweeps = entropy_judge_loop.launches, entropy_judge_sweep.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = judge(soft, sizes, backend="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert entropy_judge_loop.launches == loops + 1
+    assert entropy_judge_sweep.launches == sweeps
+    assert res.mask.is_cuda and res.num_removed.dtype == torch.int32
+    kernels = _cuda_kernels(lambda: judge(soft, sizes, backend="cuda"))
+    assert len(kernels) == 1 and "judge_loop" in kernels[0], kernels
+    accepted, rejected, ent = MaxEntropyJudge("cuda")(soft, sizes)
+    assert entropy_judge_loop.launches == loops + 3
+    assert entropy_judge_sweep.launches == sweeps
+    want = unpack(ref.entropy_judge_loop_reference(soft, sizes).cpu())
+    assert rejected == [k for k in want.removal_order.tolist() if k >= 0]
+    assert accepted == [i for i, v in enumerate(want.mask.tolist()) if v]
+
+
+def test_card_entropy_judge_sweep_is_one_launch_at_paper_shape(cuda):
+    soft, sizes, mask = (torch.tensor(a, device=cuda)
+                         for a in _judge_case(10, 10, seed=1))
+    entropy_judge_sweep(soft, sizes, mask)
+    kernels = _cuda_kernels(lambda: entropy_judge_sweep(soft, sizes, mask))
+    assert kernels == [k for k in kernels if "judge_sweep_kernel" in k]
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("case", ["single", "empty"])
+def test_card_entropy_judge_sweep_conventions(cuda, case):
+    mask = np.zeros(10, np.float32)
+    if case == "single":
+        mask[3] = 1.0
+    for c in (10, 4096):                 # one launch, and two
+        args = [torch.tensor(a, device=cuda)
+                for a in _judge_case(10, c, seed=2, mask=mask)]
+        ent, loo = entropy_judge_sweep(*args)
+        ent_p, loo_p = ref.entropy_judge_sweep_reference(*args)
+        torch.testing.assert_close(ent, ent_p, rtol=0, atol=K1_ATOL)
+        torch.testing.assert_close(loo, loo_p, rtol=0, atol=K1_ATOL)
+        if case == "single":
+            assert float(loo[3]) == -1.0
+        else:
+            assert float(ent) == pytest.approx(math.log(c), abs=1e-6)
+            assert bool((loo == -1.0).all())
+
+
+def test_card_entropy_judge_loop_rejects_what_it_does_not_take(cuda):
+    soft = torch.rand(4, 10, device=cuda)
+    with pytest.raises(TypeError):
+        entropy_judge_loop(soft.to(torch.bfloat16), torch.ones(4))
+    with pytest.raises(ValueError, match="contiguous"):
+        entropy_judge_loop(torch.rand(10, 4, device=cuda).t(), torch.ones(4))
+    with pytest.raises(ValueError, match="cluster"):
+        entropy_judge_loop(soft, torch.ones(4), _cluster=17)
+    with pytest.raises(ValueError, match="active"):
+        entropy_judge_loop(soft, torch.ones(4), torch.ones(3))
