@@ -19,9 +19,15 @@ Phases, each of which raises on failure (exit code non-zero):
    for bit;
 4. drive the paper's FedEntropy round at full width — the CIFAR-shaped
    CNN, N = 100 clients, 10% participation, E = 5, batch 50 — for three
-   rounds through K1's loop kernel (one launch a round, the sweep never)
-   and K2, show by launch counts that it did, and repeat the rounds on
-   the plain versions to check the result;
+   rounds through the captured client program (one CUDA graph), K1's
+   loop kernel (one launch a round, the sweep never) and K2, and show by
+   launch counts that it did; run the same rounds with the client
+   program eager (``fl.disable_capture()``), which must give the same
+   bits, and on the plain versions, which must give equal integer
+   records and params within PARAMS_RTOL; time a round of each route in
+   turns (captured, eager, captured, eager), profile one round of each,
+   and time a new server's first round (warm-up and capture) after 1 and
+   after 3 warm-up runs in turns, each repeating round 0 to the bit;
 5. time K1's sweep and loop and K2 at the main path's shapes in turns with
    their plain versions and, for K2, the PyTorch library call
    ``w @ flat``; time one whole judgment by route in turns (plain, kernel,
@@ -43,7 +49,16 @@ Phases, each of which raises on failure (exit code non-zero):
    plain versions and the PyTorch library call where one exists (SDPA for
    K3 and K4), and print K3's and K5's two bounds: on the CUDA cores and
    on the tensor cores in 3xTF32; time K5 once more at L = 8192 (32
-   chunks).
+   chunks);
+9. drive the paper's other compositions at the same width: moon (K1's
+   loop and K2) and scaffold (K1's loop), three captured rounds each with
+   launch counts, then on the plain route, which must give equal integer
+   records (a verdict split where the two choices differ by less than
+   float32's spacing at the entropy is printed and followed, ROADMAP F5)
+   and params within PARAMS_RTOL; then the legacy ``FedEntropyTrainer``
+   shim for one round of each golden variant's settings (K1's loop once
+   for each judged variant, K2 once except for scaffold, finite params
+   and its uplink bytes).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -70,6 +85,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import fl  # noqa: E402
+from repro_torch.fl import graph_cache  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.entropy import group_entropy_np  # noqa: E402
 from repro_torch.core.judgment import _TOL as TOL, judge_np  # noqa: E402
@@ -173,6 +189,22 @@ def _kernel_us(prof, names=()) -> dict:
         if us > 0 and (not names or any(n in e.key for n in names)):
             out[e.key] = out.get(e.key, 0.0) + us
     return out
+
+
+def _busy_s(prof) -> float:
+    """Seconds in which at least one kernel ran, from a finished
+    profiler's device kernel intervals (their union: kernels that
+    overlap, as the branches of a CUDA graph may, count once)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
 
 
 def _queued_ms(fn, iters: int = 50) -> float:
@@ -457,38 +489,151 @@ def check_k2() -> float:
 
 
 class RecordingJudge:
-    """Delegates to ``inner`` and keeps each round's judge inputs, so the
-    float32 verdicts can be set beside the float64 oracle's."""
+    """Delegates to ``inner`` and keeps each round's judge inputs and
+    verdict, so the float32 verdicts can be set beside the float64
+    oracle's and the plain route's."""
 
     def __init__(self, inner):
         self.inner = inner
         self.seen = []
+        self.verdicts = []
 
     def __call__(self, soft_labels, sizes):
         self.seen.append((soft_labels.clone(), sizes.clone()))
-        return self.inner(soft_labels, sizes)
+        self.verdicts.append(self.inner(soft_labels, sizes))
+        return self.verdicts[-1]
 
 
-def run_rounds(params, corpus, backend: str, judge=None):
+def _f32_ulp(x: float) -> float:
+    """The spacing of float32 numbers at ``x``: 1.2e-07 in [1, 2), 2.4e-07
+    in [2, 4); the group entropy of 10 classes is at most ln 10."""
+    return float(np.spacing(np.float32(abs(x))))
+
+
+class FollowingJudge:
+    """Phase 9's plain-route judge: runs ``inner`` (the plain float32
+    loop) on its round's inputs and holds the verdict against the kernel
+    route's verdict of the same round (``leader``, a
+    :class:`RecordingJudge`).
+
+    Equal verdicts pass. Where they part, the inputs must be the kernel
+    route's bit for bit, the removal orders must part where the two
+    choices differ in float64 by less than one float32 spacing at the
+    group entropy (a tie float32 cannot resolve; ROADMAP F5) and the
+    entropies within K1_ATOL; the tie is printed and kept in ``ties``,
+    and the plain route takes the kernel route's verdict, so the rounds
+    after it stay comparable. Any other difference raises."""
+
+    def __init__(self, inner, leader: RecordingJudge, what: str):
+        self.inner, self.leader, self.what = inner, leader, what
+        self.rounds = 0
+        self.ties = []
+
+    def __call__(self, soft_labels, sizes):
+        r = self.rounds
+        self.rounds += 1
+        lead_soft, lead_sizes = self.leader.seen[r]
+        lead = self.leader.verdicts[r]
+        got = self.inner(soft_labels, sizes)
+        if got[:2] == lead[:2]:
+            return got
+        if not (torch.equal(soft_labels, lead_soft)
+                and torch.equal(sizes, lead_sizes)):
+            raise AssertionError(f"{self.what}: round {r}: verdicts differ "
+                                 f"({lead[1]} vs {got[1]}) on judge inputs "
+                                 "that differ from the kernel route's")
+        step, gap = _split_margin((soft_labels, sizes, None, None, None),
+                                  lead[1], got[1])
+        err = abs(got[2] - lead[2])
+        ulp = _f32_ulp(lead[2])
+        if not (gap < ulp and err <= K1_ATOL):
+            raise AssertionError(
+                f"{self.what}: round {r}: verdicts differ from the kernel "
+                f"route's at step {step} by {gap} in float64, not below "
+                f"float32's spacing {ulp:.3e} (entropies {err} apart): "
+                f"{lead[1]} vs {got[1]}")
+        print(f"{self.what}: round {r}: float32 tie: the plain loop removes "
+              f"{got[1]}, the kernel {lead[1]}; they part at step {step}, "
+              f"where the two choices differ by {gap:.3e} in float64, "
+              f"below float32's spacing {ulp:.3e} at the entropy "
+              f"(entropies {err:.3e} apart); the plain route follows the "
+              "kernel route's verdict")
+        self.ties.append((r, step, gap))
+        return lead
+
+
+def build_server(name: str, params, corpus, backend: str, judge=None):
+    """The composition ``name`` at the paper's configuration (N = 100,
+    10% participation, E = 5, batch 50) with ``MaxEntropyJudge`` on
+    ``backend`` and, except for scaffold (which keeps its leaf-wise
+    average and server step), ``FusedAverageAggregator`` on it."""
     cfg = fl.ServerConfig(num_clients=100, participation=0.1, seed=0)
-    server = fl.build(
-        "fedentropy", cnn.apply, params, corpus, cfg, fl.LocalSpec(),
-        judge=judge or fl.MaxEntropyJudge(backend=backend),
-        aggregator=fl.FusedAverageAggregator(backend=backend),
-        device="cuda")
-    walls = []
-    for _ in range(ROUNDS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rec = server.round()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        print(f"[{backend}] round {rec['round']}: selected={rec['selected']}"
-              f" positive={rec['positive']} negative={rec['negative']}"
-              f" entropy={rec['entropy']:.6f}"
-              f" comm_bytes={rec['comm']['total_bytes']}"
-              f" wall_s={walls[-1]:.4f}", flush=True)
-    return server, walls
+    kw = {"judge": judge or fl.MaxEntropyJudge(backend=backend)}
+    if name != "scaffold":
+        kw["aggregator"] = fl.FusedAverageAggregator(backend=backend)
+    strategy = fl.get("composition", name).strategy
+    return fl.build(name, cnn.apply, params, corpus, cfg,
+                    fl.LocalSpec(strategy), device="cuda", **kw)
+
+
+def timed_round(server, label: str) -> float:
+    """One round of ``server``; prints its record, returns its wall s."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = server.round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[{label}] round {rec['round']}: selected={rec['selected']}"
+          f" positive={rec['positive']} negative={rec['negative']}"
+          f" entropy={rec['entropy']:.6f}"
+          f" comm_bytes={rec['comm']['total_bytes']}"
+          f" wall_s={wall:.4f}", flush=True)
+    return wall
+
+
+def run_rounds(server, label: str) -> list:
+    return [timed_round(server, label) for _ in range(ROUNDS)]
+
+
+def _leaves(tree) -> dict:
+    return {f"{k}.{j}": t for k, sub in tree.items()
+            for j, t in sub.items()}
+
+
+def compare_routes(a, b, what: str, rtol: float, ties: int = 0) -> float:
+    """Raises unless servers ``a`` and ``b`` have equal integer records
+    and global params (and strategy state) within ``rtol`` of max |value|
+    per leaf; returns the worst such ratio. ``ties``: rounds where ``b``'s
+    judge followed ``a``'s verdict at a float32 tie (printed)."""
+    if len(a.history) != len(b.history):
+        raise AssertionError(f"{what}: {len(a.history)} rounds against "
+                             f"{len(b.history)}")
+    for x, y in zip(a.history, b.history):
+        for key in ("selected", "positive", "negative", "comm"):
+            if x[key] != y[key]:
+                raise AssertionError(f"{what}: round {x['round']} {key}: "
+                                     f"{x[key]} != {y[key]}")
+    trees = [(a.global_params, b.global_params)]
+    if a.state is not None:
+        trees += [(a.state[k], b.state[k]) for k in a.state]
+    worst = 0.0
+    for ta, tb in trees:
+        la, lb = _leaves(ta), _leaves(tb)
+        for name, t in la.items():
+            u = lb[name]
+            rel = float((t - u).abs().max()
+                        / u.abs().max().clamp(min=1e-30))
+            worst = max(worst, rel)
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{what}: non-finite {name}")
+    followed = f" ({ties} float32 ties followed)" if ties else ""
+    print(f"{what}: integer records equal over {len(a.history)} rounds"
+          f"{followed}; "
+          f"params{' and state' if a.state is not None else ''} max |diff|"
+          f" / max |value| per leaf = {worst:.3e} (limit {rtol:.0e})")
+    if not worst <= rtol:
+        raise AssertionError(f"{what}: {worst} > {rtol}")
+    return worst
 
 
 def main_path():
@@ -507,14 +652,14 @@ def main_path():
           f"{time.perf_counter() - t0:.1f} s")
 
     judge = RecordingJudge(fl.MaxEntropyJudge(backend="cuda"))
+    server = build_server("fedentropy", params, corpus, "cuda", judge=judge)
     _reset_counts()
-    server, walls = run_rounds(params, corpus, "cuda", judge=judge)
-    metrics = server.evaluate(xte, yte)
+    walls = run_rounds(server, "cuda, captured")
     launches = _read_counts()
+    metrics = server.evaluate(xte, yte)
     print(f"eval: {metrics}; launches in {ROUNDS} rounds: {launches}")
-    if launches["masked_weighted_sum"] <= 0:
-        raise AssertionError("the main path never launched "
-                             "masked_weighted_sum")
+    if launches["masked_weighted_sum"] != ROUNDS:
+        raise AssertionError(f"K2 launches in {ROUNDS} rounds: {launches}")
     # Alg. 1 runs in one launch of the loop kernel a round, the sweep never
     if launches["entropy_judge_loop"] != ROUNDS or \
             launches["entropy_judge_sweep"] != 0:
@@ -523,30 +668,26 @@ def main_path():
     if not (0.0 <= metrics["accuracy"] <= 1.0
             and math.isfinite(metrics["loss"])):
         raise AssertionError(f"bad eval metrics {metrics}")
-    for layer in server.global_params.values():
-        for t in layer.values():
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError("non-finite global params")
+    print(f"first round (a cold process: library set-up, "
+          f"{graph_cache.WARMUP_RUNS} warm-up runs "
+          f"and the capture of the client program): {walls[0]:.4f} s")
 
-    plain, _ = run_rounds(params, corpus, "torch")
-    for a, b in zip(server.history, plain.history):
-        for key in ("selected", "positive", "negative"):
-            if a[key] != b[key]:
-                raise AssertionError(f"round {a['round']} {key}: cuda "
-                                     f"{a[key]} != plain {b[key]}")
-        if a["comm"] != b["comm"]:
-            raise AssertionError(f"round {a['round']} comm differs")
-    worst_rel = 0.0
-    for name, layer in server.global_params.items():
-        for k, t in layer.items():
-            u = plain.global_params[name][k]
-            rel = float((t - u).abs().max() / u.abs().max().clamp(min=1e-30))
-            worst_rel = max(worst_rel, rel)
-    print(f"cuda route vs plain route: integer records equal; global "
-          f"params max |diff| / max |value| per leaf = {worst_rel:.3e}")
-    if not worst_rel <= PARAMS_RTOL:
-        raise AssertionError(f"global params differ: {worst_rel} > "
-                             f"{PARAMS_RTOL}")
+    # the same rounds with the client program run eagerly on the card:
+    # the captured route must give the same bits
+    with fl.disable_capture():
+        eager = build_server("fedentropy", params, corpus, "cuda")
+        eager_walls = run_rounds(eager, "cuda, eager")
+    compare_routes(server, eager, "captured route vs eager route", 0.0)
+    if server.graphs_captured != 1 or eager.graphs_captured != 0:
+        raise AssertionError(f"graphs captured: {server.graphs_captured} "
+                             f"(captured route), {eager.graphs_captured} "
+                             "(eager route); expected 1 and 0")
+    print(f"graphs captured: {server.graphs_captured} (captured route), "
+          f"{eager.graphs_captured} (eager route)")
+
+    plain = build_server("fedentropy", params, corpus, "torch")
+    run_rounds(plain, "torch, captured")
+    compare_routes(server, plain, "cuda route vs plain route", PARAMS_RTOL)
 
     agree = 0
     for soft, sizes in judge.seen:
@@ -556,11 +697,130 @@ def main_path():
         agree += (a_np, r_np) == (a_k, r_k)
     print(f"(information) float32 kernel verdicts equal to the float64 "
           f"judge_np in {agree} of {len(judge.seen)} rounds")
-    profile_round(server)
-    return launches, walls, judge.seen[0], n_params
+
+    # round wall time by route, in turns
+    turns = {"captured": [], "eager": []}
+    for route in ("captured", "eager", "captured", "eager"):
+        if route == "captured":
+            turns[route].append(timed_round(server, "cuda, captured"))
+        else:
+            with fl.disable_capture():
+                turns[route].append(timed_round(eager, "cuda, eager"))
+    compare_routes(server, eager, "captured route vs eager route after the "
+                   "turns", 0.0)
+    print("round wall s in turns (captured, eager, captured, eager): "
+          f"captured {[round(x, 4) for x in turns['captured']]}, eager "
+          f"{[round(x, 4) for x in turns['eager']]}")
+    profile_round(server, "captured")
+    with fl.disable_capture():
+        profile_round(eager, "eager")
+    capture_cost(server.history[0], params, corpus)
+    walls = {"captured": walls[1:] + turns["captured"],
+             "eager": eager_walls[1:] + turns["eager"]}
+    return launches, walls, judge.seen[0], n_params, (params, corpus)
 
 
-def profile_round(server) -> None:
+def capture_cost(want: dict, params, corpus) -> None:
+    """The first round of a new server in a warm process, which captures
+    the client program, after 1 and after 3 warm-up runs in turns
+    (1, 3, 3, 1); each must repeat the captured route's round 0 (``want``)
+    to the bit in its records and entropy."""
+    keep = graph_cache.WARMUP_RUNS
+    walls = {1: [], 3: []}
+    try:
+        for n in (1, 3, 3, 1):
+            graph_cache.WARMUP_RUNS = n
+            fresh = build_server("fedentropy", params, corpus, "cuda")
+            walls[n].append(timed_round(fresh, f"cuda, captured after {n} "
+                                        "warm-up run(s)"))
+            got = fresh.history[0]
+            for key in ("selected", "positive", "negative", "comm",
+                        "entropy"):
+                if got[key] != want[key]:
+                    raise AssertionError(f"{n} warm-up run(s): round 0 "
+                                         f"{key}: {got[key]} != {want[key]}")
+    finally:
+        graph_cache.WARMUP_RUNS = keep
+    print(f"first round of a new server in a warm process (warm-up runs "
+          f"and capture included), in turns: 1 warm-up run "
+          f"{[round(x, 4) for x in walls[1]]} s, 3 warm-up runs "
+          f"{[round(x, 4) for x in walls[3]]} s; round 0 equal to the bit "
+          f"after either (WARMUP_RUNS = {keep})")
+
+
+def other_compositions(params, corpus) -> dict:
+    """The paper's Table 3 partners of FedEntropy at the main path's
+    width: moon (K1's loop and K2) and scaffold (K1's loop), 3 captured
+    rounds each with launch counts, then the same rounds on the plain
+    route; then the legacy shim for one round of each golden variant's
+    settings. Returns each composition's launches and round walls."""
+    from repro_torch.core.simulator import FedEntropyTrainer, FLConfig
+    out = {}
+    for name in ("moon", "scaffold"):
+        judge = RecordingJudge(fl.MaxEntropyJudge(backend="cuda"))
+        server = build_server(name, params, corpus, "cuda", judge=judge)
+        _reset_counts()
+        walls = run_rounds(server, f"{name}, cuda, captured")
+        launches = _read_counts()
+        print(f"{name}: launches in {ROUNDS} rounds: {launches}")
+        k2 = ROUNDS if name == "moon" else 0
+        if launches["entropy_judge_loop"] != ROUNDS or \
+                launches["entropy_judge_sweep"] != 0 or \
+                launches["masked_weighted_sum"] != k2:
+            raise AssertionError(
+                f"{name}: launches {launches}; expected {ROUNDS} K1 loop "
+                f"launches, no sweep and {k2} K2 launches")
+        if server.graphs_captured != 1:
+            raise AssertionError(f"{name}: {server.graphs_captured} graphs")
+        follow = FollowingJudge(fl.MaxEntropyJudge(backend="torch"), judge,
+                                f"{name}, plain route")
+        plain = build_server(name, params, corpus, "torch", judge=follow)
+        run_rounds(plain, f"{name}, torch, captured")
+        compare_routes(server, plain, f"{name}: cuda route vs plain route",
+                       PARAMS_RTOL, ties=len(follow.ties))
+        out[name] = {"launches": launches, "walls": walls,
+                     "ties": follow.ties}
+    print(f"round wall s: moon {[round(x, 4) for x in out['moon']['walls']]}"
+          f", scaffold {[round(x, 4) for x in out['scaffold']['walls']]}"
+          " (captured; the first round captures)")
+
+    variants = {"fedentropy": ("fedavg", True, True),
+                "fedavg_uniform": ("fedavg", False, False),
+                "scaffold_fe": ("scaffold", True, True),
+                "moon_nopools": ("moon", True, False)}
+    for variant, (strategy, use_judgment, use_pools) in variants.items():
+        tr = FedEntropyTrainer(
+            cnn.apply, params, corpus,
+            FLConfig(num_clients=100, participation=0.1,
+                     use_judgment=use_judgment, use_pools=use_pools,
+                     seed=0),
+            fl.LocalSpec(strategy=strategy), device="cuda")
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = tr.round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        want = {"entropy_judge_loop": int(use_judgment),
+                "entropy_judge_sweep": 0,
+                "masked_weighted_sum": int(strategy != "scaffold")}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"shim {variant}: launches {launches}; "
+                                 f"expected {want}")
+        for name, t in _leaves(tr.global_params).items():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"shim {variant}: non-finite {name}")
+        total = fl.total_uplink_bytes(tr.history)
+        if total <= 0:
+            raise AssertionError(f"shim {variant}: {total} bytes")
+        print(f"shim {variant}: selected={rec['selected']} "
+              f"positive={rec['positive']} entropy={rec['entropy']:.6f} "
+              f"comm_bytes={total}, params finite, launches {want}, first "
+              f"round {wall:.4f} s")
+    return out
+
+
+def profile_round(server, label: str) -> None:
     """One more round of ``server`` under torch.profiler: wall time,
     summed kernel time, the device's idle share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -572,9 +832,12 @@ def profile_round(server) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = _kernel_us(prof)
-    busy = sum(by_kernel.values()) / 1e6
-    print(f"profiled round: wall {wall:.4f} s, kernels {busy:.4f} s, "
-          f"device idle share {1 - busy / wall:.3f} (profiler on)")
+    summed = sum(by_kernel.values()) / 1e6
+    busy = _busy_s(prof)
+    print(f"profiled {label} round: wall {wall:.4f} s, kernels summed "
+          f"{summed:.4f} s, device busy (union of kernel intervals) "
+          f"{busy:.4f} s, device idle share {1 - busy / wall:.3f} "
+          "(profiler on)")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
@@ -1225,7 +1488,7 @@ def main() -> int:
     _phase("3. K2 masked_weighted_sum vs plain")
     k2_err = check_k2()
     _phase("4. main path: fedentropy, N=100, CNN at 32x32x3, 10 classes")
-    launches, walls, judge_inputs, n_params = main_path()
+    launches, walls, judge_inputs, n_params, setup = main_path()
     _phase("5. times")
     fl_times = time_kernels(judge_inputs, n_params)
     for name, (ms, plain_ms, lib_ms, bound, by, dev_ms,
@@ -1235,8 +1498,10 @@ def main() -> int:
               f"{dev_ms:.5f} ms), plain {plain_ms:.5f} ms, library {lib} "
               f"(in turns), bound {bound:.3e} ms ({by})")
     time_k1_wide()
-    print(f"round wall s: {[round(x, 4) for x in walls]}, median "
-          f"{statistics.median(walls):.4f}")
+    for route, ws in walls.items():
+        print(f"fedentropy round wall s, {route} route (rounds 2-3 and "
+              f"the turns): {[round(x, 4) for x in ws]}, median "
+              f"{statistics.median(ws):.4f}")
 
     _phase("6. K3 flash_attention, K4 decode_attention, K5 ssd_chunked "
            "vs plain")
@@ -1247,6 +1512,9 @@ def main() -> int:
     served = serve_path()
     _phase("8. LM kernel times at the serve shapes (float32)")
     lm_times = time_lm_kernels()
+    _phase("9. moon and scaffold at the main path's width, and the "
+           "FedEntropyTrainer shim")
+    others = other_compositions(*setup)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1287,6 +1555,9 @@ def main() -> int:
         if name == "flash_attention":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
+        if name in ("entropy_judge_loop", "masked_weighted_sum"):
+            row["launches_by_path"] = {"fedentropy": count, **{
+                comp: o["launches"][name] for comp, o in others.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

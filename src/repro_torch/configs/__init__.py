@@ -1,14 +1,15 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
 Holds the configurations whose families the port runs (dense, ssm,
-hybrid); the others come with their families.
+hybrid, and the paper's cnn); the others come with their families.
 """
 from .base import SHAPES, ModelConfig, ShapeConfig
 
-from . import mamba2_130m, qwen3_0_6b, zamba2_2_7b
+from . import fedentropy_cnn, mamba2_130m, qwen3_0_6b, zamba2_2_7b
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (mamba2_130m, qwen3_0_6b, zamba2_2_7b)
+    m.CONFIG.name: m.CONFIG
+    for m in (mamba2_130m, qwen3_0_6b, zamba2_2_7b, fedentropy_cnn)
 }
 
 

@@ -14,15 +14,20 @@ Two interchangeable implementations:
 Both are exact greedy: per iteration, remove the single device whose
 removal maximally increases the size-weighted group entropy; stop when no
 removal strictly improves it.
+
+``judge_budgeted`` is a beyond-paper variant: forward-greedy selection of
+exactly ``budget`` devices, as plain tensor code where the soft labels
+live (it has no kernel, in the reference either).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .entropy import group_entropy_np
+from .entropy import group_entropy, group_entropy_np
 
 # Strict-improvement tolerance: float32 entropy of broad (e.g. 151k-class)
 # distributions has ~1e-6 noise; require improvement above it.
@@ -34,7 +39,9 @@ class JudgmentResult(NamedTuple):
     entropy: torch.Tensor          # () final group entropy over positives
     initial_entropy: torch.Tensor  # () entropy before any removal
     num_removed: torch.Tensor      # () int32 — |R|
-    removal_order: torch.Tensor    # (M,) int32 greedy-removal order, -1 pad
+    # (M,) int32 greedy-removal order, -1 padded; None where the order is
+    # not tracked (judge_budgeted)
+    removal_order: torch.Tensor | None = None
 
 
 def judge_packed(soft_labels: torch.Tensor, sizes: torch.Tensor,
@@ -86,6 +93,41 @@ def judge(soft_labels: torch.Tensor, sizes: torch.Tensor,
     """
     return unpack(judge_packed(soft_labels, sizes, active, max_removals,
                                backend, protected))
+
+
+def judge_budgeted(soft_labels: torch.Tensor, sizes: torch.Tensor,
+                   budget: int, active: torch.Tensor | None = None
+                   ) -> JudgmentResult:
+    """Forward-greedy selection under a fixed uplink budget: pick exactly
+    ``budget`` devices that maximise the group entropy, growing the set
+    from empty, one device per step, in float32 on the device of
+    ``soft_labels``. The host reads nothing.
+    """
+    soft_labels = soft_labels.to(torch.float32)
+    dev = soft_labels.device
+    sizes = sizes.to(device=dev, dtype=torch.float32)
+    m = soft_labels.shape[0]
+    active = (torch.ones(m, device=dev) if active is None
+              else active.to(device=dev, dtype=torch.float32))
+    budget = min(int(budget), m)
+    init_ent = group_entropy(soft_labels, sizes, active)
+    live = sizes * active
+    zero = torch.zeros((), device=dev)
+    mask = torch.zeros(m, device=dev)
+    for _ in range(budget):
+        w = sizes * mask
+        # entropy of the group if device k were ADDED
+        num = (w @ soft_labels)[None, :] + live[:, None] * soft_labels
+        q = num / (w.sum() + live)[:, None]
+        ent_add = -torch.where(num > 0, q * torch.log(q.clamp(min=1e-12)),
+                               zero).sum(dim=-1)
+        cand = torch.where((mask == 0) & (active > 0), ent_add,
+                           torch.full_like(ent_add, -math.inf))
+        mask = mask.index_fill(0, cand.argmax().reshape(1), 1.0)
+    ent = group_entropy(soft_labels, sizes, mask)
+    removed = (active.sum() - mask.sum()).to(torch.int32)
+    return JudgmentResult(mask=mask, entropy=ent, initial_entropy=init_ent,
+                          num_removed=removed)
 
 
 def judge_np(soft_labels: np.ndarray, sizes: np.ndarray,

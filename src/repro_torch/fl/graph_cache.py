@@ -1,0 +1,118 @@
+"""The compiled client program: the vmapped ClientUpdate as a CUDA graph.
+
+The reference jits the vmapped client program once per server and keeps
+it in a bounded LRU (``BoundedJitCache``). The port's counterpart of a
+jitted program is a captured ``torch.cuda.CUDAGraph``: the first round
+with a new key runs the program once on a side stream to warm up, then
+captures it; later rounds copy their inputs into the graph's
+static buffers and replay it, so the E epochs x nb minibatches of the
+local training cost one launch from the host instead of one dispatch
+per op.
+
+* :class:`CapturedProgram` — one captured program at fixed shapes.
+* :class:`BoundedGraphCache` — a per-server LRU of them
+  (``ServerConfig.jit_cache_size`` entries).
+* :func:`disable_capture` — the counterpart of ``jax.disable_jit()``: the
+  server runs the program eagerly on the card inside it.
+
+On the CPU the program always runs eagerly: CUDA graphs do not exist
+there. A capture that fails raises; nothing falls back to eager.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from contextlib import contextmanager
+from typing import Any, Callable
+
+import torch
+from torch.utils import _pytree as pytree
+
+_disabled = 0
+# eager runs on a side stream before the capture: one sets up the
+# libraries' handles and workspaces; the captured route equals the eager
+# route bit for bit after it (tests/test_torch_capture.py)
+WARMUP_RUNS = 1
+
+
+@contextmanager
+def disable_capture():
+    """Run client programs eagerly, on the card too, inside this block
+    (nests; the counterpart of ``jax.disable_jit()``)."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def capture_enabled() -> bool:
+    """False inside :func:`disable_capture`."""
+    return _disabled == 0
+
+
+def _clone(t):
+    return None if t is None else t.clone()
+
+
+class CapturedProgram:
+    """``fn`` captured into one CUDA graph at the shapes of ``args``.
+
+    ``args`` is a tuple of trees of CUDA tensors (``None`` leaves allowed);
+    ``fn`` must be pure in them — the warm-up runs change no state. Each
+    call copies its arguments into the graph's static input buffers,
+    replays the graph and returns the graph's static outputs: the next
+    call overwrites them, so a caller clones whatever must outlive it.
+    """
+
+    def __init__(self, fn: Callable, args: tuple):
+        inputs = pytree.tree_map(_clone, args)
+        self._leaves, self._spec = pytree.tree_flatten(inputs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                fn(*inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._outputs = fn(*inputs)
+
+    def __call__(self, *args):
+        leaves, spec = pytree.tree_flatten(args)
+        if spec != self._spec:
+            raise ValueError("arguments differ in structure from the "
+                             "captured program's")
+        for dst, src in zip(self._leaves, leaves):
+            if dst is None:
+                continue
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"argument {tuple(src.shape)} {src.dtype} does not fit "
+                    f"the captured {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+        self.graph.replay()
+        return self._outputs
+
+
+class BoundedGraphCache:
+    """LRU of captured programs, owned by one ``Server``; ``captures``
+    counts the programs it has built (evicted ones included)."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = max(1, int(maxsize))
+        self._entries: OrderedDict[Any, Any] = OrderedDict()
+        self.captures = 0
+
+    def get(self, key, make: Callable[[], Any]):
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return self._entries[key]
+        entry = self._entries[key] = make()
+        self.captures += 1
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+        return entry
+
+    def __len__(self) -> int:
+        return len(self._entries)

@@ -9,16 +9,20 @@
                        iteration's leave-one-out sweep from the
                        ``entropy_judge`` kernel.
 ``PassThroughJudge`` — admits everyone (plain FedAvg-of-selected).
+``BudgetedJudge``    — beyond-paper forward-greedy selection of exactly
+                       ``budget`` devices (``core.judgment.judge_budgeted``)
+                       for deployments with a hard per-round uplink cap.
 
 Both return ``(accepted, rejected, entropy)`` with *relative* indices into
-the round's selection; rejected indices are in greedy-removal order.
+the round's selection; rejected indices are in greedy-removal order
+(``BudgetedJudge``: in index order, as in the reference).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.judgment import judge_np, judge_packed
+from ..core.judgment import judge_budgeted, judge_np, judge_packed
 from .registry import register
 
 
@@ -65,3 +69,25 @@ class PassThroughJudge:
     def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
                  ) -> tuple[list[int], list[int], float]:
         return list(range(len(sizes))), [], float("nan")
+
+
+@register("judge", "budget")
+class BudgetedJudge:
+    """Keep exactly ``budget`` devices, forward-greedy on group entropy."""
+
+    def __init__(self, budget: int):
+        self.budget = int(budget)
+
+    @classmethod
+    def from_config(cls, config, local):
+        raise ValueError(
+            "BudgetedJudge needs an explicit budget — pass an instance, "
+            "e.g. build(..., judge=BudgetedJudge(budget=3))")
+
+    def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
+                 ) -> tuple[list[int], list[int], float]:
+        res = judge_budgeted(soft_labels, sizes, self.budget)
+        host = torch.cat([res.mask, res.entropy.reshape(1)]).cpu().numpy()
+        mask = host[:-1]
+        return (np.flatnonzero(mask > 0).tolist(),
+                np.flatnonzero(mask == 0).tolist(), float(host[-1]))

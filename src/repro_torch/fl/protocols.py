@@ -43,7 +43,13 @@ class Selector(Protocol):
 
 @runtime_checkable
 class ClientStrategy(Protocol):
-    """Owns the local-update rule and all of its cross-round state."""
+    """Owns the local-update rule and all of its cross-round state.
+
+    State lives in an explicit tree returned by :meth:`init_state` and
+    threaded through :meth:`update_state`; ``client_inputs`` and
+    ``client_in_axes`` describe how it is sliced onto the vmapped
+    per-client update.
+    """
 
     spec: Any                      # hyperparameters (LocalSpec)
     doubles_uplink: bool           # True if uplink carries control variates
@@ -51,6 +57,16 @@ class ClientStrategy(Protocol):
     def init_state(self, global_params: Params,
                    num_clients: int) -> StrategyState:
         """Build the strategy's state (None if stateless)."""
+        ...
+
+    def client_inputs(self, state: StrategyState, idx
+                      ) -> tuple[Params | None, Params | None, Params | None]:
+        """Slice state for the selected clients: (prev_params, c_local,
+        c_global) as consumed by ``core.strategies.client_update``."""
+        ...
+
+    def client_in_axes(self) -> tuple:
+        """vmap in_dims for (global_params, data, prev_p, c_loc, c_glob)."""
         ...
 
     def update_state(self, state: StrategyState, global_params: Params,

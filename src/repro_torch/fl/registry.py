@@ -8,8 +8,9 @@ Compositions name one component per axis of the round::
 Built-in component classes expose ``from_config(config, local)``; entries
 without it are constructed with no arguments. Passing an
 already-constructed instance to :func:`build` bypasses the registry for
-that axis. This package registers the ``fedentropy``, ``fedavg`` and
-``fedprox`` compositions; any other name raises ``KeyError``.
+that axis. This package registers the ``fedentropy``, ``fedavg``,
+``fedprox``, ``moon`` and ``scaffold`` compositions; any other name
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -104,3 +105,6 @@ register("composition", "fedentropy",
          Composition(strategy="fedavg", selector="pools", judge="maxent"))
 register("composition", "fedavg", Composition(strategy="fedavg"))
 register("composition", "fedprox", Composition(strategy="fedprox"))
+register("composition", "moon", Composition(strategy="moon"))
+register("composition", "scaffold",
+         Composition(strategy="scaffold", aggregator="scaffold"))

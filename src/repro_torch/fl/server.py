@@ -7,6 +7,12 @@ control plane (selection, pool bookkeeping, the numpy judgment) is
 host-side numpy. The cohort comes off the device-resident
 :class:`repro_torch.data.corpus.ClientCorpus`, so per round only the
 cohort's ids cross from host to device.
+
+On a CUDA device the vmapped client program runs as a captured CUDA graph,
+one per key in a per-server LRU of ``ServerConfig.jit_cache_size``
+entries (``fl.graph_cache``), the counterpart of the reference's jitted
+program in its ``BoundedJitCache``; on the CPU, and inside
+``graph_cache.disable_capture()``, it runs eagerly.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from ..core.aggregation import comm_bytes
 from ..core.strategies import ApplyFn, client_update, cross_entropy
 from ..data.corpus import ClientCorpus
 from ..device import resolve_device
+from .graph_cache import BoundedGraphCache, CapturedProgram, capture_enabled
 from .protocols import Aggregator, ClientStrategy, Judge, Selector
 
 
@@ -31,11 +38,24 @@ class ServerConfig:
     participation: float = 0.1      # paper C
     eps: float = 0.8                # paper epsilon (eps-greedy selectors)
     seed: int = 0
+    jit_cache_size: int = 4         # per-server captured-program LRU bound
 
     def cohort_size(self) -> int:
         """|S_t| = max(1, round(N * C)). Python's ``round`` is banker's
         (half-to-even): N=25, C=0.1 selects 2."""
         return max(1, int(round(self.num_clients * self.participation)))
+
+
+def _make_client_fn(apply_fn: ApplyFn, spec, in_axes):
+    """vmapped ClientUpdate with the strategy's state slices as extra args
+    (``None`` where the strategy has none)."""
+
+    def one(global_params, data, prev_p, c_loc, c_glob):
+        return client_update(apply_fn, global_params, data, spec,
+                             prev_params=prev_p, c_local=c_loc,
+                             c_global=c_glob)
+
+    return vmap(one, in_dims=tuple(in_axes))
 
 
 class Server:
@@ -77,18 +97,42 @@ class Server:
                                          config.num_clients)
         self.round_idx = 0
         self.history: list[dict] = []
-        spec = strategy.spec
-        self._client_fn = vmap(
-            lambda gp, data: client_update(apply_fn, gp, data, spec),
-            in_dims=(None, 0))
+        self._eager_fn = _make_client_fn(apply_fn, strategy.spec,
+                                         strategy.client_in_axes())
+        self._graphs = BoundedGraphCache(config.jit_cache_size)
 
     # ------------------------------------------------------------------
+    def _client_key(self, cohort: int) -> tuple:
+        # the reference's key also holds the apply fn, the spec and the
+        # in-axes; the cache is per server and those are fixed with
+        # ``_eager_fn`` in __init__, so only the corpus and the cohort
+        # size (a graph's shapes are fixed) can vary
+        return (self.corpus.signature(), cohort)
+
+    def _run_cohort(self, idx: np.ndarray) -> dict:
+        """The cohort's client updates: captured on a CUDA device (the
+        outputs are the graph's, overwritten by the next round's replay),
+        eager on the CPU or inside ``disable_capture()``."""
+        args = (self.global_params, self.corpus.cohort(idx),
+                *self.strategy.client_inputs(self.state, idx))
+        if self.device.type != "cuda" or not capture_enabled():
+            return self._eager_fn(*args)
+        program = self._graphs.get(
+            self._client_key(len(idx)),
+            lambda: CapturedProgram(self._eager_fn, args))
+        return program(*args)
+
+    @property
+    def graphs_captured(self) -> int:
+        """How many client programs this server has captured."""
+        return self._graphs.captures
+
     def round(self) -> dict:
         """One paper Alg. 2 round; returns the history record."""
         cfg = self.config
         sel = self.selector.select(cfg.cohort_size())
         idx = np.asarray(sel)
-        out = self._client_fn(self.global_params, self.corpus.cohort(idx))
+        out = self._run_cohort(idx)
 
         soft, sizes = out["soft_label"], out["size"]  # (|S_t|, C), (|S_t|,)
         a_rel, r_rel, ent = self.judge(soft, sizes)
@@ -141,3 +185,7 @@ class Server:
                 m["round"] = self.round_idx
                 evals.append(m)
         return evals
+
+
+def total_uplink_bytes(history: list[dict]) -> int:
+    return int(sum(h["comm"]["total_bytes"] for h in history))

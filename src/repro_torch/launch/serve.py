@@ -31,7 +31,9 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> np.ndarray:
     """Runs the server; returns the generated tokens (B, gen)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-130m", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="mamba2-130m",
+                    choices=sorted(n for n, c in ARCHS.items()
+                                   if c.family != "cnn"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

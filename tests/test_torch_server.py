@@ -6,7 +6,10 @@ CPU. The integer records — selected, positive and negative lists and the
 comm bytes — must be equal. Float records carry measured tolerances:
 per-round entropy within 1e-6 (measured: at most 1e-8), params digest
 within a relative 1e-5 (measured: at most 3e-7); both differ only by
-float32 convolutions and sums taken in another order.
+float32 convolutions and sums taken in another order. SCAFFOLD's server
+variate ``c_global`` is held within 1e-5 absolute (measured: at most
+7.5e-7): its rows divide the params' change by K * lr = 0.02, so those
+float32 differences grow 50x.
 """
 import jax
 import jax.numpy as jnp
@@ -20,11 +23,12 @@ from repro.core.strategies import LocalSpec as JLocalSpec
 from repro.data.partition import partition, stack_clients
 from repro.data.synthetic import make_image_dataset
 from repro.models import cnn as jcnn
-from repro_torch.convert import cnn_params_from_numpy
+from repro_torch.convert import cnn_params_from_numpy, cnn_params_to_numpy
 from repro_torch.models import cnn as tcnn
 
 ENT_ATOL = 1e-6
 DIGEST_RTOL = 1e-5
+VARIATE_ATOL = 1e-5
 ROUNDS = 3
 
 
@@ -42,14 +46,16 @@ def tiny():
 
 def _run_pair(tiny, name, jax_kw=None, torch_kw=None):
     data, params, _ = tiny
+    strategy = rfl.get("composition", name).strategy
     ref = rfl.build(name, jcnn.apply, params, data,
                     rfl.ServerConfig(num_clients=8, participation=0.5),
-                    JLocalSpec(epochs=1, batch_size=20), **(jax_kw or {}))
+                    JLocalSpec(strategy, epochs=1, batch_size=20),
+                    **(jax_kw or {}))
     port = tfl.build(name, tcnn.apply,
                      cnn_params_from_numpy(jax.tree.map(np.asarray, params)),
                      data, tfl.ServerConfig(num_clients=8, participation=0.5),
-                     tfl.LocalSpec(epochs=1, batch_size=20), device="cpu",
-                     **(torch_kw or {}))
+                     tfl.LocalSpec(strategy, epochs=1, batch_size=20),
+                     device="cpu", **(torch_kw or {}))
     for _ in range(ROUNDS):
         ref.round()
         port.round()
@@ -72,12 +78,19 @@ def _assert_parity(ref, port):
     assert got_digest == pytest.approx(want_digest, rel=DIGEST_RTOL)
 
 
-@pytest.mark.parametrize("name", ["fedentropy", "fedavg", "fedprox"])
+@pytest.mark.parametrize("name", ["fedentropy", "fedavg", "fedprox",
+                                  "moon", "scaffold"])
 def test_build_matches_live_reference(tiny, name):
     ref, port = _run_pair(tiny, name)
     _assert_parity(ref, port)
     if name == "fedentropy":
         assert any(h["negative"] for h in port.history)   # judgment bites
+    if name == "scaffold":
+        for want, got in zip(jax.tree.leaves(ref.state["c_global"]),
+                             jax.tree.leaves(cnn_params_to_numpy(
+                                 port.state["c_global"])), strict=True):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                       atol=VARIATE_ATOL)
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
@@ -106,8 +119,9 @@ def test_evaluate_matches_reference(tiny):
 
 
 def test_registry_surface():
-    assert tfl.names("composition") == ["fedavg", "fedentropy", "fedprox"]
-    for name in ("scaffold", "moon", "fedcat", "nope"):
+    assert tfl.names("composition") == ["fedavg", "fedentropy", "fedprox",
+                                        "moon", "scaffold"]
+    for name in ("fedcat", "ifca", "fedentropy+queue", "nope"):
         with pytest.raises(KeyError, match="no composition registered"):
             tfl.get("composition", name)
     assert tfl.get("judge", "maxent") is tfl.MaxEntropyJudge

@@ -1,0 +1,197 @@
+"""The port's legacy ``FedEntropyTrainer`` shim against the recorded golden
+histories of ``tests/golden/seed_history.json``, and the shim's surface.
+
+The goldens were recorded by the JAX package's pre-refactor trainer. The
+installed JAX draws other initial params unless ``cnn.init`` runs under
+``jax.threefry_partitionable(False)`` (ROADMAP queue 3, F1), so the init
+params are built under that context in ``repro`` and converted.
+
+Integer records — selected, positive and negative lists, total bytes —
+must be exact. Float records carry measured tolerances: entropy within
+1e-6 (measured: at most 3.9e-8, scaffold_fe), params digest within a
+relative 1e-6 (measured: at most 1.2e-7, fedavg_uniform). The
+reference's own 1e-9 entropy tolerance does not carry across frameworks:
+the soft labels come out of other float32 convolutions.
+"""
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+
+import repro_torch.fl as tfl
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.data.partition import partition, stack_clients
+from repro.data.synthetic import make_image_dataset
+from repro.models import cnn as jcnn
+from repro_torch.configs import ARCHS
+from repro_torch.convert import cnn_params_from_numpy
+from repro_torch.core.simulator import FedEntropyTrainer, FLConfig
+from repro_torch.core.strategies import LocalSpec
+from repro_torch.models import cnn as tcnn
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "seed_history.json")
+ENT_ATOL = 1e-6
+DIGEST_RTOL = 1e-6
+
+# variant: (strategy, use_judgment, use_pools), as tests/test_fl_api.py
+_VARIANTS = {
+    "fedentropy": ("fedavg", True, True),
+    "fedavg_uniform": ("fedavg", False, False),
+    "scaffold_fe": ("scaffold", True, True),
+    "moon_nopools": ("moon", True, False),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """The setup the golden histories were recorded with; init params
+    drawn as the recording JAX drew them (F1)."""
+    (xtr, ytr), (xte, yte) = make_image_dataset(
+        num_classes=4, train_per_class=60, test_per_class=15, hw=16,
+        noise=0.4, seed=0)
+    parts = partition("case1", ytr, 8, 4, seed=0)
+    data = stack_clients(xtr, ytr, parts, batch_multiple=20)
+    with jax.threefry_partitionable(False):
+        params = jcnn.init(jax.random.PRNGKey(0), image_hw=16, num_classes=4)
+    return data, jax.tree.map(np.asarray, params), (xte, yte)
+
+
+def _trainer(tiny, strategy="fedavg", use_judgment=True, use_pools=True):
+    data, params, _ = tiny
+    return FedEntropyTrainer(
+        tcnn.apply, cnn_params_from_numpy(params), data,
+        FLConfig(num_clients=8, participation=0.5,
+                 use_judgment=use_judgment, use_pools=use_pools, seed=0),
+        LocalSpec(strategy=strategy, epochs=1, batch_size=20), device="cpu")
+
+
+def _digest(params) -> float:
+    return sum(float(x.abs().sum()) for x in pytree.tree_leaves(params))
+
+
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+def test_shim_reproduces_seed_histories(tiny, variant):
+    with open(GOLDEN) as f:
+        golden = json.load(f)[variant]
+    tr = _trainer(tiny, *_VARIANTS[variant])
+    for want in golden["history"]:
+        got = tr.round()
+        for key in ("selected", "positive", "negative"):
+            assert got[key] == want[key], (want["round"], key)
+        assert got["comm"]["total_bytes"] == want["total_bytes"]
+        ent = float(want["entropy"])
+        if np.isnan(ent):
+            assert np.isnan(got["entropy"])
+        else:
+            assert got["entropy"] == pytest.approx(ent, abs=ENT_ATOL)
+    assert _digest(tr.global_params) == pytest.approx(
+        float(golden["params_digest"]), rel=DIGEST_RTOL)
+    assert tfl.total_uplink_bytes(tr.history) == sum(
+        h["total_bytes"] for h in golden["history"])
+
+
+def test_shim_equals_server_over_rounds(tiny):
+    data, params, _ = tiny
+    tr = _trainer(tiny)
+    server = tfl.build("fedentropy", tcnn.apply,
+                       cnn_params_from_numpy(params), data,
+                       tfl.ServerConfig(num_clients=8, participation=0.5),
+                       LocalSpec(epochs=1, batch_size=20), device="cpu")
+    for _ in range(3):
+        assert tr.round() == server.round()
+    for a, b in zip(pytree.tree_leaves(tr.global_params),
+                    pytree.tree_leaves(server.global_params)):
+        assert torch.equal(a, b)
+    assert tr.round_idx == 3 and len(tr.history) == 3
+
+
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+def test_shim_components_on_the_cpu(tiny, variant):
+    """On the CPU the shim keeps the reference's float64 judge and
+    leaf-wise average, the components the golden histories hold."""
+    strategy, use_judgment, use_pools = _VARIANTS[variant]
+    server = _trainer(tiny, strategy, use_judgment, use_pools)._server
+    if use_judgment:
+        assert isinstance(server.judge, tfl.MaxEntropyJudge)
+        assert server.judge.backend == "numpy"
+    else:
+        assert isinstance(server.judge, tfl.PassThroughJudge)
+    want = (tfl.ScaffoldAggregator if strategy == "scaffold"
+            else tfl.WeightedAverageAggregator)
+    assert type(server.aggregator) is want
+
+
+def test_shim_uniform_ablation_updates_shadow_pools(tiny):
+    tr = _trainer(tiny, use_pools=False)
+    rec = tr.round()
+    stats = tr.pools.stats()          # legacy observable, still maintained
+    # legacy semantics: no select() ran on these pools, so positives stay
+    # full and judged negatives accumulate alongside
+    assert rec["negative"]
+    assert stats["positive"] == 8
+    assert stats["negative"] == len(rec["negative"])
+
+
+def test_shim_legacy_state_attributes(tiny):
+    scaffold = _trainer(tiny, "scaffold")
+    scaffold.round()
+    assert scaffold.c_local["fc3"]["w"].shape[0] == 8
+    assert scaffold.c_global["fc3"]["w"].shape == \
+        scaffold.global_params["fc3"]["w"].shape
+    assert float(scaffold.c_global["fc3"]["w"].abs().max()) > 0
+    moon = _trainer(tiny, "moon", use_pools=False)
+    rec = moon.round()
+    prev = moon.prev_params["fc3"]["w"]
+    assert prev.shape[0] == 8
+    # the selected clients' rows moved off the initial model, the rest
+    # did not
+    init = cnn_params_from_numpy(tiny[1])["fc3"]["w"]
+    for i in range(8):
+        assert torch.equal(prev[i], init) == (i not in rec["selected"])
+    with pytest.raises(TypeError):
+        _trainer(tiny).c_global          # stateless strategies: no state
+
+
+def test_shim_run_with_eval(tiny):
+    xte, yte = tiny[2]
+    tr = _trainer(tiny)
+    evals = tr.run(4, eval_every=2, eval_data=(xte, yte))
+    assert [e["round"] for e in evals] == [2, 4]
+    assert all(0.0 <= e["accuracy"] <= 1.0 for e in evals)
+    last = {k: v for k, v in evals[-1].items() if k != "round"}
+    assert tr.evaluate(xte, yte) == last
+
+
+def test_disable_capture_is_a_no_op_on_the_cpu(tiny):
+    """On the CPU the client program always runs eagerly: the context
+    changes nothing and nothing is captured."""
+    tr = _trainer(tiny, "scaffold")
+    base = _trainer(tiny, "scaffold")
+    assert tfl.graph_cache.capture_enabled()
+    for _ in range(2):
+        with tfl.disable_capture():
+            assert not tfl.graph_cache.capture_enabled()
+            with tfl.disable_capture():
+                pass
+            assert not tfl.graph_cache.capture_enabled()
+            got = tr.round()
+        assert got == base.round()
+    assert tfl.graph_cache.capture_enabled()
+    for a, b in zip(pytree.tree_leaves(tr.global_params),
+                    pytree.tree_leaves(base.global_params)):
+        assert torch.equal(a, b)
+    assert tr._server.graphs_captured == 0 == base._server.graphs_captured
+    assert len(tr._server._graphs) == 0
+
+
+def test_fedentropy_cnn_config_is_registered():
+    got, want = ARCHS["fedentropy-cnn"], JAX_ARCHS["fedentropy-cnn"]
+    assert got.family == "cnn"
+    for field in ("name", "num_layers", "d_model", "d_ff", "vocab_size",
+                  "param_dtype", "dtype", "remat", "source"):
+        assert getattr(got, field) == getattr(want, field)
