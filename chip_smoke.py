@@ -58,19 +58,42 @@ Phases, each of which raises on failure (exit code non-zero):
    and params within PARAMS_RTOL; then the legacy ``FedEntropyTrainer``
    shim for one round of each golden variant's settings (K1's loop once
    for each judged variant, K2 once except for scaffold, finite params
-   and its uplink bytes).
+   and its uplink bytes);
+10. drive the pipelined engine (``fl.runtime.PipelinedServer``) at the
+   same width, captured, each run against the sequential ``Server`` on
+   the same route (the float64 oracle, ``FusedAverageAggregator`` on K2),
+   which it must equal bit for bit in records, entropy and params:
+   fedentropy with ``RuntimeConfig(speculate=True, spec_backend="cuda")``
+   for 5 rounds (each round's verdict speculated in one launch of K1's
+   loop and aggregated in K2; each round's ``spec_hit``/``redispatched``
+   and launches printed, and for each miss the float64 gap where K1 and
+   the oracle part, ROADMAP F5; then the host microseconds of the float64
+   oracle, which speculation hides, and of the selector copy and draw,
+   which it adds); the same with a traced form that admits
+   everyone (every rejecting round misses and re-aggregates in K2);
+   ``fedentropy+queue`` for 3 rounds (the queue must withhold data at
+   round 0); a ``drift_schedule`` event (half the clients) at round 2 of
+   4, across which round 1 must not speculate. Then time the pipelined
+   and the sequential round in turns (pipelined, sequential, sequential,
+   pipelined; 6 rounds on a new server each, no synchronise between
+   rounds, the median of rounds 2-5) and profile one round of each for
+   the device's idle share.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 a JSON object with every kernel's launches, error, times (``ms`` per
-wrapper call, ``kernel_ms`` of device time) and bounds.
+wrapper call, ``kernel_ms`` of device time) and bounds. K1's loop and K2
+also carry ``launches_by_path``: ``fedentropy`` (phase 4), ``moon`` and
+``scaffold`` (phase 9), and phase 10's ``pipelined``, ``pipelined+miss``
+and ``fedentropy+queue``.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -90,7 +113,8 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.entropy import group_entropy_np  # noqa: E402
 from repro_torch.core.judgment import _TOL as TOL, judge_np  # noqa: E402
 from repro_torch.data.corpus import ClientCorpus  # noqa: E402
-from repro_torch.data.partition import partition  # noqa: E402
+from repro_torch.data.partition import (  # noqa: E402
+    drift_schedule, partition)
 from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, entropy_judge, fused_aggregate, ref)
@@ -562,13 +586,15 @@ class FollowingJudge:
         return lead
 
 
-def build_server(name: str, params, corpus, backend: str, judge=None):
+def build_server(name: str, params, corpus, backend: str, judge=None,
+                 **kw):
     """The composition ``name`` at the paper's configuration (N = 100,
     10% participation, E = 5, batch 50) with ``MaxEntropyJudge`` on
-    ``backend`` and, except for scaffold (which keeps its leaf-wise
-    average and server step), ``FusedAverageAggregator`` on it."""
+    ``backend`` (or ``judge``) and, except for scaffold (which keeps its
+    leaf-wise average and server step), ``FusedAverageAggregator`` on
+    it; ``kw`` goes to ``fl.build`` (``runtime``, ``drift``)."""
     cfg = fl.ServerConfig(num_clients=100, participation=0.1, seed=0)
-    kw = {"judge": judge or fl.MaxEntropyJudge(backend=backend)}
+    kw["judge"] = judge or fl.MaxEntropyJudge(backend=backend)
     if name != "scaffold":
         kw["aggregator"] = fl.FusedAverageAggregator(backend=backend)
     strategy = fl.get("composition", name).strategy
@@ -717,7 +743,8 @@ def main_path():
     capture_cost(server.history[0], params, corpus)
     walls = {"captured": walls[1:] + turns["captured"],
              "eager": eager_walls[1:] + turns["eager"]}
-    return launches, walls, judge.seen[0], n_params, (params, corpus)
+    return (launches, walls, judge.seen[0], n_params, (params, corpus),
+            (xtr, ytr))
 
 
 def capture_cost(want: dict, params, corpus) -> None:
@@ -820,7 +847,239 @@ def other_compositions(params, corpus) -> dict:
     return out
 
 
-def profile_round(server, label: str) -> None:
+# ------------------------------------------------------ pipelined engine
+
+SPEC = fl.RuntimeConfig(speculate=True, spec_backend="cuda")
+SPEC_ROUNDS = 5
+
+
+class AdmitAllTraced(fl.MaxEntropyJudge):
+    """The float64 oracle with a traced form that admits every device, so
+    each round whose oracle rejects one misses (phase 10's forced
+    miss)."""
+
+    def traced(self, backend=None):
+        return fl.PassThroughJudge().traced()
+
+
+def build_fl(name: str, params, corpus, judge=None, **kw):
+    """Phase 10's servers: ``build_server`` on the CUDA route with the
+    float64 oracle ``MaxEntropyJudge()`` (or ``judge``) as the judge."""
+    return build_server(name, params, corpus, "cuda",
+                        judge=judge or fl.MaxEntropyJudge(), **kw)
+
+
+def equal_to_sequential(seq, pip, what: str) -> None:
+    """Raises unless the pipelined server's records equal the sequential
+    server's to the bit (entropy included; the two speculation flags
+    apart) and its params and state are equal bit for bit."""
+    if len(seq.history) != len(pip.history):
+        raise AssertionError(f"{what}: {len(seq.history)} rounds against "
+                             f"{len(pip.history)}")
+    for a, b in zip(seq.history, pip.history):
+        if set(b) != set(a) | {"spec_hit", "redispatched"}:
+            raise AssertionError(f"{what}: record keys {sorted(b)}")
+        for key in a:
+            if b[key] != a[key]:
+                raise AssertionError(f"{what}: round {a['round']} {key}: "
+                                     f"{b[key]} != {a[key]}")
+    trees = [(seq.global_params, pip.global_params)]
+    if seq.state is not None:
+        trees += [(seq.state[k], pip.state[k]) for k in seq.state]
+    for ta, tb in trees:
+        la, lb = _leaves(ta), _leaves(tb)
+        for name, t in la.items():
+            if not torch.equal(t, lb[name]):
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     "sequential server's")
+    print(f"{what}: equal to the sequential server bit for bit over "
+          f"{len(seq.history)} rounds (records, entropy, params"
+          f"{', state' if seq.state is not None else ''})")
+
+
+def run_speculative(seq, pip, rounds: int, label: str) -> dict:
+    """``rounds`` rounds of the sequential server, then of the pipelined
+    one, with every count at 0 just before and read just after; prints
+    each pipelined round's flags and K1-loop and K2 launches. Holds the
+    two equal and returns the pipelined path's launches."""
+    for _ in range(rounds):
+        seq.round()
+    _reset_counts()
+    prev = _read_counts()
+    for _ in range(rounds):
+        rec = pip.round()
+        now = _read_counts()
+        print(f"[{label}] round {rec['round']}: spec_hit={rec['spec_hit']} "
+              f"redispatched={rec['redispatched']} "
+              f"negative={rec['negative']} launches this round: K1 loop "
+              f"{now['entropy_judge_loop'] - prev['entropy_judge_loop']}, "
+              f"K2 {now['masked_weighted_sum'] - prev['masked_weighted_sum']}",
+              flush=True)
+        prev = now
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    equal_to_sequential(seq, pip, label)
+    misses = sum(not r["spec_hit"] for r in pip.history)
+    want = {"entropy_judge_sweep": 0,
+            "masked_weighted_sum": rounds + misses}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label}: launches {launches}; expected "
+                             f"{want} ({misses} misses)")
+    for prev_rec, rec in zip(pip.history, pip.history[1:]):
+        if rec["redispatched"] != (not prev_rec["spec_hit"]):
+            raise AssertionError(f"{label}: round {rec['round']} "
+                                 f"redispatched={rec['redispatched']} after "
+                                 f"spec_hit={prev_rec['spec_hit']}")
+    print(f"{label}: {misses} of {rounds} rounds missed; launches "
+          f"{launches}")
+    return launches
+
+
+def miss_margins(seq, pip, label: str) -> None:
+    """For each missed round of ``pip``, K1's verdict on the round's judge
+    inputs (recorded by ``seq``'s judge, the same bits) beside the float64
+    oracle's, and the float64 gap where the two orders part, in float32
+    spacings at the entropy (ROADMAP F5). A miss is a result, not an
+    error: nothing is raised. These K1 launches compare; they are not the
+    path's."""
+    for rec in pip.history:
+        if rec["spec_hit"]:
+            continue
+        r = rec["round"]
+        soft, sizes = seq.judge.seen[r]
+        oracle = seq.judge.verdicts[r]
+        k1 = fl.MaxEntropyJudge(backend="cuda")(soft, sizes)
+        step, gap = _split_margin((soft, sizes, None, None, None),
+                                  k1[1], oracle[1])
+        ulp = _f32_ulp(oracle[2])
+        print(f"{label}: round {r} missed: K1 removes {k1[1]}, the float64 "
+              f"oracle {oracle[1]}; they part at step {step}, where the two "
+              f"choices differ by {gap:.3e} in float64: {gap / ulp:.2f} of "
+              f"float32's spacing {ulp:.3e} at the entropy, "
+              f"{'under' if gap < TOL else 'over'} Alg. 1's {TOL} margin")
+
+
+def time_pipelined(params, corpus) -> None:
+    """The pipelined and the sequential fedentropy round in turns
+    (pipelined, sequential, sequential, pipelined), each on a new server
+    for 6 rounds: a round's time is the host clock from the previous
+    round's return to its own, with no synchronise between rounds (the
+    pipelined round returns with round t+1 in flight); the median of
+    rounds 2-5 per run. Then one profiled round of each."""
+    times = {"pipelined": [], "sequential": []}
+    last = {}
+    for route in ("pipelined", "sequential", "sequential", "pipelined"):
+        kw = {"runtime": SPEC} if route == "pipelined" else {}
+        server = build_fl("fedentropy", params, corpus, **kw)
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        for _ in range(6):
+            server.round()
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        gaps = np.diff(stamps)
+        times[route].append(float(statistics.median(gaps[2:6])))
+        print(f"{route}: round s {[round(float(g), 5) for g in gaps]} "
+              f"(rounds 0-5; round 0 captures), median of rounds 2-5 "
+              f"{times[route][-1]:.5f}", flush=True)
+        last[route] = server
+    idle = {}
+    for route, server in last.items():
+        wall, busy = profile_round(server, route)
+        idle[route] = 1 - busy / wall
+    print("round s in turns (pipelined, sequential, sequential, "
+          f"pipelined): pipelined {[round(x, 5) for x in times['pipelined']]}"
+          f", sequential {[round(x, 5) for x in times['sequential']]}; "
+          f"profiled idle share pipelined {idle['pipelined']:.3f}, "
+          f"sequential {idle['sequential']:.3f}")
+
+
+def pipelined_path(params, corpus, split) -> dict:
+    """Phase 10: the pipelined engine at the main path's width, each run
+    against the sequential server on the same route (float64 oracle,
+    ``FusedAverageAggregator("cuda")``), captured, bit for bit:
+    fedentropy speculating through K1's loop; the same with a traced form
+    that admits everyone (a forced miss); fedentropy+queue; and a drift
+    event at round 2 of 4, across which round 1 must not speculate. Then
+    the two routes' round times in turns. Returns the launches by path."""
+    out = {}
+    seq = build_fl("fedentropy", params, corpus,
+                   judge=RecordingJudge(fl.MaxEntropyJudge()))
+    pip = build_fl("fedentropy", params, corpus, runtime=SPEC)
+    out["pipelined"] = run_speculative(seq, pip, SPEC_ROUNDS, "pipelined")
+    if out["pipelined"]["entropy_judge_loop"] != SPEC_ROUNDS:
+        raise AssertionError(f"pipelined: {out['pipelined']}; expected "
+                             f"{SPEC_ROUNDS} K1 loop launches")
+    miss_margins(seq, pip, "pipelined")
+    # the host work a speculative round can hide (the oracle) and the
+    # work it adds before its dispatch (the selector's copy and draw)
+    p64, s64 = (t.double().cpu().numpy() for t in seq.judge.seen[0])
+    selector = pip.selector
+    host = _host_us({
+        "float64 oracle (judge_np on round 0's inputs)":
+            lambda: judge_np(p64, s64),
+        "selector deepcopy and select":
+            lambda: copy.deepcopy(selector).select(10)}, calls=200)
+    print("host us per call: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in host.items()))
+
+    seq = build_fl("fedentropy", params, corpus)
+    pip = build_fl("fedentropy", params, corpus, judge=AdmitAllTraced(),
+                   runtime=SPEC)
+    out["pipelined+miss"] = run_speculative(seq, pip, SPEC_ROUNDS,
+                                            "pipelined+miss")
+    for rec in pip.history:
+        if rec["spec_hit"] == bool(rec["negative"]):
+            raise AssertionError(f"pipelined+miss: round {rec['round']} "
+                                 f"spec_hit={rec['spec_hit']} with "
+                                 f"negative={rec['negative']}")
+    forced = sum(not r["spec_hit"] for r in pip.history)
+    if not forced or out["pipelined+miss"]["entropy_judge_loop"] != 0:
+        raise AssertionError(f"pipelined+miss: {forced} misses, launches "
+                             f"{out['pipelined+miss']}")
+
+    seq = build_fl("fedentropy+queue", params, corpus)
+    pip = build_fl("fedentropy+queue", params, corpus, runtime=SPEC)
+    out["fedentropy+queue"] = run_speculative(seq, pip, 3,
+                                              "fedentropy+queue")
+    sizes = seq.corpus.sizes()
+    act = seq.selector.queue.active(0, sizes)
+    if not np.all(act < sizes) or \
+            out["fedentropy+queue"]["entropy_judge_loop"] != 3:
+        raise AssertionError(f"fedentropy+queue: round-0 release {act} of "
+                             f"{sizes}; launches {out['fedentropy+queue']}")
+    print(f"fedentropy+queue: round 0 released {sorted(set(act.tolist()))} "
+          f"of {sorted(set(sizes.tolist()))} samples a client")
+
+    xtr, ytr = split
+    events = drift_schedule(xtr, ytr, 100, 10, at=2, frac=0.5,
+                            samples_per_client=corpus.samples_per_client)
+    seq = build_fl("fedentropy", params, corpus, drift=events)
+    pip = build_fl("fedentropy", params, corpus, drift=events, runtime=SPEC)
+    for _ in range(4):
+        seq.round()
+    _reset_counts()
+    for r in range(4):
+        rec = pip.round()
+        if r == 1 and pip._pending is not None:
+            raise AssertionError("drift: round 1 dispatched round 2 across "
+                                 "the drift boundary")
+        print(f"[drift at round 2] round {r}: spec_hit={rec['spec_hit']} "
+              f"redispatched={rec['redispatched']} pending after it: "
+              f"{pip._pending is not None}")
+    torch.cuda.synchronize()
+    print(f"drift: launches {_read_counts()}; {len(events[0].clients)} "
+          f"clients drifted at round 2")
+    equal_to_sequential(seq, pip, "drift at round 2")
+    if pip.graphs_captured != 1:
+        raise AssertionError(f"drift: {pip.graphs_captured} graphs")
+
+    time_pipelined(params, corpus)
+    return out
+
+
+
+def profile_round(server, label: str) -> tuple[float, float]:
     """One more round of ``server`` under torch.profiler: wall time,
     summed kernel time, the device's idle share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -840,6 +1099,7 @@ def profile_round(server, label: str) -> None:
           "(profiler on)")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    return wall, busy
 
 
 def _host_us(pieces: dict, calls: int) -> dict:
@@ -1488,7 +1748,7 @@ def main() -> int:
     _phase("3. K2 masked_weighted_sum vs plain")
     k2_err = check_k2()
     _phase("4. main path: fedentropy, N=100, CNN at 32x32x3, 10 classes")
-    launches, walls, judge_inputs, n_params, setup = main_path()
+    launches, walls, judge_inputs, n_params, setup, split = main_path()
     _phase("5. times")
     fl_times = time_kernels(judge_inputs, n_params)
     for name, (ms, plain_ms, lib_ms, bound, by, dev_ms,
@@ -1515,6 +1775,9 @@ def main() -> int:
     _phase("9. moon and scaffold at the main path's width, and the "
            "FedEntropyTrainer shim")
     others = other_compositions(*setup)
+    _phase("10. the pipelined engine at the main path's width: verdicts "
+           "speculated through K1's loop, aggregated in K2")
+    pipelined = pipelined_path(*setup, split)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1557,7 +1820,8 @@ def main() -> int:
             row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
         if name in ("entropy_judge_loop", "masked_weighted_sum"):
             row["launches_by_path"] = {"fedentropy": count, **{
-                comp: o["launches"][name] for comp, o in others.items()}}
+                comp: o["launches"][name] for comp, o in others.items()}, **{
+                path: n[name] for path, n in pipelined.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

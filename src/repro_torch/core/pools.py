@@ -11,12 +11,17 @@ seed draws the same cohorts in both packages:
   from the other pool (Sec. 3.4);
 * selected devices are removed from their pools for the round and
   re-filed according to the judgment verdict.
+
+``label_histograms`` and ``hist_entropy`` are the per-client label
+statistics the queue selector ranks on, transcribed from the same module.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .entropy import entropy_np
 
 
 @dataclass
@@ -63,3 +68,31 @@ class DevicePools:
 
     def stats(self) -> dict:
         return {"positive": len(self.positive), "negative": len(self.negative)}
+
+
+# ---- label-distribution stats (the queue selector's ranking input) -------
+
+def label_histograms(y: np.ndarray, w: np.ndarray | None = None,
+                     num_classes: int | None = None) -> np.ndarray:
+    """Per-device weighted label counts: (N, S) labels -> (N, C) histograms.
+
+    ``w`` is the per-sample weight mask ``stack_clients`` produces (padded
+    samples carry weight 0, so they never count toward a distribution).
+    """
+    y = np.asarray(y)
+    w = (np.ones(y.shape, np.float64) if w is None
+         else np.asarray(w, np.float64))
+    c = int(num_classes) if num_classes else int(y.max()) + 1
+    hists = np.zeros((y.shape[0], c), np.float64)
+    for i in range(y.shape[0]):
+        hists[i] = np.bincount(y[i].reshape(-1),
+                               weights=w[i].reshape(-1), minlength=c)[:c]
+    return hists
+
+
+def hist_entropy(hist: np.ndarray) -> float:
+    """Shannon entropy (nats) of a count histogram; empty -> 0."""
+    tot = float(np.sum(hist))
+    if tot <= 0.0:
+        return 0.0
+    return float(entropy_np(np.asarray(hist, np.float64) / tot))

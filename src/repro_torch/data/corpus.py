@@ -6,12 +6,18 @@ answers the questions every layer above would otherwise re-derive per
 round:
 
 * **data plane** — :meth:`cohort` gathers the round's clients along the
-  client axis on the device (optionally applying a :class:`Normalize`);
-  per round only the ``idx`` vector crosses from host to device.
-* **control plane** — :meth:`sizes` is the per-client sample count the
-  selectors and the judgment weigh by, computed once and cached.
+  client axis on the device (optionally applying a :class:`Normalize`
+  and a :class:`DataQueue` activity mask); per round only the ``idx``
+  vector and the queue's counts cross from host to device.
+* **control plane** — :meth:`sizes`, :meth:`label_histograms` and
+  :meth:`label_entropy` are the per-client stats the selectors rank and
+  weigh by, computed once on the host and cached.
 
-Images stay NHWC, as in the JAX package.
+``DataQueue`` is the round-indexed subset schedule behind the
+dynamic-data-queue selector (arXiv 2410.17792): each client's effective
+local dataset starts small and grows to the full shard; the corpus
+applies it as a weight mask inside the cohort gather. Images stay NHWC,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -43,6 +49,44 @@ class Normalize:
         return (x - mean) / std
 
 
+@dataclass(frozen=True)
+class DataQueue:
+    """Round-indexed per-client effective-dataset schedule.
+
+    ``active(round, sizes)`` maps each client's real sample count to the
+    number of samples released to it at that round: a fraction ramping
+    from ``start_frac`` to 1.0 over ``rounds_to_full`` rounds, either
+    continuously (``growth="linear"``) or in ``stages`` discrete steps
+    (``growth="staged"``). Deterministic in (round, sizes), so a
+    speculative selector copy reproduces the exact schedule. An exact
+    transcription of ``repro.data.corpus.DataQueue``.
+    """
+    start_frac: float = 0.25
+    rounds_to_full: int = 100
+    growth: str = "linear"          # "linear" | "staged"
+    stages: int = 4
+    min_samples: int = 1
+
+    def __post_init__(self):
+        if self.growth not in ("linear", "staged"):
+            raise ValueError(
+                f"DataQueue growth must be 'linear' or 'staged', "
+                f"got {self.growth!r}")
+
+    def frac(self, round_idx: int) -> float:
+        t = min(max(round_idx, 0) / max(self.rounds_to_full, 1), 1.0)
+        if self.growth == "staged":
+            # graduate in `stages` equal steps; final stage is the full set
+            step = np.ceil(t * self.stages) / self.stages
+            t = float(step)
+        return float(self.start_frac + (1.0 - self.start_frac) * t)
+
+    def active(self, round_idx: int, sizes: np.ndarray) -> np.ndarray:
+        sizes = np.asarray(sizes, np.int64)
+        want = np.ceil(self.frac(round_idx) * sizes).astype(np.int64)
+        return np.clip(np.maximum(want, self.min_samples), 0, sizes)
+
+
 class ClientCorpus(Mapping):
     """Stacked client arrays resident on ``device``; see the module
     docstring. A ``Mapping`` over its arrays."""
@@ -59,6 +103,7 @@ class ClientCorpus(Mapping):
                         for k, v in arrays.items()}
         self.transform = transform
         self._sizes: np.ndarray | None = None
+        self._hists: dict = {}          # num_classes (or None) -> (N, C)
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -94,6 +139,15 @@ class ClientCorpus(Mapping):
         return len(self._arrays)
 
     # ----------------------------------------------------------- metadata
+    @property
+    def num_clients(self) -> int:
+        return int(next(iter(self._arrays.values())).shape[0])
+
+    @property
+    def samples_per_client(self) -> int:
+        return int(self._arrays["y"].shape[1]) if "y" in self._arrays \
+            else int(next(iter(self._arrays.values())).shape[1])
+
     def signature(self) -> tuple:
         """Hashable (key, shape, dtype) + transform tuple."""
         return (tuple((k, tuple(v.shape), str(v.dtype))
@@ -106,20 +160,82 @@ class ClientCorpus(Mapping):
         return int(sum(v.numel() * v.element_size()
                        for v in self._arrays.values()))
 
+    def as_numpy(self) -> dict:
+        """Host copy of the raw (untransformed) arrays, storage dtype."""
+        return {k: v.cpu().numpy() for k, v in self._arrays.items()}
+
     # ------------------------------------------------- control-plane stats
     def sizes(self) -> np.ndarray:
         """Per-client real (unpadded) sample counts, from the w mask."""
         if self._sizes is None:
-            self._sizes = self._arrays["w"].sum(dim=1).cpu().numpy().astype(
-                np.int64)
+            if "w" in self._arrays:
+                self._sizes = self._arrays["w"].sum(dim=1).cpu().numpy() \
+                    .astype(np.int64)
+            else:
+                self._sizes = np.full(self.num_clients,
+                                      self.samples_per_client, np.int64)
         return self._sizes
 
+    def label_histograms(self, num_classes: int | None = None) -> np.ndarray:
+        """(N, C) weighted label counts, the ``queue`` selector's ranking
+        input: numpy over a host copy of ``y`` and ``w``, computed once
+        per ``num_classes`` and cached."""
+        if num_classes not in self._hists:
+            from ..core.pools import label_histograms
+            y = self._arrays["y"].cpu().numpy()
+            w = (self._arrays["w"].cpu().numpy() if "w" in self._arrays
+                 else None)
+            self._hists[num_classes] = label_histograms(
+                y, w, num_classes=num_classes)
+        return self._hists[num_classes]
+
+    def label_entropy(self) -> np.ndarray:
+        """Per-client Shannon entropy (nats) of the label distribution."""
+        from ..core.pools import hist_entropy
+        hists = self.label_histograms()
+        return np.asarray([hist_entropy(h) for h in hists], np.float64)
+
     # ------------------------------------------------------------ data plane
-    def cohort(self, idx) -> dict:
+    def cohort(self, idx, active=None) -> dict:
         """On-device gather of clients ``idx`` along axis 0 (then the
-        transform, if any). Only ``idx`` moves host -> device."""
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        out = {k: v.index_select(0, idx) for k, v in self._arrays.items()}
+        transform, if any).
+
+        ``active`` (optional, per-selected-client sample counts from a
+        :class:`DataQueue`) masks each cohort row's ``w`` down to its
+        first ``active[i]`` samples, in the same gather. Only ``idx`` and
+        ``active`` move host -> device, in one copy.
+        """
+        idx = np.asarray(idx, np.int64)
+        if active is None:
+            rows = torch.as_tensor(idx, device=self.device)
+        else:
+            both = torch.as_tensor(
+                np.stack([idx, np.asarray(active, np.int64)]),
+                device=self.device)
+            rows, active = both[0], both[1]
+        out = {k: v.index_select(0, rows) for k, v in self._arrays.items()}
         if self.transform is not None:
             out["x"] = self.transform(out["x"])
+        if active is not None and "w" in out:
+            s = out["w"].shape[1]
+            live = torch.arange(s, device=self.device)[None, :] \
+                < active[:, None]
+            out["w"] = out["w"] * live.to(out["w"].dtype)
         return out
+
+    def with_rows(self, clients, rows: dict) -> "ClientCorpus":
+        """A new corpus on the same device in which clients ``clients``
+        hold ``rows`` (a ``{x, y, w}`` subset of the same sample length)
+        in place of their own; keys the corpus lacks are ignored. The copy
+        and the replacement run on the device."""
+        ids = torch.as_tensor(np.asarray(clients, np.int64),
+                              device=self.device)
+        arrays = {}
+        for k, v in self._arrays.items():
+            if k in rows:
+                new = torch.as_tensor(np.asarray(rows[k]),
+                                      device=self.device).to(v.dtype)
+                v = v.index_copy(0, ids, new)
+            arrays[k] = v
+        return ClientCorpus(arrays, transform=self.transform,
+                            device=self.device)

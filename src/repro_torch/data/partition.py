@@ -6,11 +6,15 @@
 * case 3 — label proportions per client drawn from Dirichlet(beta), beta=0.1.
 
 ``stack_clients`` pads per-client datasets to a common length and emits
-the (x, y, w) stacked arrays (w masks padding). Exact numpy
+the (x, y, w) stacked arrays (w masks padding). ``drift_schedule``
+builds drift events (:class:`DriftEvent`): at a scheduled round a seeded
+share of the clients swap their rows for fresh label shards. Exact numpy
 transcriptions of ``repro.data.partition``: one seed gives the same
-partition in both packages.
+partition and the same events in both packages.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -120,3 +124,83 @@ def stack_clients(x, y, parts, batch_multiple: int = 1):
         ys[i, :len(p)] = y[p]
         ws[i, :len(p)] = 1.0
     return {"x": xs, "y": ys, "w": ws}
+
+
+# --------------------------------------------------------------- drift
+
+@dataclass(frozen=True)
+class DriftEvent:
+    """One scheduled drift: at round ``round`` the listed clients swap
+    their stacked rows for ``data`` (same ``{x, y, w}`` layout and
+    per-client sample length as the corpus they drift inside)."""
+    round: int
+    clients: tuple
+    data: dict
+
+    def __post_init__(self):
+        if self.round < 0:
+            raise ValueError("drift round must be >= 0")
+        if len(set(self.clients)) != len(self.clients):
+            raise ValueError("drift clients must be distinct")
+        rows = {k: np.shape(v)[0] for k, v in self.data.items()}
+        if any(r != len(self.clients) for r in rows.values()):
+            raise ValueError(
+                f"drift data rows {rows} must match the "
+                f"{len(self.clients)} drifting clients")
+
+
+def _restack(x, y, shards, samples_per_client: int):
+    """``stack_clients`` for a client subset at a FIXED common length
+    (the corpus's existing per-client sample axis): shards longer than
+    the corpus row truncate, shorter ones pad with w=0."""
+    s = int(samples_per_client)
+    k = len(shards)
+    xs = np.zeros((k, s) + x.shape[1:], x.dtype)
+    ys = np.zeros((k, s), np.int32)
+    ws = np.zeros((k, s), np.float32)
+    for i, p in enumerate(shards):
+        p = np.asarray(p)[:s]
+        xs[i, :len(p)] = x[p]
+        ys[i, :len(p)] = y[p]
+        ws[i, :len(p)] = 1.0
+    return {"x": xs, "y": ys, "w": ws}
+
+
+def drift_schedule(x, y, num_clients, num_classes, *, at, frac=0.5,
+                   case="case1", seed=0, beta=0.1,
+                   samples_per_client=None) -> list:
+    """Deterministic drift events: at each round in ``at``, a seeded
+    ``frac`` of clients re-partition onto fresh label shards.
+
+    Each event draws its own client subset and a fresh :func:`partition`
+    (seed derived from ``seed`` and the event index, so the whole
+    schedule is a pure function of its arguments), then assigns drifting
+    client ``c`` the shard of rotated client ``c+1``: under case1/case2
+    that changes the label distribution, not just the samples.
+
+    ``samples_per_client`` pins the stacked row length to the corpus the
+    events will be applied to (required: the server checks it). Returns a
+    list of :class:`DriftEvent`, sorted by round.
+    """
+    if samples_per_client is None:
+        raise ValueError(
+            "samples_per_client is required (the corpus's per-client "
+            "sample axis the replacement rows must match)")
+    if not 0.0 < frac <= 1.0:
+        raise ValueError("frac must be in (0, 1]")
+    rounds = (int(at),) if np.isscalar(at) else tuple(int(r) for r in at)
+    if len(set(rounds)) != len(rounds):
+        raise ValueError("drift rounds must be distinct")
+    events = []
+    for j, r in enumerate(sorted(rounds)):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([int(seed), j, r]))
+        k = max(1, int(np.round(frac * num_clients)))
+        drifting = np.sort(rng.choice(num_clients, size=k, replace=False))
+        parts = partition(case, y, num_clients, num_classes,
+                          seed=int(seed) + 1 + j, beta=beta)
+        shards = [parts[(int(c) + 1) % num_clients] for c in drifting]
+        events.append(DriftEvent(
+            round=r, clients=tuple(int(c) for c in drifting),
+            data=_restack(x, y, shards, samples_per_client)))
+    return events

@@ -6,7 +6,8 @@ Paper Alg. 2 decomposed into four swappable axes (see
 =============  ==================================  =====================
 axis           question it answers                 built-ins
 =============  ==================================  =====================
-``Selector``   who is asked to train this round    ``pools``, ``uniform``
+``Selector``   who is asked to train this round    ``pools``, ``uniform``,
+                                                   ``queue``
 ``ClientStrategy``  how each client trains         ``fedavg``, ``fedprox``,
                                                    ``moon``, ``scaffold``
 ``Judge``      whose update is admitted            ``maxent``, ``none``,
@@ -27,26 +28,37 @@ axis           question it answers                 built-ins
 
 On the card the vmapped client program runs as a captured CUDA graph
 (``fl.graph_cache``); ``with fl.disable_capture():`` runs it eagerly.
+``engine="pipelined"`` with ``runtime=fl.RuntimeConfig(speculate=True)``
+speculates each round's verdict on the card (``fl.runtime``);
+``drift=fl.drift_schedule(...)`` re-partitions clients mid-run.
 """
 from ..core.strategies import LocalSpec
-from ..data.corpus import ClientCorpus, Normalize
+from ..data.corpus import ClientCorpus, DataQueue, Normalize
+from ..data.partition import DriftEvent, drift_schedule
 from .aggregators import (FusedAverageAggregator, ScaffoldAggregator,
                           WeightedAverageAggregator)
 from .graph_cache import BoundedGraphCache, disable_capture
 from .judges import BudgetedJudge, MaxEntropyJudge, PassThroughJudge
 from .protocols import Aggregator, ClientStrategy, Judge, Selector
 from .registry import Composition, build, get, names, register
-from .selectors import PoolSelector, UniformSelector
+from .selectors import PoolSelector, QueueSelector, UniformSelector
 from .server import Server, ServerConfig, total_uplink_bytes
 from .strategies import (FedAvgStrategy, FedProxStrategy, MoonStrategy,
                          ScaffoldStrategy)
+from .runtime import (PipelinedServer, ProcessCompileCache, RuntimeConfig,
+                      SequentialEngine, disable_process_cache,
+                      enable_process_cache, process_cache)
 
 __all__ = [
     "Aggregator", "BoundedGraphCache", "BudgetedJudge", "ClientCorpus",
-    "ClientStrategy", "Composition", "FedAvgStrategy", "FedProxStrategy",
-    "FusedAverageAggregator", "Judge", "LocalSpec", "MaxEntropyJudge",
-    "MoonStrategy", "Normalize", "PassThroughJudge", "PoolSelector",
-    "ScaffoldAggregator", "ScaffoldStrategy", "Selector", "Server",
-    "ServerConfig", "UniformSelector", "WeightedAverageAggregator", "build",
-    "disable_capture", "get", "names", "register", "total_uplink_bytes",
+    "ClientStrategy", "Composition", "DataQueue", "DriftEvent",
+    "FedAvgStrategy", "FedProxStrategy", "FusedAverageAggregator", "Judge",
+    "LocalSpec", "MaxEntropyJudge", "MoonStrategy", "Normalize",
+    "PassThroughJudge", "PipelinedServer", "PoolSelector",
+    "ProcessCompileCache", "QueueSelector", "RuntimeConfig",
+    "ScaffoldAggregator", "ScaffoldStrategy", "Selector",
+    "SequentialEngine", "Server", "ServerConfig", "UniformSelector",
+    "WeightedAverageAggregator", "build", "disable_capture",
+    "disable_process_cache", "drift_schedule", "enable_process_cache",
+    "get", "names", "process_cache", "register", "total_uplink_bytes",
 ]

@@ -96,8 +96,10 @@ class CapturedProgram:
 
 
 class BoundedGraphCache:
-    """LRU of captured programs, owned by one ``Server``; ``captures``
-    counts the programs it has built (evicted ones included)."""
+    """LRU of captured programs, owned by one ``Server`` (or shared by all
+    of a process, :mod:`repro_torch.fl.runtime.compile_cache`);
+    ``captures`` counts the entries it has built (evicted ones
+    included)."""
 
     def __init__(self, maxsize: int):
         self.maxsize = max(1, int(maxsize))

@@ -13,16 +13,22 @@
                        ``budget`` devices (``core.judgment.judge_budgeted``)
                        for deployments with a hard per-round uplink cap.
 
-Both return ``(accepted, rejected, entropy)`` with *relative* indices into
+All return ``(accepted, rejected, entropy)`` with *relative* indices into
 the round's selection; rejected indices are in greedy-removal order
-(``BudgetedJudge``: in index order, as in the reference).
+(``BudgetedJudge``: in index order, as in the reference). Each also
+exposes ``traced()``: a function ``(soft float32, sizes float32) ->
+JudgmentResult`` that stays on the device of its inputs, which is how the
+pipelined engine speculates a verdict on the card. ``on_host`` says
+whether the judge computes from a host copy of its inputs (the pipelined
+engine then hands it the round's host copy, and the card runs on).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.judgment import judge_budgeted, judge_np, judge_packed
+from ..core.judgment import (JudgmentResult, judge, judge_budgeted, judge_np,
+                             judge_packed)
 from .registry import register
 
 
@@ -53,6 +59,10 @@ class MaxEntropyJudge:
             raise ValueError(f"unknown judge backend {backend!r}")
         self.backend = backend
 
+    @property
+    def on_host(self) -> bool:
+        return self.backend == "numpy"
+
     def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
                  ) -> tuple[list[int], list[int], float]:
         if self.backend == "numpy":
@@ -61,19 +71,46 @@ class MaxEntropyJudge:
         return _result_to_lists(judge_packed(soft_labels, sizes,
                                              backend=self.backend))
 
+    def traced(self, backend: str | None = None):
+        """Alg. 1 in float32 where the soft labels live, on ``backend``
+        ("torch": the plain loop; "cuda": one launch of K1's loop, which
+        reads nothing back and whose fields view its packed buffer). The
+        caller picks the backend (the pipelined engine passes its
+        ``spec_backend``); by default the judge's own, the plain loop for
+        the numpy judge."""
+        if backend is None:
+            backend = "torch" if self.backend == "numpy" else self.backend
+        return lambda soft, sizes: judge(soft, sizes, backend=backend)
+
 
 @register("judge", "none")
 class PassThroughJudge:
     """Admit every selected device; entropy is not defined (NaN)."""
 
+    on_host = True
+
     def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
                  ) -> tuple[list[int], list[int], float]:
         return list(range(len(sizes))), [], float("nan")
+
+    def traced(self):
+        def all_in(soft, sizes):
+            m, dev = soft.shape[0], soft.device
+            nan = torch.full((), float("nan"), device=dev)
+            return JudgmentResult(
+                mask=torch.ones(m, device=dev), entropy=nan,
+                initial_entropy=nan,
+                num_removed=torch.zeros((), dtype=torch.int32, device=dev),
+                removal_order=torch.full((m,), -1, dtype=torch.int32,
+                                         device=dev))
+        return all_in
 
 
 @register("judge", "budget")
 class BudgetedJudge:
     """Keep exactly ``budget`` devices, forward-greedy on group entropy."""
+
+    on_host = False
 
     def __init__(self, budget: int):
         self.budget = int(budget)
@@ -91,3 +128,7 @@ class BudgetedJudge:
         mask = host[:-1]
         return (np.flatnonzero(mask > 0).tolist(),
                 np.flatnonzero(mask == 0).tolist(), float(host[-1]))
+
+    def traced(self):
+        budget = self.budget
+        return lambda soft, sizes: judge_budgeted(soft, sizes, budget)

@@ -25,7 +25,13 @@ StrategyState = Any    # owned by a ClientStrategy (or None)
 
 @runtime_checkable
 class Selector(Protocol):
-    """Chooses the round's device set S_t (Alg. 2 lines 4-8)."""
+    """Chooses the round's device set S_t (Alg. 2 lines 4-8).
+
+    Optional: ``bind_data(corpus)`` takes the corpus's stats once, and
+    ``data_schedule(sel)`` gives each selected client's released sample
+    count for the gather. A selector holds host state only, so the
+    pipelined engine's ``copy.deepcopy`` of it replays its draws.
+    """
 
     def select(self, num: int) -> list[int]:
         """Draw ``num`` distinct device ids for this round."""
@@ -77,7 +83,14 @@ class ClientStrategy(Protocol):
 
 @runtime_checkable
 class Judge(Protocol):
-    """Decides which selected devices' models aggregate (Alg. 1)."""
+    """Decides which selected devices' models aggregate (Alg. 1).
+
+    Optional, read by the pipelined engine: ``traced()`` returns a
+    ``(soft, sizes) -> core.judgment.JudgmentResult`` function that stays
+    on the device (without it the engine runs the round sequentially),
+    and ``on_host`` is true where the judge computes from a host copy of
+    its inputs (the engine then hands it the round's host copy).
+    """
 
     def __call__(self, soft_labels: torch.Tensor, sizes: torch.Tensor
                  ) -> tuple[list[int], list[int], float]:

@@ -9,15 +9,17 @@ Built-in component classes expose ``from_config(config, local)``; entries
 without it are constructed with no arguments. Passing an
 already-constructed instance to :func:`build` bypasses the registry for
 that axis. This package registers the ``fedentropy``, ``fedavg``,
-``fedprox``, ``moon`` and ``scaffold`` compositions; any other name
-raises ``KeyError``.
+``fedprox``, ``moon``, ``scaffold`` and ``fedentropy+queue``
+compositions and the ``sequential`` and ``pipelined`` engines; any other
+name raises ``KeyError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
 
-KINDS = ("selector", "strategy", "judge", "aggregator", "composition")
+KINDS = ("selector", "strategy", "judge", "aggregator", "composition",
+         "engine")
 
 _REGISTRY: dict[str, dict[str, Any]] = {k: {} for k in KINDS}
 
@@ -68,9 +70,9 @@ def _instantiate(kind: str, spec: Any, config, local):
 
 def build(name: str, apply_fn, init_params, client_data, config,
           local=None, *, selector=None, strategy=None, judge=None,
-          aggregator=None, device="cuda"):
-    """Construct a sequential :class:`repro_torch.fl.Server` from a
-    composition name.
+          aggregator=None, engine=None, runtime=None, data_plane="auto",
+          drift=None, device="cuda"):
+    """Construct a server (an *engine*) from a composition name.
 
     ``selector``/``strategy``/``judge``/``aggregator`` override single
     axes of the named recipe — each takes a registered name or a
@@ -79,16 +81,60 @@ def build(name: str, apply_fn, init_params, client_data, config,
         build("fedentropy", ..., judge=MaxEntropyJudge(backend="cuda"),
               aggregator=FusedAverageAggregator(backend="cuda"))
 
-    ``device`` is where the params, the corpus and the round's tensor
-    work live; it defaults to the card and raises when there is none.
+    ``engine`` picks the round driver: the sequential
+    :class:`repro_torch.fl.Server` by default, ``"sequential"`` (the same
+    under the engine registry) or ``"pipelined"``
+    (:class:`repro_torch.fl.runtime.PipelinedServer`, on-device verdict
+    speculation); ``runtime`` passes it a
+    :class:`repro_torch.fl.runtime.RuntimeConfig`. A ``runtime`` without
+    an ``engine`` implies ``"pipelined"``; an unknown engine name raises
+    ``ValueError`` listing the registered names, and a runtime of the
+    wrong type for the engine raises here::
+
+        build("fedentropy", ..., engine="pipelined",
+              runtime=RuntimeConfig(speculate=True))
+
+    ``data_plane`` is ``"auto"`` or ``"resident"`` (the corpus on the
+    device); the streaming plane is not ported. ``drift`` is a list of
+    :class:`repro_torch.data.partition.DriftEvent`. ``device`` is where
+    the params, the corpus and the round's tensor work live; it defaults
+    to the card and raises when there is none.
     """
     from ..core.strategies import LocalSpec
+    from . import runtime as _runtime  # noqa: F401  (registers engines)
     from .server import Server
 
     comp = get("composition", name)
     local = local if local is not None else LocalSpec()
     strat = _instantiate("strategy", strategy or comp.strategy, config, local)
-    return Server(
+    if engine is None:
+        # a runtime config without a named engine must not silently drop
+        # its knobs: route to the engine it configures
+        engine_cls = Server if runtime is None else get("engine",
+                                                        "pipelined")
+    elif isinstance(engine, str):
+        try:
+            engine_cls = get("engine", engine)
+        except KeyError:
+            raise ValueError(
+                f"unknown engine {engine!r}; registered engines: "
+                f"{', '.join(names('engine'))}") from None
+    else:
+        engine_cls = engine
+    expected = getattr(engine_cls, "runtime_cls", None)
+    if runtime is not None and expected is not None \
+            and not isinstance(runtime, expected):
+        raise ValueError(
+            f"engine {engine_cls.__name__} takes runtime="
+            f"{expected.__name__}, got {type(runtime).__name__}")
+    kwargs = {}
+    if runtime is not None:
+        kwargs["runtime"] = runtime
+    if data_plane != "auto":
+        kwargs["data_plane"] = data_plane
+    if drift is not None:
+        kwargs["drift"] = drift
+    return engine_cls(
         apply_fn, init_params, client_data, config,
         selector=_instantiate("selector", selector or comp.selector,
                               config, local),
@@ -96,7 +142,7 @@ def build(name: str, apply_fn, init_params, client_data, config,
         judge=_instantiate("judge", judge or comp.judge, config, local),
         aggregator=_instantiate("aggregator", aggregator or comp.aggregator,
                                 config, strat.spec),
-        device=device,
+        device=device, **kwargs,
     )
 
 
@@ -108,3 +154,8 @@ register("composition", "fedprox", Composition(strategy="fedprox"))
 register("composition", "moon", Composition(strategy="moon"))
 register("composition", "scaffold",
          Composition(strategy="scaffold", aggregator="scaffold"))
+# Dynamic-data-queue participant selection (arXiv 2410.17792): clients
+# ranked by label entropy off the corpus stats, each round releasing a
+# growing prefix of the local dataset; judgment stays the paper's maxent.
+register("composition", "fedentropy+queue",
+         Composition(strategy="fedavg", selector="queue", judge="maxent"))

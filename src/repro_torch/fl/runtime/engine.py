@@ -1,0 +1,250 @@
+"""The pipelined round engine, on one card.
+
+``PipelinedServer`` runs the exact Selector/ClientStrategy/Judge/Aggregator
+composition of :class:`repro_torch.fl.Server`. With
+``RuntimeConfig(speculate=True)`` it breaks the chain that paper Alg. 2
+puts between the device and the host-side float64 judgment oracle by
+*speculating the verdict on the device*: the traced float32 judge
+(``spec_backend="cuda"``: one launch of K1's loop; ``"torch"``: its plain
+loop) gives a mask without a host read, and the aggregation on that mask
+(K2 with ``FusedAverageAggregator("cuda")``) queues behind it. The
+round's one device-to-host copy then brings back the speculated verdict,
+the soft labels and the sizes in one buffer; the host selects round t+1
+on a throwaway copy of the selector and dispatches its client program
+from the speculated params, and only then runs the float64 oracle, the
+records and the selector work, while round t+1's graph runs. On a hit
+the oracle only confirms; on a miss the speculated params and round t+1
+are discarded, the oracle's verdict is aggregated, and round t+1 is
+dispatched again from it (the history records ``spec_hit`` each round and
+``redispatched`` on a round whose compute was re-issued).
+
+History and params equal the sequential ``Server``'s bit for bit: the
+records come from the float64 oracle; the selector's RNG stream advances
+as it would sequentially (the speculative draw is on a copy, adopted only
+when the verdict matches; a queue selector's schedule rides with the copy
+that made the selection); a confirmed speculative aggregation is the
+sequential path's call on equal inputs (``sizes`` as float32 of the same
+integers, a mask of equal values). A captured client program's outputs
+are the graph's and round t+1's replay overwrites them, so what outlives
+the dispatch is kept first: the soft labels and sizes on the host, the
+client outputs cloned on the card (2.5 MB at the paper's width).
+
+A drift event scheduled for round t+1 gates the speculative dispatch: the
+round keeps its speculated aggregation but feeds the oracle's verdict back
+directly, and round t+1 selects after the drift. A judge without
+``traced()`` runs sequentially, as in the reference: that is the engine's
+semantics, not a fallback. Sharding over several cards (the reference's
+``shard_map`` fan-out) is not ported: ``shard=True`` raises.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from ...core.aggregation import comm_bytes
+from ..judges import MaxEntropyJudge
+from ..registry import register
+from ..server import Server
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Engine knobs; the defaults reproduce the sequential ``Server``.
+
+    ``spec_backend`` is the device judge of speculation: ``"cuda"`` (K1's
+    loop, the default; on CPU tensors its plain version, as every kernel
+    wrapper) or ``"torch"`` (the plain loop). ``shard``: ``"auto"`` and
+    ``False`` run on the server's one device; ``True`` (a multi-GPU
+    client mesh) raises. ``donate_data`` has no counterpart in PyTorch
+    (the reference donates the cohort's buffers to XLA) and changes
+    nothing.
+    """
+    speculate: bool = False        # overlap oracle judgment with round t+1
+    shard: object = "auto"         # "auto" | False; True is not ported
+    spec_backend: str = "cuda"     # device judge for speculation
+    donate_data: bool = True       # accepted; no effect in PyTorch
+
+    def __post_init__(self):
+        if self.spec_backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown spec_backend {self.spec_backend!r}; "
+                             "expected 'torch' or 'cuda'")
+        if self.shard is True:
+            raise NotImplementedError(
+                "shard=True (the client axis over several GPUs) is not "
+                "ported: ROADMAP queue 1 item 5b, multi-GPU shard=True on "
+                "a DeviceMesh; shard='auto' runs on the server's device")
+        if self.shard not in ("auto", False):
+            raise ValueError(f"shard must be 'auto', False or True, got "
+                             f"{self.shard!r}")
+
+
+@register("engine", "sequential")
+class SequentialEngine(Server):
+    """Alias of :class:`repro_torch.fl.Server` under the engine registry;
+    accepts (and ignores) ``runtime=`` so ``build(..., engine=...)`` is
+    uniform."""
+
+    runtime_cls = RuntimeConfig   # build() rejects mismatched configs
+
+    def __init__(self, *args, runtime: RuntimeConfig | None = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.runtime = runtime or RuntimeConfig()
+
+
+def _host_copy(jr, soft: torch.Tensor, sizes: torch.Tensor):
+    """The round's one device-to-host copy: the speculated mask and
+    removal order (int32 bits; absent for order-less judges), the soft
+    labels and the sizes, concatenated on the device and copied in one
+    piece. Returns (mask, order or None, soft (M, C), sizes (M,)) as
+    numpy float32 (order int32)."""
+    m, c = soft.shape
+    parts = [jr.mask.to(torch.float32).reshape(m)]
+    if jr.removal_order is not None:
+        parts.append(jr.removal_order.to(torch.int32).reshape(m)
+                     .view(torch.float32))
+    parts += [soft.reshape(-1), sizes.reshape(m)]
+    host = torch.cat(parts).cpu().numpy()
+    mask, off, order = host[:m], m, None
+    if jr.removal_order is not None:
+        order, off = host[m:2 * m].view(np.int32), 2 * m
+    return (mask, order, host[off:off + m * c].reshape(m, c),
+            host[off + m * c:])
+
+
+@register("engine", "pipelined")
+class PipelinedServer(Server):
+    """Pipelined drop-in for ``Server`` (same composition axes)."""
+
+    runtime_cls = RuntimeConfig   # build() rejects mismatched configs
+
+    def __init__(self, *args, runtime: RuntimeConfig | None = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.runtime = runtime or RuntimeConfig()
+        if not isinstance(self.runtime, RuntimeConfig):
+            raise ValueError(
+                f"{type(self).__name__} takes runtime=RuntimeConfig, got "
+                f"{type(self.runtime).__name__}")
+        self._pending = None           # (sel, out) dispatched for round t+1
+        self._redispatch_next = False  # previous speculation missed
+
+    # -------------------------------------------------------- speculation
+    def _traced_judge_fn(self):
+        """The on-device verdict for speculation; None disables it."""
+        def make():
+            # exact class (subclasses may override traced()): the
+            # runtime's spec_backend picks the device implementation
+            if type(self.judge) is MaxEntropyJudge:
+                return self.judge.traced(self.runtime.spec_backend)
+            traced = getattr(self.judge, "traced", None)
+            return None if traced is None else traced()
+        return self._compile_cache().get(
+            ("spec-judge", self.judge, self.runtime.spec_backend), make)
+
+    # ------------------------------------------------------------- rounds
+    def round(self) -> dict:
+        if not self.runtime.speculate:
+            return super().round()
+        spec_fn = self._traced_judge_fn()
+        if spec_fn is None:       # judge has no traced form: sequential
+            return super().round()
+        return self._speculative_round(spec_fn)
+
+    def _speculative_round(self, spec_fn) -> dict:
+        # drift applies BEFORE selection, as sequentially; the spec_next
+        # gate below keeps any pending dispatch from spanning a drift
+        self._apply_drift()
+        cfg = self.config
+        num = cfg.cohort_size()
+
+        if self._pending is not None:
+            sel, out = self._pending
+            self._pending = None
+            redispatched = False
+        else:
+            sel = self.selector.select(num)
+            out = self._run_cohort(sel, self.selector)
+            redispatched = self._redispatch_next
+        self._redispatch_next = False
+        idx = np.asarray(sel)
+        # round t+1 re-partitions some clients' data: dispatching it now
+        # would train on the pre-drift corpus
+        spec_next = not self._drift_at(self.round_idx + 1)
+
+        # --- device-side speculative verdict and aggregation (queued) ---
+        sizes32 = out["size"].to(torch.float32)
+        soft32 = out["soft_label"].to(torch.float32)
+        jr = spec_fn(soft32, sizes32)
+        new_global_spec = self.aggregator(self.global_params, out, sizes32,
+                                          jr.mask)
+        # state folding is mask-independent (Alg. 2): valid either way
+        new_state = self.strategy.update_state(
+            self.state, self.global_params, out, idx, cfg.num_clients)
+
+        spec_mask, order, soft, sizes = _host_copy(jr, soft32, sizes32)
+        spec_pos = [sel[i] for i in range(len(sel)) if spec_mask[i] > 0]
+        if order is not None:
+            spec_neg = [sel[int(k)] for k in order if k >= 0]
+        else:
+            # order-less judges (budgeted): index order; pools are
+            # set-based, so only the SET must match the oracle's
+            spec_neg = [sel[i] for i in range(len(sel))
+                        if spec_mask[i] == 0]
+        self.state = new_state
+
+        # --- speculatively select and dispatch round t+1 on a copy -------
+        kept = out
+        if spec_next:
+            # round t+1's replay overwrites a captured program's outputs;
+            # the miss path (and a judge on the device) read them after it
+            kept = pytree.tree_map(torch.clone, out)
+            sel_copy = copy.deepcopy(self.selector)
+            sel_copy.update(spec_pos, spec_neg)
+            next_sel = sel_copy.select(num)
+            # the copy made this selection, so its queue schedule rides
+            # with the dispatch
+            next_out = self._run_cohort(next_sel, sel_copy, new_global_spec)
+
+        # --- the oracle, on the host while round t+1 runs ----------------
+        if getattr(self.judge, "on_host", False):
+            a_rel, r_rel, ent = self.judge(torch.from_numpy(soft),
+                                           torch.from_numpy(sizes))
+        else:
+            a_rel, r_rel, ent = self.judge(kept["soft_label"], kept["size"])
+        mask = np.zeros(len(sel), np.float32)
+        mask[a_rel] = 1.0
+        pos = [sel[i] for i in a_rel]
+        neg = [sel[i] for i in r_rel]
+
+        hit = bool(np.array_equal(mask, spec_mask))
+        if hit:
+            self.global_params = new_global_spec
+            if spec_next:
+                self.selector = sel_copy      # same verdict -> same stream
+                self._pending = (next_sel, next_out)
+            else:
+                # drift boundary: nothing in flight; feed the verdict back
+                # directly (the sequential call)
+                self.selector.update(pos, neg)
+        else:                                  # discard, redo from oracle
+            self.global_params = self.aggregator(
+                self.global_params, kept, kept["size"],
+                torch.as_tensor(mask, device=self.device))
+            self.selector.update(pos, neg)
+            # a miss forces a re-dispatch only if round t+1 was issued
+            self._redispatch_next = spec_next
+
+        comm = comm_bytes(self.global_params, len(sel), len(pos),
+                          soft.shape[-1],
+                          control_variate=self.strategy.doubles_uplink)
+        rec = {"round": self.round_idx, "selected": sel, "positive": pos,
+               "negative": neg, "entropy": ent, "comm": comm,
+               "spec_hit": hit, "redispatched": redispatched}
+        self.history.append(rec)
+        self.round_idx += 1
+        return rec

@@ -6,6 +6,21 @@
 ``UniformSelector`` — uniform sampling without replacement. Seeded with
                       ``seed + 1`` by the registry, as in the JAX package,
                       so both draw the same cohorts.
+``QueueSelector``   — entropy-driven participant selection with dynamic
+                      data queues (arXiv 2410.17792): clients ranked by
+                      label-distribution entropy off the bound corpus
+                      stats, eps-greedy explored, and each round releasing
+                      a growing prefix of every selected client's local
+                      dataset via a ``DataQueue`` schedule that the server
+                      applies inside the cohort gather.
+
+Selectors that consume corpus statistics implement ``bind_data``: the
+server passes its corpus once, whose cached ``label_histograms()`` and
+``sizes()`` the selector keeps as numpy (a raw stacked dict binds too).
+Selectors hold no device tensors, so the pipelined engine's
+``copy.deepcopy`` of one copies host state only. Every selector here is
+an exact transcription of ``repro.fl.selectors``: its selection is a pure
+function of its numpy Generator and its counts.
 """
 from __future__ import annotations
 
@@ -13,8 +28,19 @@ from typing import Sequence
 
 import numpy as np
 
-from ..core.pools import DevicePools
+from ..core.pools import DevicePools, hist_entropy, label_histograms
+from ..data.corpus import DataQueue
 from .registry import register
+
+
+def _corpus_histograms(client_data) -> np.ndarray:
+    """Label histograms from a corpus (cached) or a raw stacked dict."""
+    cached = getattr(client_data, "label_histograms", None)
+    if cached is not None:
+        return cached()
+    return label_histograms(np.asarray(client_data["y"]),
+                            np.asarray(client_data["w"])
+                            if "w" in client_data else None)
 
 
 @register("selector", "pools")
@@ -62,3 +88,97 @@ class UniformSelector:
 
     def stats(self) -> dict:
         return {"selector": "uniform", "num_clients": self.num_clients}
+
+
+@register("selector", "queue")
+class QueueSelector:
+    """Entropy-driven participation with dynamic data queues
+    (arXiv 2410.17792).
+
+    Ranking: with probability ``eps`` the round exploits — the ``num``
+    clients with the highest label-distribution entropy (read once off the
+    bound corpus's cached histograms), fairness-damped by a per-selection
+    ``fairness`` penalty; otherwise it explores uniformly. Ties break to
+    the lowest client id, so selection is a pure function of (rng stream,
+    visit counts) and a speculative deepcopy replays it exactly.
+
+    Queueing: every ``select`` advances a :class:`DataQueue` schedule and
+    records each chosen client's released sample count;
+    :meth:`data_schedule` hands those counts to the server, which masks
+    them into the cohort's weight rows inside the corpus gather.
+
+    Unbound (no corpus stats), selection is uniform and the queue stays
+    off.
+    """
+
+    def __init__(self, num_clients: int, eps: float = 0.8, seed: int = 0,
+                 queue: DataQueue | None = None, fairness: float = 0.05):
+        self.num_clients = num_clients
+        self.eps = eps
+        self.fairness = fairness
+        self.queue = queue or DataQueue()
+        self._rng = np.random.default_rng(seed)
+        self._uses = np.zeros(num_clients, np.int64)
+        self._entropy: np.ndarray | None = None
+        self._sizes: np.ndarray | None = None
+        self._last_active: np.ndarray | None = None
+        self._last_frac: float | None = None   # schedule last applied
+        self.round_idx = 0
+        self._pos = 0
+        self._neg = 0
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls(config.num_clients, config.eps, config.seed)
+
+    def bind_data(self, client_data) -> None:
+        """Per-client entropy ranks and real sizes off the corpus (or a
+        raw stacked dict), kept as numpy."""
+        if hasattr(client_data, "label_entropy"):
+            self._entropy = client_data.label_entropy()
+            self._sizes = client_data.sizes()
+        else:
+            hists = _corpus_histograms(client_data)
+            self._entropy = np.asarray(
+                [hist_entropy(h) for h in hists], np.float64)
+            w = np.asarray(client_data["w"]) if "w" in client_data else None
+            self._sizes = (np.full(len(hists), np.asarray(
+                client_data["y"]).shape[1], np.int64) if w is None
+                else w.sum(axis=1).astype(np.int64))
+
+    def select(self, num: int) -> list[int]:
+        num = min(num, self.num_clients)
+        if self._entropy is not None and self._rng.random() < self.eps:
+            score = self._entropy - self.fairness * self._uses
+            order = np.lexsort((np.arange(self.num_clients), -score))
+            sel = order[:num]
+        else:
+            sel = self._rng.choice(self.num_clients, num, replace=False)
+        sel = [int(i) for i in sel]
+        self._uses[sel] += 1
+        if self._sizes is None:
+            self._last_active = None
+        else:
+            self._last_active = self.queue.active(self.round_idx,
+                                                  self._sizes[sel])
+            self._last_frac = self.queue.frac(self.round_idx)
+        self.round_idx += 1
+        return sel
+
+    def data_schedule(self, sel) -> np.ndarray | None:
+        """Released-sample counts for the selection :meth:`select` just
+        produced (what ``Server._run_cohort`` reads); None until a corpus
+        is bound."""
+        return self._last_active
+
+    def update(self, positives: Sequence[int],
+               negatives: Sequence[int]) -> None:
+        self._pos += len(positives)
+        self._neg += len(negatives)
+
+    def stats(self) -> dict:
+        # queue_frac is the schedule the last select applied; None before
+        # any select, or while unbound
+        return {"selector": "queue", "round": self.round_idx,
+                "queue_frac": self._last_frac,
+                "positive_total": self._pos, "negative_total": self._neg}

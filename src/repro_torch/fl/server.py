@@ -1,18 +1,24 @@
 """The ``Server`` round loop: paper Alg. 2 with every axis pluggable.
 
-One ``round()`` = select -> ClientUpdate mapped over the cohort -> judge
--> aggregate -> state/pool feedback. The data plane (client updates,
-aggregation) is tensor code on ``device`` over a stacked client axis; the
-control plane (selection, pool bookkeeping, the numpy judgment) is
-host-side numpy. The cohort comes off the device-resident
+One ``round()`` = (drift) -> select -> ClientUpdate mapped over the cohort
+-> judge -> aggregate -> state/pool feedback. The data plane (client
+updates, aggregation) is tensor code on ``device`` over a stacked client
+axis; the control plane (selection, pool bookkeeping, the numpy judgment)
+is host-side numpy. The cohort comes off the device-resident
 :class:`repro_torch.data.corpus.ClientCorpus`, so per round only the
-cohort's ids cross from host to device.
+cohort's ids cross from host to device, with the released-sample counts
+of a selector that has a ``data_schedule`` (the dynamic data queue),
+which the gather applies as a weight mask. Selectors that rank on corpus
+statistics bind the corpus once (``bind_data``). Scheduled drift events
+(``drift=``, :func:`repro_torch.data.partition.drift_schedule`) replace
+the drifting clients' rows at the start of their round.
 
 On a CUDA device the vmapped client program runs as a captured CUDA graph,
 one per key in a per-server LRU of ``ServerConfig.jit_cache_size``
 entries (``fl.graph_cache``), the counterpart of the reference's jitted
-program in its ``BoundedJitCache``; on the CPU, and inside
-``graph_cache.disable_capture()``, it runs eagerly.
+program in its ``BoundedJitCache``, or in the process-wide cache while
+:func:`repro_torch.fl.runtime.enable_process_cache` is on; on the CPU, and
+inside ``graph_cache.disable_capture()``, it runs eagerly.
 """
 from __future__ import annotations
 
@@ -80,8 +86,17 @@ class Server:
         strategy: ClientStrategy,
         judge: Judge,
         aggregator: Aggregator,
+        data_plane: str = "auto",
+        drift=None,
         device="cuda",
     ):
+        if data_plane in ("stream", "streaming"):
+            raise NotImplementedError(
+                "the streaming host-resident data plane is not ported yet "
+                "(ROADMAP queue 1 item 9); use data_plane='resident'")
+        if data_plane not in ("auto", "resident"):
+            raise ValueError(f"unknown data plane {data_plane!r}; expected "
+                             "'auto' or 'resident'")
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.global_params = pytree.tree_map(
@@ -100,39 +115,117 @@ class Server:
         self._eager_fn = _make_client_fn(apply_fn, strategy.spec,
                                          strategy.client_in_axes())
         self._graphs = BoundedGraphCache(config.jit_cache_size)
+        self._captures = 0
+        self._param_sig = tuple(
+            (tuple(t.shape), str(t.dtype))
+            for t in pytree.tree_leaves(self.global_params))
+        # selectors that rank on corpus stats (the queue selector's label
+        # entropy) bind the corpus once; the corpus caches the stats
+        bind = getattr(selector, "bind_data", None)
+        if bind is not None:
+            bind(self.corpus)
+        # drift events apply at the START of their round (before
+        # selection), replacing the drifting clients' rows
+        self._drift = sorted(list(drift or ()), key=lambda e: e.round)
+        s = self.corpus.samples_per_client
+        for ev in self._drift:
+            got = {kk: np.shape(v)[1] for kk, v in ev.data.items()}
+            if any(v != s for v in got.values()):
+                raise ValueError(
+                    f"drift event at round {ev.round} carries rows of "
+                    f"sample length {got}, corpus has {s} "
+                    "(regenerate with samples_per_client=corpus's)")
 
     # ------------------------------------------------------------------
-    def _client_key(self, cohort: int) -> tuple:
-        # the reference's key also holds the apply fn, the spec and the
-        # in-axes; the cache is per server and those are fixed with
-        # ``_eager_fn`` in __init__, so only the corpus and the cohort
-        # size (a graph's shapes are fixed) can vary
-        return (self.corpus.signature(), cohort)
+    def _compile_cache(self):
+        """The per-server LRU, or the process-wide cache while
+        ``fl.runtime.enable_process_cache()`` is on."""
+        from .runtime.compile_cache import process_cache
+        cache = process_cache()
+        # explicit None check: an empty cache is len() == 0, hence falsy
+        return self._graphs if cache is None else cache
 
-    def _run_cohort(self, idx: np.ndarray) -> dict:
-        """The cohort's client updates: captured on a CUDA device (the
-        outputs are the graph's, overwritten by the next round's replay),
-        eager on the CPU or inside ``disable_capture()``."""
-        args = (self.global_params, self.corpus.cohort(idx),
+    def _client_key(self, cohort: int) -> tuple:
+        # a captured program fits any server with the same program and
+        # argument shapes: the apply fn (by identity; the key pins it),
+        # the strategy's spec and in-axes, the params' shapes, the device,
+        # the corpus signature and the cohort size. A drifted corpus keeps
+        # its signature, so its rounds replay the same graph.
+        return ("client", self.apply_fn, self.strategy.spec,
+                tuple(self.strategy.client_in_axes()), self._param_sig,
+                str(self.device), self.corpus.signature(), cohort)
+
+    def _capture(self, args) -> CapturedProgram:
+        program = CapturedProgram(self._eager_fn, args)
+        self._captures += 1
+        return program
+
+    def _client_program(self, args, cohort: int):
+        """The vmapped client program for ``args``: a captured graph on
+        the card, the eager function on the CPU (shared under the same
+        key while the process cache is on) and inside
+        ``disable_capture()``."""
+        if self.device.type != "cuda":
+            cache = self._compile_cache()
+            if cache is self._graphs:
+                return self._eager_fn
+            return cache.get(self._client_key(cohort),
+                             lambda: self._eager_fn)
+        if not capture_enabled():
+            return self._eager_fn
+        return self._compile_cache().get(self._client_key(cohort),
+                                         lambda: self._capture(args))
+
+    def _run_cohort(self, sel, selector, global_params=None) -> dict:
+        """Gather the cohort ``sel`` and run its client updates from
+        ``global_params`` (default the server's).
+
+        ``selector`` is the one that produced ``sel`` (under speculation a
+        throwaway copy): its ``data_schedule``, if it has one, gives the
+        released-sample counts the gather masks into ``w``. On the card
+        the outputs are the captured graph's, which the next replay
+        overwrites; a caller clones what must outlive it.
+        """
+        gp = self.global_params if global_params is None else global_params
+        idx = np.asarray(sel)
+        sched = getattr(selector, "data_schedule", None)
+        active = None if sched is None else sched(sel)
+        args = (gp, self.corpus.cohort(idx, active=active),
                 *self.strategy.client_inputs(self.state, idx))
-        if self.device.type != "cuda" or not capture_enabled():
-            return self._eager_fn(*args)
-        program = self._graphs.get(
-            self._client_key(len(idx)),
-            lambda: CapturedProgram(self._eager_fn, args))
-        return program(*args)
+        return self._client_program(args, len(idx))(*args)
 
     @property
     def graphs_captured(self) -> int:
-        """How many client programs this server has captured."""
-        return self._graphs.captures
+        """How many client programs this server has captured (a program
+        found in the process cache counts for the server that built
+        it)."""
+        return self._captures
 
+    # -------------------------------------------------------------- drift
+    def _apply_drift(self) -> None:
+        """Apply every drift event scheduled for the current round (before
+        selection): a new corpus on the device with the drifting clients'
+        rows replaced, and the selector's stats bound to it."""
+        while self._drift and self._drift[0].round == self.round_idx:
+            ev = self._drift.pop(0)
+            self.corpus = self.corpus.with_rows(ev.clients, ev.data)
+            bind = getattr(self.selector, "bind_data", None)
+            if bind is not None:
+                bind(self.corpus)
+
+    def _drift_at(self, round_no: int) -> bool:
+        """True if a drift event is still scheduled for ``round_no``: the
+        pipelined engine must not speculate across that boundary."""
+        return any(ev.round == round_no for ev in self._drift)
+
+    # ------------------------------------------------------------------
     def round(self) -> dict:
         """One paper Alg. 2 round; returns the history record."""
+        self._apply_drift()
         cfg = self.config
         sel = self.selector.select(cfg.cohort_size())
         idx = np.asarray(sel)
-        out = self._run_cohort(idx)
+        out = self._run_cohort(sel, self.selector)
 
         soft, sizes = out["soft_label"], out["size"]  # (|S_t|, C), (|S_t|,)
         a_rel, r_rel, ent = self.judge(soft, sizes)

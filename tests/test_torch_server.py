@@ -119,9 +119,10 @@ def test_evaluate_matches_reference(tiny):
 
 
 def test_registry_surface():
-    assert tfl.names("composition") == ["fedavg", "fedentropy", "fedprox",
+    assert tfl.names("composition") == ["fedavg", "fedentropy",
+                                        "fedentropy+queue", "fedprox",
                                         "moon", "scaffold"]
-    for name in ("fedcat", "ifca", "fedentropy+queue", "nope"):
+    for name in ("fedcat", "ifca", "nope"):
         with pytest.raises(KeyError, match="no composition registered"):
             tfl.get("composition", name)
     assert tfl.get("judge", "maxent") is tfl.MaxEntropyJudge

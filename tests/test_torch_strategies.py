@@ -266,7 +266,8 @@ def test_localspec_defaults_and_conflicts():
 
 
 def test_registry_round_trips_the_five_compositions():
-    assert tfl.names("composition") == ["fedavg", "fedentropy", "fedprox",
+    assert tfl.names("composition") == ["fedavg", "fedentropy",
+                                        "fedentropy+queue", "fedprox",
                                         "moon", "scaffold"]
     for name in tfl.names("composition"):
         got, want = tfl.get("composition", name), rfl.get("composition",
@@ -277,3 +278,4 @@ def test_registry_round_trips_the_five_compositions():
     assert tfl.get("strategy", "moon") is tfl.MoonStrategy
     assert tfl.get("strategy", "scaffold") is tfl.ScaffoldStrategy
     assert tfl.get("aggregator", "scaffold") is tfl.ScaffoldAggregator
+    assert tfl.get("selector", "queue") is tfl.QueueSelector
