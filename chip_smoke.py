@@ -78,6 +78,18 @@ Phases, each of which raises on failure (exit code non-zero):
    pipelined; 6 rounds on a new server each, no synchronise between
    rounds, the median of rounds 2-5) and profile one round of each for
    the device's idle share.
+11. drive FedCAT at the same width with chains of 2 (5 a round), the
+   chain program captured as one CUDA graph, devconcat merging leaf by
+   leaf (no K2): ``fedcat`` and ``fedcat+maxent`` (judged by K1's loop,
+   one launch a round) for 3 rounds each, equal bit for bit to the same
+   rounds under ``fl.disable_capture()``, and ``fedcat+maxent`` on the
+   plain judge under phase 9's rule; ``fedcat`` at group size 1 against
+   ``fedavg`` on the same uniform stream (bit for bit, or the largest
+   difference printed with the records equal); ``fedcat+maxent`` on the
+   pipelined engine for 5 rounds, speculating in K1's loop, and with the
+   traced form that admits everyone, each equal to the sequential server
+   bit for bit; then fedcat+maxent's and fedentropy's round in turns and
+   one profiled round of each.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -86,8 +98,9 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 a JSON object with every kernel's launches, error, times (``ms`` per
 wrapper call, ``kernel_ms`` of device time) and bounds. K1's loop and K2
 also carry ``launches_by_path``: ``fedentropy`` (phase 4), ``moon`` and
-``scaffold`` (phase 9), and phase 10's ``pipelined``, ``pipelined+miss``
-and ``fedentropy+queue``.
+``scaffold`` (phase 9), phase 10's ``pipelined``, ``pipelined+miss``
+and ``fedentropy+queue``, and phase 11's ``fedcat``, ``fedcat+maxent``,
+``fedcat+maxent pipelined`` and ``fedcat+maxent pipelined+miss``.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -869,18 +882,27 @@ def build_fl(name: str, params, corpus, judge=None, **kw):
                         judge=judge or fl.MaxEntropyJudge(), **kw)
 
 
-def equal_to_sequential(seq, pip, what: str) -> None:
+def _same(x, y) -> bool:
+    """Record values equal, a NaN entropy (a composition without
+    judgment) equal to a NaN."""
+    return x == y or (isinstance(x, float) and isinstance(y, float)
+                      and math.isnan(x) and math.isnan(y))
+
+
+def equal_to_sequential(seq, pip, what: str, flags: bool = True) -> None:
     """Raises unless the pipelined server's records equal the sequential
     server's to the bit (entropy included; the two speculation flags
-    apart) and its params and state are equal bit for bit."""
+    apart) and its params and state are equal bit for bit. ``flags``:
+    ``pip`` speculates, so its records carry the two flags."""
     if len(seq.history) != len(pip.history):
         raise AssertionError(f"{what}: {len(seq.history)} rounds against "
                              f"{len(pip.history)}")
+    extra = {"spec_hit", "redispatched"} if flags else set()
     for a, b in zip(seq.history, pip.history):
-        if set(b) != set(a) | {"spec_hit", "redispatched"}:
+        if set(b) != set(a) | extra:
             raise AssertionError(f"{what}: record keys {sorted(b)}")
         for key in a:
-            if b[key] != a[key]:
+            if not _same(b[key], a[key]):
                 raise AssertionError(f"{what}: round {a['round']} {key}: "
                                      f"{b[key]} != {a[key]}")
     trees = [(seq.global_params, pip.global_params)]
@@ -892,16 +914,19 @@ def equal_to_sequential(seq, pip, what: str) -> None:
             if not torch.equal(t, lb[name]):
                 raise AssertionError(f"{what}: {name} differs from the "
                                      "sequential server's")
-    print(f"{what}: equal to the sequential server bit for bit over "
+    other = "the sequential server" if flags else "the other route"
+    print(f"{what}: equal to {other} bit for bit over "
           f"{len(seq.history)} rounds (records, entropy, params"
           f"{', state' if seq.state is not None else ''})")
 
 
-def run_speculative(seq, pip, rounds: int, label: str) -> dict:
+def run_speculative(seq, pip, rounds: int, label: str,
+                    k2: bool = True) -> dict:
     """``rounds`` rounds of the sequential server, then of the pipelined
     one, with every count at 0 just before and read just after; prints
     each pipelined round's flags and K1-loop and K2 launches. Holds the
-    two equal and returns the pipelined path's launches."""
+    two equal and returns the pipelined path's launches. ``k2``: the
+    aggregator runs K2 once an aggregation (else never)."""
     for _ in range(rounds):
         seq.round()
     _reset_counts()
@@ -921,7 +946,7 @@ def run_speculative(seq, pip, rounds: int, label: str) -> dict:
     equal_to_sequential(seq, pip, label)
     misses = sum(not r["spec_hit"] for r in pip.history)
     want = {"entropy_judge_sweep": 0,
-            "masked_weighted_sum": rounds + misses}
+            "masked_weighted_sum": (rounds + misses) if k2 else 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{label}: launches {launches}; expected "
                              f"{want} ({misses} misses)")
@@ -1076,6 +1101,138 @@ def pipelined_path(params, corpus, split) -> dict:
 
     time_pipelined(params, corpus)
     return out
+
+
+# ------------------------------------------------------------------ FedCAT
+
+CAT_GROUP = 2            # 5 chains of 2 in a cohort of 10
+
+
+def build_cat(name: str, params, corpus, group_size: int = CAT_GROUP,
+              judge=None, **kw):
+    """FedCAT (``fedcat`` or ``fedcat+maxent``) at phase 4's configuration
+    with chains of ``group_size``: devconcat merges leaf by leaf, as in
+    the reference (no K2); ``fedcat+maxent`` judges in K1's loop unless
+    ``judge`` is given; ``kw`` goes to ``fl.build``."""
+    cfg = fl.ServerConfig(num_clients=100, participation=0.1, seed=0,
+                          group_size=group_size)
+    if judge is None and name == "fedcat+maxent":
+        judge = fl.MaxEntropyJudge(backend="cuda")
+    if judge is not None:
+        kw["judge"] = judge
+    return fl.build(name, cnn.apply, params, corpus, cfg,
+                    fl.LocalSpec("catchain"), device="cuda", **kw)
+
+
+def fedcat_path(params, corpus) -> dict:
+    """Phase 11: FedCAT at the paper's width, chains of 2. Returns the
+    launches by path."""
+    out = {}
+    for name in ("fedcat", "fedcat+maxent"):
+        judged = name == "fedcat+maxent"
+        judge = (RecordingJudge(fl.MaxEntropyJudge(backend="cuda"))
+                 if judged else None)
+        server = build_cat(name, params, corpus, judge=judge)
+        _reset_counts()
+        walls = run_rounds(server, f"{name}, captured")
+        launches = _read_counts()
+        print(f"{name}: launches in {ROUNDS} rounds: {launches}; groups "
+              f"of the last round {server.selector.last_groups}")
+        want = {"entropy_judge_loop": ROUNDS if judged else 0,
+                "entropy_judge_sweep": 0, "masked_weighted_sum": 0}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"{name}: launches {launches}; expected "
+                                 f"{want}")
+        if server.graphs_captured != 1:
+            raise AssertionError(f"{name}: {server.graphs_captured} graphs")
+        for leaf, t in _leaves(server.global_params).items():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name}: non-finite {leaf}")
+        with fl.disable_capture():
+            eager = build_cat(name, params, corpus)
+            run_rounds(eager, f"{name}, eager")
+        equal_to_sequential(eager, server, f"{name}: captured route vs "
+                            "eager route", flags=False)
+        if judged:
+            follow = FollowingJudge(fl.MaxEntropyJudge(backend="torch"),
+                                    judge, f"{name}, plain route")
+            plain = build_cat(name, params, corpus, judge=follow)
+            run_rounds(plain, f"{name}, torch, captured")
+            compare_routes(server, plain, f"{name}: K1 route vs plain "
+                           "route", PARAMS_RTOL, ties=len(follow.ties))
+        out[name] = launches
+        print(f"{name}: round wall s {[round(x, 4) for x in walls]} "
+              "(captured; the first round captures)")
+
+    # group size 1: every device its own chain, fedavg on the same
+    # uniform stream
+    k1 = build_cat("fedcat", params, corpus, group_size=1)
+    fedavg = fl.build("fedavg", cnn.apply, params, corpus,
+                      fl.ServerConfig(num_clients=100, participation=0.1,
+                                      seed=0), fl.LocalSpec(),
+                      device="cuda")
+    run_rounds(k1, "fedcat, group size 1")
+    run_rounds(fedavg, "fedavg, uniform")
+    ours, theirs = _leaves(k1.global_params), _leaves(fedavg.global_params)
+    diff = max(float((t - theirs[k]).abs().max()) for k, t in ours.items())
+    if diff == 0.0:
+        equal_to_sequential(fedavg, k1, "fedcat at group size 1 vs fedavg",
+                            flags=False)
+    else:
+        compare_routes(fedavg, k1, "fedcat at group size 1 vs fedavg",
+                       PARAMS_RTOL)
+        print(f"fedcat at group size 1 vs fedavg: params part on the card "
+              f"by at most {diff:.3e} (records equal)")
+
+    # the pipelined engine: round t+1's chains laid out from the copy
+    seq = build_cat("fedcat+maxent", params, corpus,
+                    judge=RecordingJudge(fl.MaxEntropyJudge()))
+    pip = build_cat("fedcat+maxent", params, corpus,
+                    judge=fl.MaxEntropyJudge(), runtime=SPEC)
+    label = "fedcat+maxent pipelined"
+    out[label] = run_speculative(seq, pip, SPEC_ROUNDS, label, k2=False)
+    if out[label]["entropy_judge_loop"] != SPEC_ROUNDS:
+        raise AssertionError(f"{label}: {out[label]}; expected "
+                             f"{SPEC_ROUNDS} K1 loop launches")
+    miss_margins(seq, pip, label)
+    seq = build_cat("fedcat+maxent", params, corpus,
+                    judge=fl.MaxEntropyJudge())
+    pip = build_cat("fedcat+maxent", params, corpus, judge=AdmitAllTraced(),
+                    runtime=SPEC)
+    label = "fedcat+maxent pipelined+miss"
+    out[label] = run_speculative(seq, pip, SPEC_ROUNDS, label, k2=False)
+    forced = sum(not r["spec_hit"] for r in pip.history)
+    if not forced or out[label]["entropy_judge_loop"] != 0:
+        raise AssertionError(f"{label}: {forced} misses, launches "
+                             f"{out[label]}")
+
+    time_fedcat(params, corpus)
+    return out
+
+
+def time_fedcat(params, corpus) -> None:
+    """fedcat+maxent's and fedentropy's (phase 4's) captured round in
+    turns (fedcat+maxent, fedentropy, fedentropy, fedcat+maxent), each on
+    a new server for 4 rounds (round 0 captures), the median of rounds
+    2-3 of each; then one profiled round of each: the device's busy time
+    (the union of kernel intervals) and idle share."""
+    times = {"fedcat+maxent": [], "fedentropy": []}
+    last = {}
+    for name in ("fedcat+maxent", "fedentropy", "fedentropy",
+                 "fedcat+maxent"):
+        server = (build_cat(name, params, corpus) if name != "fedentropy"
+                  else build_server(name, params, corpus, "cuda"))
+        walls = [timed_round(server, f"{name}, timed") for _ in range(4)]
+        times[name].append(float(statistics.median(walls[2:4])))
+        last[name] = server
+    prof = {name: profile_round(server, name)
+            for name, server in last.items()}
+    print("round s in turns (fedcat+maxent, fedentropy, fedentropy, "
+          "fedcat+maxent), medians of rounds 2-3: " + "; ".join(
+              f"{name} {[round(x, 5) for x in ts]}"
+              for name, ts in times.items()) + "; profiled: " + "; ".join(
+              f"{name} wall {w:.4f} s busy {b:.4f} s idle {1 - b / w:.3f}"
+              for name, (w, b) in prof.items()))
 
 
 
@@ -1778,6 +1935,9 @@ def main() -> int:
     _phase("10. the pipelined engine at the main path's width: verdicts "
            "speculated through K1's loop, aggregated in K2")
     pipelined = pipelined_path(*setup, split)
+    _phase("11. FedCAT at the main path's width: 5 chains of 2, "
+           "fedcat+maxent judged in K1's loop, sequential and pipelined")
+    fedcat = fedcat_path(*setup)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1821,7 +1981,8 @@ def main() -> int:
         if name in ("entropy_judge_loop", "masked_weighted_sum"):
             row["launches_by_path"] = {"fedentropy": count, **{
                 comp: o["launches"][name] for comp, o in others.items()}, **{
-                path: n[name] for path, n in pipelined.items()}}
+                path: n[name] for path, n in pipelined.items()}, **{
+                path: n[name] for path, n in fedcat.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

@@ -13,7 +13,8 @@ seed draws the same cohorts in both packages:
   re-filed according to the judgment verdict.
 
 ``label_histograms`` and ``hist_entropy`` are the per-client label
-statistics the queue selector ranks on, transcribed from the same module.
+statistics the queue selector ranks on, and ``greedy_entropy_groups`` the
+FedCAT grouping built on them, transcribed from the same module.
 """
 from __future__ import annotations
 
@@ -96,3 +97,34 @@ def hist_entropy(hist: np.ndarray) -> float:
     if tot <= 0.0:
         return 0.0
     return float(entropy_np(np.asarray(hist, np.float64) / tot))
+
+
+def greedy_entropy_groups(hists: np.ndarray,
+                          group_size: int) -> list[list[int]]:
+    """Partition rows into ordered groups of ``group_size``, greedily
+    maximizing each group's combined label entropy (FedCAT grouping).
+
+    Each group is seeded with the most label-skewed device left, then grown
+    by the device whose addition raises the pooled histogram's entropy the
+    most. Deterministic (ties break to the lowest index, through the same
+    tuple keys as the reference), so a speculative re-selection on a
+    selector copy reproduces the same chains. The final group may be
+    smaller when ``group_size`` does not divide the row count.
+    """
+    n = len(hists)
+    k = max(1, int(group_size))
+    remaining = list(range(n))
+    groups: list[list[int]] = []
+    while remaining:
+        seed = min(remaining, key=lambda i: (hist_entropy(hists[i]), i))
+        remaining.remove(seed)
+        group = [seed]
+        acc = np.array(hists[seed], np.float64)
+        while len(group) < k and remaining:
+            best = max(remaining,
+                       key=lambda i: (hist_entropy(acc + hists[i]), -i))
+            remaining.remove(best)
+            group.append(best)
+            acc += hists[best]
+        groups.append(group)
+    return groups

@@ -7,13 +7,15 @@ Paper Alg. 2 decomposed into four swappable axes (see
 axis           question it answers                 built-ins
 =============  ==================================  =====================
 ``Selector``   who is asked to train this round    ``pools``, ``uniform``,
-                                                   ``queue``
+                                                   ``queue``, ``catgroups``,
+                                                   ``catgroups-pools``
 ``ClientStrategy``  how each client trains         ``fedavg``, ``fedprox``,
-                                                   ``moon``, ``scaffold``
+                                                   ``moon``, ``scaffold``,
+                                                   ``catchain``
 ``Judge``      whose update is admitted            ``maxent``, ``none``,
                                                    ``budget``
 ``Aggregator`` how admitted updates merge          ``weighted``, ``fused``,
-                                                   ``scaffold``
+                                                   ``scaffold``, ``devconcat``
 =============  ==================================  =====================
 
 ::
@@ -30,31 +32,35 @@ On the card the vmapped client program runs as a captured CUDA graph
 (``fl.graph_cache``); ``with fl.disable_capture():`` runs it eagerly.
 ``engine="pipelined"`` with ``runtime=fl.RuntimeConfig(speculate=True)``
 speculates each round's verdict on the card (``fl.runtime``);
+``fl.build("fedcat+maxent", ...)`` trains entropy-grouped device chains
+(FedCAT) and judges chain members before concatenation;
 ``drift=fl.drift_schedule(...)`` re-partitions clients mid-run.
 """
 from ..core.strategies import LocalSpec
 from ..data.corpus import ClientCorpus, DataQueue, Normalize
 from ..data.partition import DriftEvent, drift_schedule
-from .aggregators import (FusedAverageAggregator, ScaffoldAggregator,
-                          WeightedAverageAggregator)
+from .aggregators import (DeviceConcatAggregator, FusedAverageAggregator,
+                          ScaffoldAggregator, WeightedAverageAggregator)
 from .graph_cache import BoundedGraphCache, disable_capture
 from .judges import BudgetedJudge, MaxEntropyJudge, PassThroughJudge
 from .protocols import Aggregator, ClientStrategy, Judge, Selector
 from .registry import Composition, build, get, names, register
-from .selectors import PoolSelector, QueueSelector, UniformSelector
+from .selectors import (CatGrouper, PoolCatGrouper, PoolSelector,
+                        QueueSelector, UniformSelector)
 from .server import Server, ServerConfig, total_uplink_bytes
-from .strategies import (FedAvgStrategy, FedProxStrategy, MoonStrategy,
-                         ScaffoldStrategy)
+from .strategies import (CatChainStrategy, FedAvgStrategy, FedProxStrategy,
+                         MoonStrategy, ScaffoldStrategy)
 from .runtime import (PipelinedServer, ProcessCompileCache, RuntimeConfig,
                       SequentialEngine, disable_process_cache,
                       enable_process_cache, process_cache)
 
 __all__ = [
-    "Aggregator", "BoundedGraphCache", "BudgetedJudge", "ClientCorpus",
-    "ClientStrategy", "Composition", "DataQueue", "DriftEvent",
-    "FedAvgStrategy", "FedProxStrategy", "FusedAverageAggregator", "Judge",
+    "Aggregator", "BoundedGraphCache", "BudgetedJudge", "CatChainStrategy",
+    "CatGrouper", "ClientCorpus", "ClientStrategy", "Composition",
+    "DataQueue", "DeviceConcatAggregator", "DriftEvent", "FedAvgStrategy",
+    "FedProxStrategy", "FusedAverageAggregator", "Judge",
     "LocalSpec", "MaxEntropyJudge", "MoonStrategy", "Normalize",
-    "PassThroughJudge", "PipelinedServer", "PoolSelector",
+    "PassThroughJudge", "PipelinedServer", "PoolCatGrouper", "PoolSelector",
     "ProcessCompileCache", "QueueSelector", "RuntimeConfig",
     "ScaffoldAggregator", "ScaffoldStrategy", "Selector",
     "SequentialEngine", "Server", "ServerConfig", "UniformSelector",

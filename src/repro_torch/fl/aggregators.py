@@ -13,9 +13,13 @@
 ``ScaffoldAggregator``        — the same average as ``weighted``, then the
                                 SCAFFOLD damped server step
                                 w_g <- w_g + eta_g*(avg - w_g).
+``DeviceConcatAggregator``    — FedCAT (arXiv 2202.12751): identity within
+                                a chain, size-weighted average across the
+                                chains' representative models.
 """
 from __future__ import annotations
 
+import torch
 from torch.utils import _pytree as pytree
 
 from ..core.aggregation import aggregate, fused_aggregate
@@ -77,3 +81,52 @@ class ScaffoldAggregator:
         return pytree.tree_map(
             lambda wg, ag: wg + eta * (ag.to(wg.dtype) - wg),
             global_params, avg)
+
+
+@register("aggregator", "devconcat")
+class DeviceConcatAggregator:
+    """FedCAT merge: one model per chain, size-weighted across chains.
+
+    ``out`` rows are per-device chain-stage outputs (device i's params are
+    the chain state after i trained), annotated with ``group_id`` and
+    ``chain_pos`` by ``CatChainStrategy``. Within a chain the merge is the
+    identity: the deepest stage whose admitted prefix is unbroken *is* the
+    group's model, as it already holds its predecessors' training. Across
+    chains those representatives average weighted by their admitted-prefix
+    data sizes, leaf by leaf through ``aggregate`` as in the reference. So
+    judgment filters chain membership *before* concatenation: a rejected
+    device truncates its chain before itself. A chain whose first device
+    is rejected contributes nothing; if every chain is emptied the global
+    model is kept, through a ``torch.where`` on a 0-d device boolean (no
+    host read, so the pipelined engine never waits here).
+
+    With group size 1 every device is its own chain and this equals
+    ``WeightedAverageAggregator`` bit for bit. A cohort without chain
+    annotations takes the same plain weighted average.
+    """
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls()
+
+    def __call__(self, global_params, out, sizes, mask):
+        if "group_id" not in out:        # not a chain cohort: plain FedAvg
+            return aggregate(out["params"], sizes, mask)
+        gid, pos = out["group_id"], out["chain_pos"]
+        m = mask.to(gid.device, torch.float32) > 0
+        same = gid[None, :] == gid[:, None]
+        prefix = same & (pos[None, :] <= pos[:, None])
+        # ok[i]: every chain stage up to and including i was admitted
+        ok = (~prefix | m[None, :]).all(dim=1)
+        # the deepest unbroken stage represents its chain
+        deeper = same & (pos[None, :] > pos[:, None])
+        rep = (ok & ~(deeper & ok[None, :]).any(dim=1)).to(torch.float32)
+        # chain weight: total data size along the admitted prefix (sums
+        # of integer sizes, exact in float32)
+        size = sizes.to(gid.device, torch.float32)
+        w = torch.where(prefix, size[None, :], 0.0).sum(dim=1)
+        avg = aggregate(out["params"], w, rep)
+        kept = (w * rep).sum() > 0
+        return pytree.tree_map(
+            lambda ag, wg: torch.where(kept, ag, wg.to(ag.dtype)),
+            avg, global_params)

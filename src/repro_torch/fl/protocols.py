@@ -55,6 +55,20 @@ class ClientStrategy(Protocol):
     threaded through :meth:`update_state`; ``client_inputs`` and
     ``client_in_axes`` describe how it is sliced onto the vmapped
     per-client update.
+
+    Optional chain hooks (FedCAT's ``CatChainStrategy``), used by the
+    server as the reference's does:
+
+    * ``make_client_fn(apply_fn)`` returns the strategy's own client
+      program ``(global_params, gdata, prev_p, c_loc, c_glob, valid)``,
+      which replaces the vmapped ``client_update`` (and, on the card, is
+      the program captured as a CUDA graph);
+    * ``prepare_round(data, selector) -> (gdata, aux)`` lays the gathered
+      cohort out in groups read off ``selector`` (the one that made the
+      selection); ``aux["valid"]`` is the program's last argument;
+    * ``finish_round(out, aux)`` returns the program's outputs in cohort
+      order, with any annotations the aggregator reads (``group_id``,
+      ``chain_pos``).
     """
 
     spec: Any                      # hyperparameters (LocalSpec)

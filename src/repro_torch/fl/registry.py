@@ -9,9 +9,9 @@ Built-in component classes expose ``from_config(config, local)``; entries
 without it are constructed with no arguments. Passing an
 already-constructed instance to :func:`build` bypasses the registry for
 that axis. This package registers the ``fedentropy``, ``fedavg``,
-``fedprox``, ``moon``, ``scaffold`` and ``fedentropy+queue``
-compositions and the ``sequential`` and ``pipelined`` engines; any other
-name raises ``KeyError``.
+``fedprox``, ``moon``, ``scaffold``, ``fedcat``, ``fedcat+maxent`` and
+``fedentropy+queue`` compositions and the ``sequential`` and
+``pipelined`` engines; any other name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -94,8 +94,10 @@ def build(name: str, apply_fn, init_params, client_data, config,
         build("fedentropy", ..., engine="pipelined",
               runtime=RuntimeConfig(speculate=True))
 
-    ``data_plane`` is ``"auto"`` or ``"resident"`` (the corpus on the
-    device); the streaming plane is not ported. ``drift`` is a list of
+    ``data_plane`` is ``"auto"`` or ``"resident"``: both keep the corpus
+    on the device at any size, where the reference's ``"auto"`` streams a
+    corpus above 1 GiB from the host; the streaming plane is not ported
+    (ROADMAP queue 3, F6). ``drift`` is a list of
     :class:`repro_torch.data.partition.DriftEvent`. ``device`` is where
     the params, the corpus and the round's tensor work live; it defaults
     to the card and raises when there is none.
@@ -154,6 +156,15 @@ register("composition", "fedprox", Composition(strategy="fedprox"))
 register("composition", "moon", Composition(strategy="moon"))
 register("composition", "scaffold",
          Composition(strategy="scaffold", aggregator="scaffold"))
+# FedCAT (arXiv 2202.12751): entropy-grouped device chains, concatenation
+# merge; "+maxent" filters chain membership with the paper's judgment
+# before concatenation (the FedEntropy-synergy variant).
+register("composition", "fedcat",
+         Composition(strategy="catchain", selector="catgroups",
+                     judge="none", aggregator="devconcat"))
+register("composition", "fedcat+maxent",
+         Composition(strategy="catchain", selector="catgroups-pools",
+                     judge="maxent", aggregator="devconcat"))
 # Dynamic-data-queue participant selection (arXiv 2410.17792): clients
 # ranked by label entropy off the corpus stats, each round releasing a
 # growing prefix of the local dataset; judgment stays the paper's maxent.

@@ -21,13 +21,18 @@ dispatched again from it (the history records ``spec_hit`` each round and
 History and params equal the sequential ``Server``'s bit for bit: the
 records come from the float64 oracle; the selector's RNG stream advances
 as it would sequentially (the speculative draw is on a copy, adopted only
-when the verdict matches; a queue selector's schedule rides with the copy
-that made the selection); a confirmed speculative aggregation is the
-sequential path's call on equal inputs (``sizes`` as float32 of the same
-integers, a mask of equal values). A captured client program's outputs
-are the graph's and round t+1's replay overwrites them, so what outlives
-the dispatch is kept first: the soft labels and sizes on the host, the
-client outputs cloned on the card (2.5 MB at the paper's width).
+when the verdict matches); what a selection carries rides with the copy
+that made it: a queue selector's schedule, and a chain strategy's group
+layout (the group, not the device, is the dispatch unit, so round t+1's
+chains are read off the copy, never off the server's own selector); a
+confirmed speculative aggregation is the sequential path's call on equal
+inputs (``sizes`` as float32 of the same integers, a mask of equal
+values). A captured client program's outputs are the graph's and round
+t+1's replay overwrites them, so what outlives the dispatch is kept
+first: the soft labels and sizes on the host, the client outputs cloned
+on the card (2.5 MB at the paper's width), a chain cohort's
+``group_id``/``chain_pos`` with them, so a miss re-aggregates round t
+with round t's chains.
 
 A drift event scheduled for round t+1 gates the speculative dispatch: the
 round keeps its speculated aggregation but feeds the oracle's verdict back
@@ -75,8 +80,9 @@ class RuntimeConfig:
         if self.shard is True:
             raise NotImplementedError(
                 "shard=True (the client axis over several GPUs) is not "
-                "ported: ROADMAP queue 1 item 5b, multi-GPU shard=True on "
-                "a DeviceMesh; shard='auto' runs on the server's device")
+                "ported: ROADMAP queue 1, \"Several cards\" (multi-GPU "
+                "shard=True on a DeviceMesh); shard='auto' runs on the "
+                "server's device")
         if self.shard not in ("auto", False):
             raise ValueError(f"shard must be 'auto', False or True, got "
                              f"{self.shard!r}")

@@ -6,6 +6,12 @@
 ``UniformSelector`` — uniform sampling without replacement. Seeded with
                       ``seed + 1`` by the registry, as in the JAX package,
                       so both draw the same cohorts.
+``CatGrouper``      — FedCAT (arXiv 2202.12751) device grouping over an
+                      inner selector: who trains is delegated, and the
+                      selection is packed into ordered groups by
+                      ``core.pools.greedy_entropy_groups``; ``catgroups``
+                      wraps ``uniform`` (plain fedcat), ``catgroups-pools``
+                      wraps ``pools`` (fedcat+maxent).
 ``QueueSelector``   — entropy-driven participant selection with dynamic
                       data queues (arXiv 2410.17792): clients ranked by
                       label-distribution entropy off the bound corpus
@@ -28,7 +34,8 @@ from typing import Sequence
 
 import numpy as np
 
-from ..core.pools import DevicePools, hist_entropy, label_histograms
+from ..core.pools import (DevicePools, greedy_entropy_groups, hist_entropy,
+                          label_histograms)
 from ..data.corpus import DataQueue
 from .registry import register
 
@@ -88,6 +95,74 @@ class UniformSelector:
 
     def stats(self) -> dict:
         return {"selector": "uniform", "num_clients": self.num_clients}
+
+
+@register("selector", "catgroups")
+class CatGrouper:
+    """FedCAT device grouping over an inner selector (default uniform).
+
+    ``select`` delegates to ``inner`` (so the draw stream, and with it a
+    fixed seed's history, is the wrapped selector's), then packs the
+    selection into ordered groups of ``group_size`` whose pooled label
+    distributions are greedily entropy-maximized. The server binds the
+    corpus at construction (:meth:`bind_data`), which gives the per-device
+    label histograms; an unbound grouper chains devices in selection
+    order.
+
+    ``last_groups`` holds the round's groups as lists of *relative*
+    indices into the selection: what ``CatChainStrategy`` lays the cohort
+    out by. Grouping is deterministic in the selection, and the grouper
+    holds numpy state only, so a speculative re-selection on a
+    ``copy.deepcopy`` reproduces the same chains.
+    """
+
+    inner_cls = UniformSelector
+
+    def __init__(self, inner, group_size: int = 2):
+        self.inner = inner
+        self.group_size = max(1, int(group_size))
+        self._hists: np.ndarray | None = None
+        self.last_groups: list[list[int]] | None = None
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls(cls.inner_cls.from_config(config, local),
+                   config.group_size)
+
+    def bind_data(self, client_data) -> None:
+        """Per-device label histograms off the corpus (cached there) or a
+        raw stacked dict, kept as numpy."""
+        self._hists = _corpus_histograms(client_data)
+
+    def select(self, num: int) -> list[int]:
+        sel = self.inner.select(num)
+        if self._hists is not None:
+            hists = self._hists[np.asarray(sel)]
+        else:
+            # unbound: equal one-class histograms, so the groups chain the
+            # selection in index order
+            hists = np.ones((len(sel), 1))
+        self.last_groups = greedy_entropy_groups(hists, self.group_size)
+        return sel
+
+    def update(self, positives: Sequence[int],
+               negatives: Sequence[int]) -> None:
+        self.inner.update(positives, negatives)
+
+    def stats(self) -> dict:
+        s = dict(self.inner.stats())
+        s["group_size"] = self.group_size
+        if self.last_groups is not None:
+            s["num_groups"] = len(self.last_groups)
+        return s
+
+
+@register("selector", "catgroups-pools")
+class PoolCatGrouper(CatGrouper):
+    """CatGrouper over the paper's epsilon-greedy pools: judgment feedback
+    re-files chain members (the selector of ``fedcat+maxent``)."""
+
+    inner_cls = PoolSelector
 
 
 @register("selector", "queue")

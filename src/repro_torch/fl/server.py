@@ -13,10 +13,17 @@ statistics bind the corpus once (``bind_data``). Scheduled drift events
 (``drift=``, :func:`repro_torch.data.partition.drift_schedule`) replace
 the drifting clients' rows at the start of their round.
 
-On a CUDA device the vmapped client program runs as a captured CUDA graph,
-one per key in a per-server LRU of ``ServerConfig.jit_cache_size``
-entries (``fl.graph_cache``), the counterpart of the reference's jitted
-program in its ``BoundedJitCache``, or in the process-wide cache while
+Group-aware strategies (FedCAT's ``CatChainStrategy``) bring their own
+client program (``make_client_fn``) and lay the gathered cohort out in
+chain groups read off the selector that made the selection
+(``prepare_round``), then put the outputs back in cohort order
+(``finish_round``).
+
+On a CUDA device the client program (vmapped, or a strategy's chain
+program) runs as a captured CUDA graph, one per key in a per-server LRU of
+``ServerConfig.jit_cache_size`` entries (``fl.graph_cache``), the
+counterpart of the reference's jitted program in its ``BoundedJitCache``,
+or in the process-wide cache while
 :func:`repro_torch.fl.runtime.enable_process_cache` is on; on the CPU, and
 inside ``graph_cache.disable_capture()``, it runs eagerly.
 """
@@ -45,6 +52,7 @@ class ServerConfig:
     eps: float = 0.8                # paper epsilon (eps-greedy selectors)
     seed: int = 0
     jit_cache_size: int = 4         # per-server captured-program LRU bound
+    group_size: int = 2             # FedCAT chain length (catgroups/catchain)
 
     def cohort_size(self) -> int:
         """|S_t| = max(1, round(N * C)). Python's ``round`` is banker's
@@ -73,6 +81,11 @@ class Server:
                         judge=MaxEntropyJudge(),
                         aggregator=WeightedAverageAggregator())
         server.fit(rounds=60, eval_every=5, eval_data=(xte, yte))
+
+    ``data_plane="auto"`` (or ``"resident"``) keeps the corpus on the
+    device at any size, where the reference's ``"auto"`` streams a corpus
+    above 1 GiB from the host; the streaming plane is not ported (ROADMAP
+    queue 3, F6).
     """
 
     def __init__(
@@ -93,7 +106,8 @@ class Server:
         if data_plane in ("stream", "streaming"):
             raise NotImplementedError(
                 "the streaming host-resident data plane is not ported yet "
-                "(ROADMAP queue 1 item 9); use data_plane='resident'")
+                "(ROADMAP queue 1, \"data/stream.py and data/ingest.py\"); "
+                "use data_plane='resident'")
         if data_plane not in ("auto", "resident"):
             raise ValueError(f"unknown data plane {data_plane!r}; expected "
                              "'auto' or 'resident'")
@@ -112,8 +126,11 @@ class Server:
                                          config.num_clients)
         self.round_idx = 0
         self.history: list[dict] = []
-        self._eager_fn = _make_client_fn(apply_fn, strategy.spec,
-                                         strategy.client_in_axes())
+        make = getattr(strategy, "make_client_fn", None)
+        self._eager_fn = (
+            _make_client_fn(apply_fn, strategy.spec,
+                            strategy.client_in_axes())
+            if make is None else make(apply_fn))
         self._graphs = BoundedGraphCache(config.jit_cache_size)
         self._captures = 0
         self._param_sig = tuple(
@@ -145,36 +162,39 @@ class Server:
         # explicit None check: an empty cache is len() == 0, hence falsy
         return self._graphs if cache is None else cache
 
-    def _client_key(self, cohort: int) -> tuple:
+    def _client_key(self, cohort: int, layout=None) -> tuple:
         # a captured program fits any server with the same program and
-        # argument shapes: the apply fn (by identity; the key pins it),
-        # the strategy's spec and in-axes, the params' shapes, the device,
-        # the corpus signature and the cohort size. A drifted corpus keeps
-        # its signature, so its rounds replay the same graph.
-        return ("client", self.apply_fn, self.strategy.spec,
+        # argument shapes: the program (vmapped, or a strategy's own
+        # chain program, tagged by the strategy's class as the reference
+        # does), the apply fn (by identity; the key pins it), the
+        # strategy's spec and in-axes, the params' shapes, the device, the
+        # corpus signature, the cohort size and a chain cohort's (G, K)
+        # layout. A drifted corpus keeps its signature, so its rounds
+        # replay the same graph.
+        tag = ("client" if getattr(self.strategy, "make_client_fn", None)
+               is None else f"client-{type(self.strategy).__name__}")
+        return (tag, self.apply_fn, self.strategy.spec,
                 tuple(self.strategy.client_in_axes()), self._param_sig,
-                str(self.device), self.corpus.signature(), cohort)
+                str(self.device), self.corpus.signature(), cohort, layout)
 
     def _capture(self, args) -> CapturedProgram:
         program = CapturedProgram(self._eager_fn, args)
         self._captures += 1
         return program
 
-    def _client_program(self, args, cohort: int):
-        """The vmapped client program for ``args``: a captured graph on
-        the card, the eager function on the CPU (shared under the same
-        key while the process cache is on) and inside
-        ``disable_capture()``."""
+    def _client_program(self, args, cohort: int, layout=None):
+        """The client program for ``args``: a captured graph on the card,
+        the eager function on the CPU (shared under the same key while
+        the process cache is on) and inside ``disable_capture()``."""
+        key = self._client_key(cohort, layout)
         if self.device.type != "cuda":
             cache = self._compile_cache()
             if cache is self._graphs:
                 return self._eager_fn
-            return cache.get(self._client_key(cohort),
-                             lambda: self._eager_fn)
+            return cache.get(key, lambda: self._eager_fn)
         if not capture_enabled():
             return self._eager_fn
-        return self._compile_cache().get(self._client_key(cohort),
-                                         lambda: self._capture(args))
+        return self._compile_cache().get(key, lambda: self._capture(args))
 
     def _run_cohort(self, sel, selector, global_params=None) -> dict:
         """Gather the cohort ``sel`` and run its client updates from
@@ -182,17 +202,27 @@ class Server:
 
         ``selector`` is the one that produced ``sel`` (under speculation a
         throwaway copy): its ``data_schedule``, if it has one, gives the
-        released-sample counts the gather masks into ``w``. On the card
-        the outputs are the captured graph's, which the next replay
-        overwrites; a caller clones what must outlive it.
+        released-sample counts the gather masks into ``w``, and a
+        group-aware strategy (``prepare_round``) reads the chain layout
+        off it: the group, not the device, is the dispatch unit. On the
+        card the vmapped program's outputs are the captured graph's, which
+        the next replay overwrites; a caller clones what must outlive it.
         """
         gp = self.global_params if global_params is None else global_params
         idx = np.asarray(sel)
         sched = getattr(selector, "data_schedule", None)
         active = None if sched is None else sched(sel)
-        args = (gp, self.corpus.cohort(idx, active=active),
-                *self.strategy.client_inputs(self.state, idx))
-        return self._client_program(args, len(idx))(*args)
+        data = self.corpus.cohort(idx, active=active)
+        inputs = self.strategy.client_inputs(self.state, idx)
+        prep = getattr(self.strategy, "prepare_round", None)
+        if prep is None:
+            args = (gp, data, *inputs)
+            return self._client_program(args, len(idx))(*args)
+        gdata, aux = prep(data, selector)
+        args = (gp, gdata, *inputs, aux["valid"])
+        out = self._client_program(args, len(idx),
+                                   tuple(aux["valid"].shape))(*args)
+        return self.strategy.finish_round(out, aux)
 
     @property
     def graphs_captured(self) -> int:

@@ -6,6 +6,10 @@ rule and own its cross-round state as an explicit tree of tensors
 (``init_state``, threaded through ``update_state``), and describe how
 that state is sliced onto the cohort's client axis (``client_inputs``,
 ``client_in_axes``) and folded back.
+
+``CatChainStrategy`` (FedCAT) also builds its own client program and lays
+the cohort out in groups: the optional ``prepare_round`` /
+``make_client_fn`` / ``finish_round`` hooks the server calls.
 """
 from __future__ import annotations
 
@@ -13,9 +17,10 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+from torch.func import vmap
 from torch.utils import _pytree as pytree
 
-from ..core.strategies import LocalSpec
+from ..core.strategies import LocalSpec, client_update
 from .registry import register
 
 
@@ -148,3 +153,116 @@ class ScaffoldStrategy(_Strategy):
                                         state["c_global"], out["c_delta"]),
             "c_local": _put(state["c_local"], idx, out["c_local"]),
         }
+
+
+@register("strategy", "catchain")
+class CatChainStrategy(_Strategy):
+    """FedCAT device-concatenation chains (arXiv 2202.12751).
+
+    The round's cohort is partitioned into the selector's ordered groups
+    (``last_groups``); within a group the devices train *sequentially*,
+    each from its predecessor's output params and the first from the
+    global model. The program is a Python loop over the K stages (K is
+    fixed per layout, standing in for the reference's ``lax.scan``) inside
+    a ``torch.func.vmap`` over the G groups, so the whole chain program
+    is one function of its inputs and is captured as one CUDA graph on
+    the card. The local rule is plain FedAvg SGD (the paper's); pair with
+    ``DeviceConcatAggregator``.
+
+    Ragged groups are padded to the longest chain by repeating the last
+    member's data; padded stages carry ``valid = 0`` and are the identity
+    (``torch.where`` leaf by leaf), so padding never leaks into a chain.
+    Per-device outputs (the chain state after that device trained, its
+    soft label and size) come back in cohort order with ``group_id`` and
+    ``chain_pos`` for the aggregator.
+    """
+
+    name = "catchain"
+
+    def __init__(self, spec: LocalSpec | None = None, group_size: int = 2):
+        super().__init__(spec)
+        self.group_size = max(1, int(group_size))
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls(local, config.group_size)
+
+    def prepare_round(self, data: dict, selector) -> tuple[dict, dict]:
+        """Lay the gathered cohort out as (G, K, S, ...) chain groups.
+
+        The layout's indices are computed on the host from ``selector``'s
+        ``last_groups`` (in selection order when it has none) and cross to
+        the device in one copy; the relayout itself is a device
+        ``index_select``. ``aux`` carries the ``valid`` mask, the inverse
+        permutation ``inv`` and the per-device ``group_id``/``chain_pos``
+        (int32), all on the cohort's device.
+        """
+        n = data["x"].shape[0]
+        groups = getattr(selector, "last_groups", None)
+        if not groups:
+            k = self.group_size
+            groups = [list(range(i, min(i + k, n)))
+                      for i in range(0, n, k)]
+        g, k = len(groups), max(len(m) for m in groups)
+        perm = np.zeros((g, k), np.int64)
+        valid = np.zeros((g, k), np.int64)
+        gid = np.zeros(n, np.int64)
+        pos = np.zeros(n, np.int64)
+        inv = np.zeros(n, np.int64)
+        for gi, members in enumerate(groups):
+            for j in range(k):
+                perm[gi, j] = members[min(j, len(members) - 1)]
+                valid[gi, j] = j < len(members)
+            for j, m in enumerate(members):
+                gid[m], pos[m], inv[m] = gi, j, gi * k + j
+        dev = data["x"].device
+        ints = torch.as_tensor(np.concatenate(
+            [perm.reshape(-1), inv, gid, pos, valid.reshape(-1)]),
+            device=dev)
+        flat, inv_t, gid_t, pos_t, valid_t = ints.split(
+            [g * k, n, n, n, g * k])
+        gdata = {key: v.index_select(0, flat).reshape((g, k) + v.shape[1:])
+                 for key, v in data.items()}
+        aux = {"valid": valid_t.reshape(g, k).to(torch.float32),
+               "inv": inv_t, "group_id": gid_t.to(torch.int32),
+               "chain_pos": pos_t.to(torch.int32)}
+        return gdata, aux
+
+    def make_client_fn(self, apply_fn):
+        """The chain program ``(global_params, gdata, prev_p, c_loc,
+        c_glob, valid) -> (G, K, ...)`` stage outputs."""
+        spec = self.spec
+
+        def one_group(global_params, gd, gv):
+            carry, stages = global_params, []
+            for j in range(gv.shape[0]):
+                d = {key: gd[key][j] for key in ("x", "y", "w")}
+                o = client_update(apply_fn, carry, d, spec)
+                live = gv[j] > 0
+                carry = pytree.tree_map(
+                    lambda a, b: torch.where(live, a, b), o["params"],
+                    carry)
+                stages.append({"params": carry,
+                               "soft_label": o["soft_label"],
+                               "size": o["size"]})
+            return pytree.tree_map(lambda *xs: torch.stack(xs), *stages)
+
+        groups = vmap(one_group, in_dims=(None, 0, 0))
+
+        def chain_fn(global_params, gdata, prev_p, c_loc, c_glob, valid):
+            del prev_p, c_loc, c_glob        # chains are stateless FedAvg
+            return groups(global_params, gdata, valid)
+
+        return chain_fn
+
+    def finish_round(self, out: dict, aux: dict) -> dict:
+        """(G, K, ...) stage outputs -> (|S_t|, ...) in cohort order, with
+        ``group_id`` and ``chain_pos``. The gather makes new tensors, so a
+        captured program's outputs are read once here and never kept."""
+        inv = aux["inv"]
+        res = pytree.tree_map(
+            lambda x: x.reshape((-1,) + x.shape[2:]).index_select(0, inv),
+            out)
+        res["group_id"] = aux["group_id"]
+        res["chain_pos"] = aux["chain_pos"]
+        return res

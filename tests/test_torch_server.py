@@ -119,12 +119,16 @@ def test_evaluate_matches_reference(tiny):
 
 
 def test_registry_surface():
-    assert tfl.names("composition") == ["fedavg", "fedentropy",
-                                        "fedentropy+queue", "fedprox",
-                                        "moon", "scaffold"]
-    for name in ("fedcat", "ifca", "nope"):
+    assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
+                                        "fedentropy", "fedentropy+queue",
+                                        "fedprox", "moon", "scaffold"]
+    for name in ("ifca", "nope"):
         with pytest.raises(KeyError, match="no composition registered"):
             tfl.get("composition", name)
+    want = rfl.get("composition", "fedcat")
+    assert want.cluster is None and tfl.get("composition", "fedcat") == \
+        tfl.Composition(want.strategy, want.selector, want.judge,
+                        want.aggregator)
     assert tfl.get("judge", "maxent") is tfl.MaxEntropyJudge
     assert tfl.get("aggregator", "fused") is tfl.FusedAverageAggregator
     with pytest.raises(ValueError, match="unknown kind"):

@@ -266,9 +266,9 @@ def test_localspec_defaults_and_conflicts():
 
 
 def test_registry_round_trips_the_five_compositions():
-    assert tfl.names("composition") == ["fedavg", "fedentropy",
-                                        "fedentropy+queue", "fedprox",
-                                        "moon", "scaffold"]
+    assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
+                                        "fedentropy", "fedentropy+queue",
+                                        "fedprox", "moon", "scaffold"]
     for name in tfl.names("composition"):
         got, want = tfl.get("composition", name), rfl.get("composition",
                                                            name)
@@ -279,3 +279,7 @@ def test_registry_round_trips_the_five_compositions():
     assert tfl.get("strategy", "scaffold") is tfl.ScaffoldStrategy
     assert tfl.get("aggregator", "scaffold") is tfl.ScaffoldAggregator
     assert tfl.get("selector", "queue") is tfl.QueueSelector
+    assert tfl.get("selector", "catgroups") is tfl.CatGrouper
+    assert tfl.get("selector", "catgroups-pools") is tfl.PoolCatGrouper
+    assert tfl.get("strategy", "catchain") is tfl.CatChainStrategy
+    assert tfl.get("aggregator", "devconcat") is tfl.DeviceConcatAggregator
