@@ -90,6 +90,28 @@ Phases, each of which raises on failure (exit code non-zero):
    traced form that admits everyone, each equal to the sequential server
    bit for bit; then fedcat+maxent's and fedentropy's round in turns and
    one profiled round of each.
+12. drive the async buffered engine (``fl.runtime.AsyncBufferedServer``)
+   at the same width, captured, admission judged in K1's loop and flushes
+   aggregated in K2: ``AsyncConfig()`` for 3 flushes, equal bit for bit to
+   the sequential ``Server`` on the same route; the golden's straggler
+   clock (α = 0.5) for 3 flushes, equal bit for bit to the same run under
+   ``fl.disable_capture()`` (each dispatch's outputs are cloned before a
+   later cohort's replay overwrites them) and, on the plain judge, under
+   phase 9's rule; each flush prints its K1 launches (and how many ran
+   over a protected buffer), K2 launches, staleness and buffer occupancy;
+   ``fedcat+maxent`` and a drift schedule must be refused; then a
+   straggler flush beside phase 4's round in turns.
+13. drive clusters (the K-center ``ModelBank``) at the same width:
+   ``ifca+maxent`` at K = 3 with a drift of half the clients at round 2 of
+   4, judged per cluster in K1's loop and merged by ``perclstr`` over K2
+   (K launches a round), equal bit for bit to the eager route and, on the
+   plain route, under phase 9's rule; the pipelined engine on the same
+   run, speculating per cluster, and with the admit-all traced form, each
+   equal to the sequential server bit for bit; ``fesem`` pipelined for 3
+   rounds against sequential; ``ifca+maxent`` at K = 1 against
+   fedentropy bit for bit; the IFCA assignment program's time; then a
+   clustered round beside fedentropy's in turns and one profiled round of
+   each.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -99,8 +121,11 @@ a JSON object with every kernel's launches, error, times (``ms`` per
 wrapper call, ``kernel_ms`` of device time) and bounds. K1's loop and K2
 also carry ``launches_by_path``: ``fedentropy`` (phase 4), ``moon`` and
 ``scaffold`` (phase 9), phase 10's ``pipelined``, ``pipelined+miss``
-and ``fedentropy+queue``, and phase 11's ``fedcat``, ``fedcat+maxent``,
-``fedcat+maxent pipelined`` and ``fedcat+maxent pipelined+miss``.
+and ``fedentropy+queue``, phase 11's ``fedcat``, ``fedcat+maxent``,
+``fedcat+maxent pipelined`` and ``fedcat+maxent pipelined+miss``, phase
+12's ``async``, ``async straggler`` and ``async straggler+plain``, and
+phase 13's ``ifca+maxent``, ``ifca+maxent pipelined``,
+``ifca+maxent pipelined+miss`` and ``fesem``.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -884,20 +909,25 @@ def build_fl(name: str, params, corpus, judge=None, **kw):
 
 def _same(x, y) -> bool:
     """Record values equal, a NaN entropy (a composition without
-    judgment) equal to a NaN."""
+    judgment) equal to a NaN, also inside a clustered record's
+    per-cluster verdicts."""
+    if isinstance(x, dict) and isinstance(y, dict):
+        return x.keys() == y.keys() and all(_same(x[k], y[k]) for k in x)
     return x == y or (isinstance(x, float) and isinstance(y, float)
                       and math.isnan(x) and math.isnan(y))
 
 
-def equal_to_sequential(seq, pip, what: str, flags: bool = True) -> None:
+def equal_to_sequential(seq, pip, what: str, flags: bool = True,
+                        extra: frozenset = frozenset()) -> None:
     """Raises unless the pipelined server's records equal the sequential
     server's to the bit (entropy included; the two speculation flags
     apart) and its params and state are equal bit for bit. ``flags``:
-    ``pip`` speculates, so its records carry the two flags."""
+    ``pip`` speculates, so its records carry the two flags; ``extra``:
+    other keys only ``pip``'s records carry (the async engine's)."""
     if len(seq.history) != len(pip.history):
         raise AssertionError(f"{what}: {len(seq.history)} rounds against "
                              f"{len(pip.history)}")
-    extra = {"spec_hit", "redispatched"} if flags else set()
+    extra = set(extra) | ({"spec_hit", "redispatched"} if flags else set())
     for a, b in zip(seq.history, pip.history):
         if set(b) != set(a) | extra:
             raise AssertionError(f"{what}: record keys {sorted(b)}")
@@ -921,12 +951,13 @@ def equal_to_sequential(seq, pip, what: str, flags: bool = True) -> None:
 
 
 def run_speculative(seq, pip, rounds: int, label: str,
-                    k2: bool = True) -> dict:
+                    k2: int = 1) -> dict:
     """``rounds`` rounds of the sequential server, then of the pipelined
     one, with every count at 0 just before and read just after; prints
     each pipelined round's flags and K1-loop and K2 launches. Holds the
     two equal and returns the pipelined path's launches. ``k2``: the
-    aggregator runs K2 once an aggregation (else never)."""
+    aggregator's K2 launches an aggregation (0: leaf-wise; K: perclstr
+    over K centers)."""
     for _ in range(rounds):
         seq.round()
     _reset_counts()
@@ -946,12 +977,14 @@ def run_speculative(seq, pip, rounds: int, label: str,
     equal_to_sequential(seq, pip, label)
     misses = sum(not r["spec_hit"] for r in pip.history)
     want = {"entropy_judge_sweep": 0,
-            "masked_weighted_sum": (rounds + misses) if k2 else 0}
+            "masked_weighted_sum": (rounds + misses) * int(k2)}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{label}: launches {launches}; expected "
                              f"{want} ({misses} misses)")
     for prev_rec, rec in zip(pip.history, pip.history[1:]):
-        if rec["redispatched"] != (not prev_rec["spec_hit"]):
+        # a drift round was never dispatched ahead, so never re-dispatched
+        if "drift" not in rec and \
+                rec["redispatched"] != (not prev_rec["spec_hit"]):
             raise AssertionError(f"{label}: round {rec['round']} "
                                  f"redispatched={rec['redispatched']} after "
                                  f"spec_hit={prev_rec['spec_hit']}")
@@ -982,6 +1015,36 @@ def miss_margins(seq, pip, label: str) -> None:
               f"choices differ by {gap:.3e} in float64: {gap / ulp:.2f} of "
               f"float32's spacing {ulp:.3e} at the entropy, "
               f"{'under' if gap < TOL else 'over'} Alg. 1's {TOL} margin")
+
+
+def cluster_miss_margins(seq, pip, label: str) -> None:
+    """``miss_margins`` for a clustered run: ``seq``'s judge (a
+    :class:`RecordingJudge` around the float64 oracle) saw one call a
+    cluster, clusters ascending; for each cluster of a missed round whose
+    K1 verdict parts from the oracle's, the float64 gap where the two
+    orders part, in float32 spacings at the cluster's entropy. Printed,
+    never raised; these K1 launches compare, they are not the path's."""
+    call = 0
+    for rec, srec in zip(pip.history, seq.history):
+        n = len(srec["clusters"])
+        if not rec["spec_hit"]:
+            for j, k in enumerate(sorted(srec["clusters"], key=int)):
+                soft, sizes = seq.judge.seen[call + j]
+                oracle = seq.judge.verdicts[call + j]
+                k1 = fl.MaxEntropyJudge(backend="cuda")(soft, sizes)
+                if k1[:2] == oracle[:2]:
+                    continue
+                step, gap = _split_margin((soft, sizes, None, None, None),
+                                          k1[1], oracle[1])
+                ulp = _f32_ulp(oracle[2])
+                print(f"{label}: round {rec['round']} cluster {k} "
+                      f"({len(sizes)} members) missed: K1 removes {k1[1]}, "
+                      f"the float64 oracle {oracle[1]}; they part at step "
+                      f"{step} by {gap:.3e} in float64: {gap / ulp:.2f} of "
+                      f"float32's spacing {ulp:.3e} at the entropy, "
+                      f"{'under' if gap < TOL else 'over'} Alg. 1's {TOL} "
+                      "margin")
+        call += n
 
 
 def time_pipelined(params, corpus) -> None:
@@ -1229,6 +1292,398 @@ def time_fedcat(params, corpus) -> None:
             for name, server in last.items()}
     print("round s in turns (fedcat+maxent, fedentropy, fedentropy, "
           "fedcat+maxent), medians of rounds 2-3: " + "; ".join(
+              f"{name} {[round(x, 5) for x in ts]}"
+              for name, ts in times.items()) + "; profiled: " + "; ".join(
+              f"{name} wall {w:.4f} s busy {b:.4f} s idle {1 - b / w:.3f}"
+              for name, (w, b) in prof.items()))
+
+
+# ------------------------------------------------------------ async engine
+
+ASYNC_FLUSHES = 3
+ASYNC_KEYS = frozenset({"flush_time", "staleness", "buffer_occupancy",
+                        "inflight", "seq", "admitted_seq"})
+# the straggler settings of tests/golden/async_history.json
+ASYNC_STRAGGLER = fl.AsyncConfig(clock="straggler", latency_scale=1.0,
+                                 straggler_frac=0.25, straggler_factor=8.0,
+                                 staleness_alpha=0.5, seed=0)
+
+
+class RecordingAdmit:
+    """Delegates ``admit`` to ``inner`` and keeps each screened batch's
+    inputs (host float64 rows) and verdict."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seen = []
+        self.verdicts = []
+
+    def admit(self, buf_soft, buf_sizes, cand_soft, cand_sizes,
+              device="cpu"):
+        self.seen.append((buf_soft, buf_sizes, cand_soft, cand_sizes))
+        self.verdicts.append(self.inner.admit(buf_soft, buf_sizes, cand_soft,
+                                              cand_sizes, device=device))
+        return self.verdicts[-1]
+
+
+class FollowingAdmit(RecordingAdmit):
+    """Phase 12's plain-route admission: phase 9's rule for one screened
+    batch. ``inner`` (the plain float32 loop) admits over the batch and
+    its protected buffer; where its verdict parts from the kernel route's
+    (``leader``) on the same inputs by less than float32's spacing at the
+    entropy in float64, the tie is printed and the leader's verdict
+    followed; any other difference raises."""
+
+    def __init__(self, inner, leader: RecordingAdmit, what: str):
+        super().__init__(inner)
+        self.leader, self.what = leader, what
+        self.ties = []
+
+    def admit(self, buf_soft, buf_sizes, cand_soft, cand_sizes,
+              device="cpu"):
+        r = len(self.verdicts)
+        got = super().admit(buf_soft, buf_sizes, cand_soft, cand_sizes,
+                            device)
+        lead = self.leader.verdicts[r]
+        if got[:2] == lead[:2]:
+            return got
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(self.seen[r], self.leader.seen[r]))
+        if not same:
+            raise AssertionError(f"{self.what}: screen {r}: verdicts differ "
+                                 f"({lead[:2]} vs {got[:2]}) on inputs that "
+                                 "differ from the kernel route's")
+        nb = len(buf_sizes)
+        soft = torch.from_numpy(np.concatenate([buf_soft, cand_soft]))
+        sizes = torch.from_numpy(np.concatenate([buf_sizes, cand_sizes]))
+        step, gap = _split_margin((soft, sizes, None, None, None),
+                                  [nb + i for i in lead[1]],
+                                  [nb + i for i in got[1]])
+        err = abs(got[2] - lead[2])
+        ulp = _f32_ulp(lead[2])
+        if not (gap < ulp and err <= K1_ATOL):
+            raise AssertionError(
+                f"{self.what}: screen {r}: verdicts differ from the kernel "
+                f"route's at step {step} by {gap} in float64, not below "
+                f"float32's spacing {ulp:.3e}: {lead[:2]} vs {got[:2]}")
+        print(f"{self.what}: screen {r}: float32 tie ({nb} protected rows): "
+              f"the plain loop rejects {got[1]}, the kernel {lead[1]}; "
+              f"they part at step {step} by {gap:.3e} in float64, below "
+              f"float32's spacing {ulp:.3e}; the plain route follows")
+        self.ties.append((r, step, gap))
+        self.verdicts[r] = lead
+        return lead
+
+
+def run_async(server, label: str, flushes: int = ASYNC_FLUSHES) -> dict:
+    """``flushes`` flushes of an async ``server`` with every count at 0
+    just before and read just after. Prints each flush's screens, K1 loop
+    launches (and how many ran over a protected, non-empty buffer), K2
+    launches, staleness list and buffer occupancy. Returns the path's
+    launches with ``screens`` and ``protected`` (K1 launches over a
+    protected buffer) beside them."""
+    screens = []
+    inner = server._screen
+
+    def screen(batch):
+        before = entropy_judge_loop.launches
+        buffered = len(server._buffer)
+        inner(batch)
+        screens.append((buffered, entropy_judge_loop.launches - before))
+
+    server._screen = screen
+    _reset_counts()
+    prev = _read_counts()
+    for _ in range(flushes):
+        first = len(screens)
+        rec = server.round()
+        now = _read_counts()
+        mine = screens[first:]
+        k1 = now["entropy_judge_loop"] - prev["entropy_judge_loop"]
+        print(f"[{label}] flush {rec['round']}: selected={rec['selected']} "
+              f"positive={rec['positive']} screens {len(mine)}; K1 loop "
+              f"{k1} ({sum(n for b, n in mine if b)} over a protected "
+              f"buffer of {[b for b, _ in mine if b]} rows); K2 "
+              f"{now['masked_weighted_sum'] - prev['masked_weighted_sum']}; "
+              f"staleness {rec['staleness']}; buffer occupancy "
+              f"{rec['buffer_occupancy']}; in flight {rec['inflight']}; "
+              f"virtual time {rec['flush_time']:.4f}", flush=True)
+        prev = now
+    torch.cuda.synchronize()
+    server._screen = inner
+    launches = _read_counts()
+    launches["screens"] = len(screens)
+    launches["protected"] = sum(n for b, n in screens if b)
+    return launches
+
+
+def _refused(what: str, match: str, build) -> None:
+    try:
+        build()
+    except ValueError as err:
+        if match not in str(err):
+            raise
+        print(f"{what}: refused ({match})")
+        return
+    raise AssertionError(f"{what}: built; the reference refuses it")
+
+
+def async_path(params, corpus, split) -> dict:
+    """Phase 12: the async buffered engine at the main path's width,
+    judged by K1's loop (admission over protected buffer rows) and
+    aggregated in K2. Returns the launches by path."""
+    out = {}
+    ktwo = {"masked_weighted_sum": ASYNC_FLUSHES, "entropy_judge_sweep": 0}
+
+    # (a) the zero clock reduces to the sequential server, bit for bit
+    seq = build_server("fedentropy", params, corpus, "cuda")
+    run_rounds(seq, "sequential, K1 and K2")
+    asy = build_server("fedentropy", params, corpus, "cuda",
+                       runtime=fl.AsyncConfig())
+    out["async"] = run_async(asy, "async")
+    equal_to_sequential(seq, asy, "async (zero clock) vs sequential",
+                        flags=False, extra=ASYNC_KEYS)
+    want = dict(ktwo, entropy_judge_loop=ASYNC_FLUSHES, protected=0)
+    if any(out["async"][k] != n for k, n in want.items()):
+        raise AssertionError(f"async: launches {out['async']}; expected "
+                             f"{want}")
+
+    # (b) the straggler clock: captured against eager, bit for bit (each
+    # dispatch's outputs are cloned before a later replay overwrites them)
+    leader = RecordingAdmit(fl.MaxEntropyJudge(backend="cuda"))
+    cap = build_server("fedentropy", params, corpus, "cuda", judge=leader,
+                       runtime=ASYNC_STRAGGLER)
+    out["async straggler"] = run_async(cap, "async straggler")
+    got = out["async straggler"]
+    if got["entropy_judge_loop"] != got["screens"] or not got["protected"] \
+            or any(got[k] != n for k, n in ktwo.items()):
+        raise AssertionError(f"async straggler: launches {got}; expected "
+                             "one K1 loop launch a screen, some over a "
+                             f"protected buffer, and {ktwo}")
+    if not any(max(r["staleness"]) > 0 for r in cap.history):
+        raise AssertionError("async straggler: no stale arrival")
+    with fl.disable_capture():
+        eager = build_server("fedentropy", params, corpus, "cuda",
+                             runtime=ASYNC_STRAGGLER)
+        for _ in range(ASYNC_FLUSHES):
+            eager.round()
+    equal_to_sequential(eager, cap, "async straggler: captured vs eager",
+                        flags=False)
+    if cap.graphs_captured != 1 or eager.graphs_captured != 0:
+        raise AssertionError(f"async straggler: graphs {cap.graphs_captured}"
+                             f", {eager.graphs_captured}")
+
+    # (c) the same run on the plain route, under phase 9's rule
+    follow = FollowingAdmit(fl.MaxEntropyJudge(backend="torch"), leader,
+                            "async straggler, plain route")
+    plain = build_server("fedentropy", params, corpus, "torch", judge=follow,
+                         runtime=ASYNC_STRAGGLER)
+    out["async straggler+plain"] = run_async(plain, "async straggler, plain")
+    compare_routes(cap, plain, "async straggler: K1 route vs plain route",
+                   PARAMS_RTOL, ties=len(follow.ties))
+    for a, b in zip(cap.history, plain.history):
+        if any(a[k] != b[k] for k in ("staleness", "seq", "admitted_seq")):
+            raise AssertionError(f"async straggler, plain route: flush "
+                                 f"{a['round']} stream differs")
+
+    _refused("async fedcat+maxent", "prepare_round",
+             lambda: build_cat("fedcat+maxent", params, corpus,
+                               runtime=fl.AsyncConfig()))
+    xtr, ytr = split
+    events = drift_schedule(xtr, ytr, 100, 10, at=2, frac=0.5,
+                            samples_per_client=corpus.samples_per_client)
+    _refused("async with drift", "drift",
+             lambda: build_server("fedentropy", params, corpus, "cuda",
+                                  runtime=fl.AsyncConfig(), drift=events))
+    time_async(params, corpus)
+    return out
+
+
+def time_async(params, corpus) -> None:
+    """A zero-clock flush, a straggler flush (K1 and K2) and phase 4's
+    captured fedentropy round in turns (zero, straggler, round, round,
+    straggler, zero), each on a new server for 4 flushes or rounds (the
+    first captures), the median of the last two."""
+    runtimes = {"async zero-clock flush": fl.AsyncConfig(),
+                "async straggler flush": ASYNC_STRAGGLER,
+                "fedentropy round": None}
+    times = {name: [] for name in runtimes}
+    order = list(runtimes)
+    for name in order + order[::-1]:
+        kw = {} if runtimes[name] is None else {"runtime": runtimes[name]}
+        server = build_server("fedentropy", params, corpus, "cuda", **kw)
+        walls = [timed_round(server, f"{name}, timed") for _ in range(4)]
+        times[name].append(float(statistics.median(walls[2:4])))
+    print(f"wall s in turns ({', '.join(order + order[::-1])}), medians of "
+          "the last two of 4: " + "; ".join(
+              f"{name} {[round(x, 5) for x in ts]}"
+              for name, ts in times.items()))
+
+
+# ----------------------------------------------------------------- clusters
+
+CLUSTERS = 3
+CLUSTER_ROUNDS = 4
+
+
+def build_clustered(name: str, params, corpus, backend: str = "cuda",
+                    judge=None, k: int = CLUSTERS, **kw):
+    """A clustered composition at phase 4's configuration with
+    ``num_clusters = k``: ``PerClusterAggregator`` over
+    ``FusedAverageAggregator`` on ``backend`` (K2 K times a round on
+    "cuda"), and a maxent composition judged by ``MaxEntropyJudge`` on
+    ``backend`` unless ``judge`` is given."""
+    cfg = fl.ServerConfig(num_clients=100, participation=0.1, seed=0,
+                          num_clusters=k)
+    if judge is None and fl.get("composition", name).judge == "maxent":
+        judge = fl.MaxEntropyJudge(backend=backend)
+    if judge is not None:
+        kw["judge"] = judge
+    kw["aggregator"] = fl.PerClusterAggregator(
+        fl.FusedAverageAggregator(backend=backend))
+    return fl.build(name, cnn.apply, params, corpus, cfg, fl.LocalSpec(),
+                    device="cuda", **kw)
+
+
+def run_clustered(server, label: str, rounds: int = CLUSTER_ROUNDS) -> dict:
+    """``rounds`` rounds with every count at 0 just before and read just
+    after, printing each round's clusters and its K1-loop and K2
+    launches."""
+    _reset_counts()
+    prev = _read_counts()
+    for _ in range(rounds):
+        rec = server.round()
+        now = _read_counts()
+        sizes = {k: len(v["members"]) for k, v in rec["clusters"].items()}
+        print(f"[{label}] round {rec['round']}: cluster sizes {sizes} "
+              f"positive={rec['positive']} entropy={rec['entropy']:.6f}"
+              f"{' (drift)' if 'drift' in rec else ''}; launches this "
+              f"round: K1 loop "
+              f"{now['entropy_judge_loop'] - prev['entropy_judge_loop']}, "
+              f"K2 {now['masked_weighted_sum'] - prev['masked_weighted_sum']}",
+              flush=True)
+        prev = now
+    torch.cuda.synchronize()
+    return _read_counts()
+
+
+def cluster_path(params, corpus, split) -> dict:
+    """Phase 13: the clustered ModelBank axis at the main path's width, K
+    = 3, a drift of half the clients at round 2 of 4. Returns the
+    launches by path."""
+    out = {}
+    xtr, ytr = split
+    events = drift_schedule(xtr, ytr, 100, 10, at=2, frac=0.5,
+                            samples_per_client=corpus.samples_per_client)
+
+    # (a) ifca+maxent judged per cluster in K1's loop, perclstr over K2
+    leader = RecordingJudge(fl.MaxEntropyJudge(backend="cuda"))
+    cap = build_clustered("ifca+maxent", params, corpus, judge=leader,
+                          drift=events)
+    out["ifca+maxent"] = got = run_clustered(cap, "ifca+maxent")
+    clusters = sum(len(r["clusters"]) for r in cap.history)
+    want = {"entropy_judge_loop": clusters, "entropy_judge_sweep": 0,
+            "masked_weighted_sum": CLUSTERS * CLUSTER_ROUNDS}
+    if any(got[k] != n for k, n in want.items()):
+        raise AssertionError(f"ifca+maxent: launches {got}; expected {want}")
+    if [r["round"] for r in cap.history if "drift" in r] != [2]:
+        raise AssertionError("ifca+maxent: the drift did not apply at 2")
+    with fl.disable_capture():
+        eager = build_clustered("ifca+maxent", params, corpus, drift=events)
+        for _ in range(CLUSTER_ROUNDS):
+            eager.round()
+    equal_to_sequential(eager, cap, "ifca+maxent: captured vs eager",
+                        flags=False)
+    follow = FollowingJudge(fl.MaxEntropyJudge(backend="torch"), leader,
+                            "ifca+maxent, plain route")
+    plain = build_clustered("ifca+maxent", params, corpus, "torch",
+                            judge=follow, drift=events)
+    for _ in range(CLUSTER_ROUNDS):
+        plain.round()
+    compare_routes(cap, plain, "ifca+maxent: K1 route vs plain route",
+                   PARAMS_RTOL, ties=len(follow.ties))
+    if [r["cluster"] for r in cap.history] != \
+            [r["cluster"] for r in plain.history]:
+        raise AssertionError("ifca+maxent: assignments differ by route")
+    print(f"ifca+maxent: bank stats {cap.cluster.stats()}")
+
+    # (b) pipelined against sequential: speculation per cluster, a forced
+    # miss
+    seq = build_clustered("ifca+maxent", params, corpus,
+                          judge=RecordingJudge(fl.MaxEntropyJudge()),
+                          drift=events)
+    pip = build_clustered("ifca+maxent", params, corpus,
+                          judge=fl.MaxEntropyJudge(), drift=events,
+                          runtime=SPEC)
+    label = "ifca+maxent pipelined"
+    out[label] = run_speculative(seq, pip, CLUSTER_ROUNDS, label, k2=CLUSTERS)
+    clusters = sum(len(r["clusters"]) for r in pip.history)
+    if out[label]["entropy_judge_loop"] != clusters:
+        raise AssertionError(f"{label}: {out[label]}; expected {clusters} "
+                             "K1 loop launches, one a cluster")
+    cluster_miss_margins(seq, pip, label)
+    seq = build_clustered("ifca+maxent", params, corpus,
+                          judge=fl.MaxEntropyJudge(), drift=events)
+    pip = build_clustered("ifca+maxent", params, corpus,
+                          judge=AdmitAllTraced(), drift=events, runtime=SPEC)
+    label = "ifca+maxent pipelined+miss"
+    out[label] = run_speculative(seq, pip, CLUSTER_ROUNDS, label, k2=CLUSTERS)
+    if not any(not r["spec_hit"] for r in pip.history) or \
+            out[label]["entropy_judge_loop"] != 0:
+        raise AssertionError(f"{label}: no miss, or launches {out[label]}")
+
+    # (c) fesem: sticky weight-distance assignment, pipelined
+    seq = build_clustered("fesem", params, corpus)
+    pip = build_clustered("fesem", params, corpus, runtime=SPEC)
+    out["fesem"] = run_speculative(seq, pip, ROUNDS, "fesem", k2=CLUSTERS)
+    if seq.cluster.stats() != pip.cluster.stats():
+        raise AssertionError("fesem: assignment state differs")
+    print(f"fesem: {seq.cluster.stats()}")
+
+    # (d) K = 1 is fedentropy, bit for bit
+    one = build_clustered("ifca+maxent", params, corpus, k=1)
+    fed = build_server("fedentropy", params, corpus, "cuda")
+    run_rounds(one, "ifca+maxent, K = 1")
+    run_rounds(fed, "fedentropy")
+    if one.bank is not None:
+        raise AssertionError("ifca+maxent at K = 1 carries a bank")
+    equal_to_sequential(fed, one, "ifca+maxent at K = 1 vs fedentropy",
+                        flags=False)
+
+    # the IFCA assignment program: (3, 10) losses on the card, and with the
+    # argmin's device-to-host copy
+    sel = cap.history[-1]["selected"]
+    loss_ms = _time_ms(lambda: cap.cluster.losses(sel), iters=20, warmup=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        cap.cluster.assign(sel)
+    assign_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"IFCA assignment at K = {CLUSTERS}, m = {len(sel)}: losses "
+          f"{loss_ms:.4f} ms (CUDA events), with the argmin and its host "
+          f"copy {assign_ms:.4f} ms (host clock)")
+    time_clustered(params, corpus)
+    return out
+
+
+def time_clustered(params, corpus) -> None:
+    """ifca+maxent's (K = 3) and fedentropy's captured round in turns
+    (ifca+maxent, fedentropy, fedentropy, ifca+maxent), each on a new
+    server for 4 rounds, the median of rounds 2-3; then one profiled round
+    of each."""
+    times = {"ifca+maxent": [], "fedentropy": []}
+    last = {}
+    for name in ("ifca+maxent", "fedentropy", "fedentropy", "ifca+maxent"):
+        server = (build_clustered(name, params, corpus)
+                  if name != "fedentropy"
+                  else build_server(name, params, corpus, "cuda"))
+        walls = [timed_round(server, f"{name}, timed") for _ in range(4)]
+        times[name].append(float(statistics.median(walls[2:4])))
+        last[name] = server
+    prof = {name: profile_round(server, name)
+            for name, server in last.items()}
+    print("round s in turns (ifca+maxent, fedentropy, fedentropy, "
+          "ifca+maxent), medians of rounds 2-3: " + "; ".join(
               f"{name} {[round(x, 5) for x in ts]}"
               for name, ts in times.items()) + "; profiled: " + "; ".join(
               f"{name} wall {w:.4f} s busy {b:.4f} s idle {1 - b / w:.3f}"
@@ -1938,6 +2393,13 @@ def main() -> int:
     _phase("11. FedCAT at the main path's width: 5 chains of 2, "
            "fedcat+maxent judged in K1's loop, sequential and pipelined")
     fedcat = fedcat_path(*setup)
+    _phase("12. the async buffered engine at the main path's width: "
+           "admission in K1's loop over protected rows, flushes in K2")
+    asynced = async_path(*setup, split)
+    _phase("13. clusters at the main path's width: ifca+maxent at K = 3 "
+           "judged per cluster in K1's loop, perclstr in K2, sequential "
+           "and pipelined; fesem")
+    clustered = cluster_path(*setup, split)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1982,7 +2444,9 @@ def main() -> int:
             row["launches_by_path"] = {"fedentropy": count, **{
                 comp: o["launches"][name] for comp, o in others.items()}, **{
                 path: n[name] for path, n in pipelined.items()}, **{
-                path: n[name] for path, n in fedcat.items()}}
+                path: n[name] for path, n in fedcat.items()}, **{
+                path: n[name] for path, n in asynced.items()}, **{
+                path: n[name] for path, n in clustered.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

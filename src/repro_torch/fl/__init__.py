@@ -15,8 +15,16 @@ axis           question it answers                 built-ins
 ``Judge``      whose update is admitted            ``maxent``, ``none``,
                                                    ``budget``
 ``Aggregator`` how admitted updates merge          ``weighted``, ``fused``,
-                                                   ``scaffold``, ``devconcat``
+                                                   ``scaffold``, ``devconcat``,
+                                                   ``perclstr``
 =============  ==================================  =====================
+
+An optional fifth axis, ``cluster`` (:mod:`repro_torch.fl.clusters`),
+swaps the single global model for a K-center ``ModelBank``
+(``ServerConfig.num_clusters``): clients train from their assigned center
+(``ifca`` loss-based or ``fesem`` weight-distance assignment) and
+judgment and aggregation run per cluster — compositions ``ifca``,
+``ifca+maxent`` and ``fesem``.
 
 ::
 
@@ -34,37 +42,46 @@ On the card the vmapped client program runs as a captured CUDA graph
 speculates each round's verdict on the card (``fl.runtime``);
 ``fl.build("fedcat+maxent", ...)`` trains entropy-grouped device chains
 (FedCAT) and judges chain members before concatenation;
-``drift=fl.drift_schedule(...)`` re-partitions clients mid-run.
+``runtime=fl.AsyncConfig(...)`` streams arrivals through the async
+buffered engine; ``drift=fl.drift_schedule(...)`` re-partitions clients
+mid-run.
 """
 from ..core.strategies import LocalSpec
 from ..data.corpus import ClientCorpus, DataQueue, Normalize
 from ..data.partition import DriftEvent, drift_schedule
 from .aggregators import (DeviceConcatAggregator, FusedAverageAggregator,
-                          ScaffoldAggregator, WeightedAverageAggregator)
+                          PerClusterAggregator, ScaffoldAggregator,
+                          WeightedAverageAggregator)
+from .clusters import FeSEMAssigner, IFCAAssigner, ModelBank, argmin_assign
 from .graph_cache import BoundedGraphCache, disable_capture
 from .judges import BudgetedJudge, MaxEntropyJudge, PassThroughJudge
-from .protocols import Aggregator, ClientStrategy, Judge, Selector
+from .protocols import (Aggregator, ClientStrategy, ClusterAssigner, Judge,
+                        Selector)
 from .registry import Composition, build, get, names, register
 from .selectors import (CatGrouper, PoolCatGrouper, PoolSelector,
                         QueueSelector, UniformSelector)
 from .server import Server, ServerConfig, total_uplink_bytes
 from .strategies import (CatChainStrategy, FedAvgStrategy, FedProxStrategy,
                          MoonStrategy, ScaffoldStrategy)
-from .runtime import (PipelinedServer, ProcessCompileCache, RuntimeConfig,
-                      SequentialEngine, disable_process_cache,
-                      enable_process_cache, process_cache)
+from .runtime import (AsyncBufferedServer, AsyncConfig, PipelinedServer,
+                      ProcessCompileCache, RuntimeConfig, SequentialEngine,
+                      disable_process_cache, enable_process_cache,
+                      process_cache)
 
 __all__ = [
-    "Aggregator", "BoundedGraphCache", "BudgetedJudge", "CatChainStrategy",
-    "CatGrouper", "ClientCorpus", "ClientStrategy", "Composition",
-    "DataQueue", "DeviceConcatAggregator", "DriftEvent", "FedAvgStrategy",
-    "FedProxStrategy", "FusedAverageAggregator", "Judge",
-    "LocalSpec", "MaxEntropyJudge", "MoonStrategy", "Normalize",
-    "PassThroughJudge", "PipelinedServer", "PoolCatGrouper", "PoolSelector",
+    "Aggregator", "AsyncBufferedServer", "AsyncConfig", "BoundedGraphCache",
+    "BudgetedJudge", "CatChainStrategy", "CatGrouper", "ClientCorpus",
+    "ClientStrategy", "ClusterAssigner", "Composition", "DataQueue",
+    "DeviceConcatAggregator", "DriftEvent", "FeSEMAssigner",
+    "FedAvgStrategy", "FedProxStrategy", "FusedAverageAggregator",
+    "IFCAAssigner", "Judge", "LocalSpec", "MaxEntropyJudge", "ModelBank",
+    "MoonStrategy", "Normalize", "PassThroughJudge", "PerClusterAggregator",
+    "PipelinedServer", "PoolCatGrouper", "PoolSelector",
     "ProcessCompileCache", "QueueSelector", "RuntimeConfig",
     "ScaffoldAggregator", "ScaffoldStrategy", "Selector",
     "SequentialEngine", "Server", "ServerConfig", "UniformSelector",
-    "WeightedAverageAggregator", "build", "disable_capture",
-    "disable_process_cache", "drift_schedule", "enable_process_cache",
-    "get", "names", "process_cache", "register", "total_uplink_bytes",
+    "WeightedAverageAggregator", "argmin_assign", "build",
+    "disable_capture", "disable_process_cache", "drift_schedule",
+    "enable_process_cache", "get", "names", "process_cache", "register",
+    "total_uplink_bytes",
 ]

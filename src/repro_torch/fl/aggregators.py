@@ -16,6 +16,10 @@
 ``DeviceConcatAggregator``    — FedCAT (arXiv 2202.12751): identity within
                                 a chain, size-weighted average across the
                                 chains' representative models.
+``PerClusterAggregator``      — clustered FL: any base aggregator masked
+                                over the K-center cluster axis (one
+                                admitted-member average per center; an
+                                empty cluster keeps its center).
 """
 from __future__ import annotations
 
@@ -130,3 +134,50 @@ class DeviceConcatAggregator:
         return pytree.tree_map(
             lambda ag, wg: torch.where(kept, ag, wg.to(ag.dtype)),
             avg, global_params)
+
+
+@register("aggregator", "perclstr")
+class PerClusterAggregator:
+    """Clustered merge: the base aggregator's weighted mean, masked over
+    the cluster axis.
+
+    On a clustered round ``global_params`` is the :class:`ModelBank`'s
+    stacked (K, ...) tree and ``out["cluster"]`` carries the round's
+    per-client cluster ids (a device tensor); each center averages ONLY
+    its own admitted members (``mask * (cluster == k)``) through the base
+    aggregator, one call per center (with
+    ``FusedAverageAggregator("cuda")`` as the base, K launches of K2 over
+    the same (M, P) rows). A cluster with no admitted member keeps its
+    center bit for bit, through a ``torch.where`` on a 0-d device boolean
+    (no host read).
+
+    Unclustered cohorts (no ``"cluster"`` key: every K=1 round) pass
+    straight through to the base aggregator, so ``ifca+maxent`` at K=1
+    is the ``weighted`` path bit for bit.
+    """
+
+    def __init__(self, base=None):
+        self.base = base if base is not None \
+            else WeightedAverageAggregator()
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls()
+
+    def __call__(self, global_params, out, sizes, mask):
+        if "cluster" not in out:
+            return self.base(global_params, out, sizes, mask)
+        cids = out["cluster"]
+        sizes = sizes.to(cids.device, torch.float32)
+        mask = mask.to(cids.device, torch.float32)
+        k = pytree.tree_leaves(global_params)[0].shape[0]
+        centers = []
+        for c in range(k):
+            mk = mask * (cids == c).to(torch.float32)
+            old = pytree.tree_map(lambda s, c=c: s[c], global_params)
+            avg = self.base(old, out, sizes, mk)
+            kept = (sizes * mk).sum() > 0
+            centers.append(pytree.tree_map(
+                lambda a, o, kept=kept: torch.where(kept, a.to(o.dtype), o),
+                avg, old))
+        return pytree.tree_map(lambda *xs: torch.stack(xs), *centers)

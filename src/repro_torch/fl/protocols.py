@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Any, Protocol, Sequence, runtime_checkable
 
+import numpy as np
 import torch
 
 Params = Any           # nested dict of tensors
@@ -111,6 +112,44 @@ class Judge(Protocol):
         """Return (accepted, rejected, entropy) — positions are *relative*
         indices into the round's selection, entropy is the final group
         entropy over the accepted set (NaN if not entropy-based)."""
+        ...
+
+
+@runtime_checkable
+class ClusterAssigner(Protocol):
+    """Optional fifth axis: maps selected clients to model-bank centers.
+
+    When a composition names a ``cluster`` assigner (and
+    ``ServerConfig.num_clusters > 1``) the server carries a K-center
+    :class:`repro_torch.fl.clusters.ModelBank` instead of one param tree,
+    clients train from their assigned center, and judgment and
+    aggregation run per cluster. ``assign`` returns host numpy ids and
+    must be *verdict-independent given the bank* (the pipelined engine
+    assigns round t+1 against the speculatively aggregated bank and keeps
+    that only on an oracle hit).
+    """
+
+    num_clusters: int
+
+    def bind(self, server) -> None:
+        """Attach the server whose corpus, bank and apply fn drive the
+        assignment; called once at construction."""
+        ...
+
+    def assign(self, sel: Sequence[int], bank=None) -> np.ndarray:
+        """Cluster id per selected client, drawn against ``bank`` (the
+        server's current bank when ``None``)."""
+        ...
+
+    def update(self, sel: Sequence[int], cluster_ids: np.ndarray,
+               out: dict, bank) -> None:
+        """Fold the round's client outputs back into the assignment state
+        (FeSEM's sticky re-filing; a no-op for stateless assigners), run
+        against the round's *pre-aggregation* bank."""
+        ...
+
+    def stats(self) -> dict:
+        """Introspection counters (cluster occupancy etc.) for logging."""
         ...
 
 

@@ -9,28 +9,34 @@ Built-in component classes expose ``from_config(config, local)``; entries
 without it are constructed with no arguments. Passing an
 already-constructed instance to :func:`build` bypasses the registry for
 that axis. This package registers the ``fedentropy``, ``fedavg``,
-``fedprox``, ``moon``, ``scaffold``, ``fedcat``, ``fedcat+maxent`` and
-``fedentropy+queue`` compositions and the ``sequential`` and
-``pipelined`` engines; any other name raises ``KeyError``.
+``fedprox``, ``moon``, ``scaffold``, ``fedcat``, ``fedcat+maxent``,
+``fedentropy+queue``, ``ifca``, ``ifca+maxent`` and ``fesem``
+compositions and the ``sequential``, ``pipelined`` and ``async`` engines;
+any other name raises ``KeyError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
 
-KINDS = ("selector", "strategy", "judge", "aggregator", "composition",
-         "engine")
+KINDS = ("selector", "strategy", "judge", "aggregator", "cluster",
+         "composition", "engine")
 
 _REGISTRY: dict[str, dict[str, Any]] = {k: {} for k in KINDS}
 
 
 @dataclass(frozen=True)
 class Composition:
-    """One component name per axis of the round."""
+    """One component name per axis of the round. ``cluster`` (optional,
+    a fifth axis) names a :mod:`repro_torch.fl.clusters` assigner: the
+    composition then runs a K-center ``ModelBank``
+    (``ServerConfig.num_clusters``) with judgment and aggregation per
+    cluster; ``None`` keeps the single global model."""
     strategy: str = "fedavg"
     selector: str = "uniform"
     judge: str = "none"
     aggregator: str = "weighted"
+    cluster: str | None = None
 
 
 def register(kind: str, name: str, obj: Any = None):
@@ -70,8 +76,8 @@ def _instantiate(kind: str, spec: Any, config, local):
 
 def build(name: str, apply_fn, init_params, client_data, config,
           local=None, *, selector=None, strategy=None, judge=None,
-          aggregator=None, engine=None, runtime=None, data_plane="auto",
-          drift=None, device="cuda"):
+          aggregator=None, cluster=None, engine=None, runtime=None,
+          data_plane="auto", drift=None, device="cuda"):
     """Construct a server (an *engine*) from a composition name.
 
     ``selector``/``strategy``/``judge``/``aggregator`` override single
@@ -83,16 +89,26 @@ def build(name: str, apply_fn, init_params, client_data, config,
 
     ``engine`` picks the round driver: the sequential
     :class:`repro_torch.fl.Server` by default, ``"sequential"`` (the same
-    under the engine registry) or ``"pipelined"``
+    under the engine registry), ``"pipelined"``
     (:class:`repro_torch.fl.runtime.PipelinedServer`, on-device verdict
-    speculation); ``runtime`` passes it a
-    :class:`repro_torch.fl.runtime.RuntimeConfig`. A ``runtime`` without
-    an ``engine`` implies ``"pipelined"``; an unknown engine name raises
-    ``ValueError`` listing the registered names, and a runtime of the
-    wrong type for the engine raises here::
+    speculation) or ``"async"``
+    (:class:`repro_torch.fl.runtime.AsyncBufferedServer`, streaming
+    buffered rounds); ``runtime`` passes it its config, a
+    :class:`repro_torch.fl.runtime.RuntimeConfig` for sequential and
+    pipelined, an :class:`repro_torch.fl.runtime.AsyncConfig` for async.
+    A ``runtime`` without an ``engine`` implies the engine the config
+    belongs to (RuntimeConfig: ``"pipelined"``, AsyncConfig:
+    ``"async"``); an unknown engine name raises ``ValueError`` listing
+    the registered names, and a runtime of the wrong type for the engine
+    raises here::
 
         build("fedentropy", ..., engine="pipelined",
               runtime=RuntimeConfig(speculate=True))
+        build("fedentropy", ..., runtime=AsyncConfig(clock="straggler"))
+
+    ``cluster`` overrides the composition's cluster assigner (a name or
+    an instance); with ``ServerConfig.num_clusters`` > 1 the engine then
+    carries a K-center ``ModelBank``.
 
     ``data_plane`` is ``"auto"`` or ``"resident"``: both keep the corpus
     on the device at any size, where the reference's ``"auto"`` streams a
@@ -103,7 +119,7 @@ def build(name: str, apply_fn, init_params, client_data, config,
     to the card and raises when there is none.
     """
     from ..core.strategies import LocalSpec
-    from . import runtime as _runtime  # noqa: F401  (registers engines)
+    from . import runtime as _runtime  # registers engines
     from .server import Server
 
     comp = get("composition", name)
@@ -112,8 +128,12 @@ def build(name: str, apply_fn, init_params, client_data, config,
     if engine is None:
         # a runtime config without a named engine must not silently drop
         # its knobs: route to the engine it configures
-        engine_cls = Server if runtime is None else get("engine",
-                                                        "pipelined")
+        if runtime is None:
+            engine_cls = Server
+        elif isinstance(runtime, _runtime.AsyncConfig):
+            engine_cls = get("engine", "async")
+        else:
+            engine_cls = get("engine", "pipelined")
     elif isinstance(engine, str):
         try:
             engine_cls = get("engine", engine)
@@ -128,12 +148,20 @@ def build(name: str, apply_fn, init_params, client_data, config,
             and not isinstance(runtime, expected):
         raise ValueError(
             f"engine {engine_cls.__name__} takes runtime="
-            f"{expected.__name__}, got {type(runtime).__name__}")
+            f"{expected.__name__}, got {type(runtime).__name__} "
+            "(RuntimeConfig drives sequential/pipelined, AsyncConfig "
+            "drives async)")
     kwargs = {}
     if runtime is not None:
         kwargs["runtime"] = runtime
     if data_plane != "auto":
         kwargs["data_plane"] = data_plane
+    # the optional cluster axis: a named or given ClusterAssigner makes
+    # the engine carry a K-center ModelBank (K = config.num_clusters;
+    # K = 1 is the single-model path exactly)
+    cl = cluster if cluster is not None else comp.cluster
+    if cl is not None:
+        kwargs["cluster"] = _instantiate("cluster", cl, config, local)
     if drift is not None:
         kwargs["drift"] = drift
     return engine_cls(
@@ -170,3 +198,17 @@ register("composition", "fedcat+maxent",
 # growing prefix of the local dataset; judgment stays the paper's maxent.
 register("composition", "fedentropy+queue",
          Composition(strategy="fedavg", selector="queue", judge="maxent"))
+# Clustered FL (the K-center ModelBank axis; K = ServerConfig.num_clusters):
+# "ifca" is the loss-based assignment baseline (every update admitted),
+# "fesem" the weight-distance alternation, and "ifca+maxent" runs the
+# paper's max-entropy judgment WITHIN each cluster; at K=1 it is exactly
+# "fedentropy" (perclstr passes through to weighted).
+register("composition", "ifca",
+         Composition(strategy="fedavg", selector="uniform", judge="none",
+                     aggregator="perclstr", cluster="ifca"))
+register("composition", "ifca+maxent",
+         Composition(strategy="fedavg", selector="pools", judge="maxent",
+                     aggregator="perclstr", cluster="ifca"))
+register("composition", "fesem",
+         Composition(strategy="fedavg", selector="uniform", judge="none",
+                     aggregator="perclstr", cluster="fesem"))

@@ -4,33 +4,46 @@
 The same four composition axes as :class:`repro_torch.fl.Server`, driven
 by (a) the pipelined engine, which overlaps the host-side float64
 judgment oracle with the next round's client compute by speculating the
-verdict on the device (K1's loop with ``spec_backend="cuda"``), and (b)
-an opt-in process-wide cache that shares captured client programs across
-servers.
+verdict on the device (K1's loop with ``spec_backend="cuda"``), (b) the
+async buffered engine, which drops the round barrier: clients stream
+updates under a deterministic simulated arrival clock, max-entropy
+judgment admits or rejects each arrival batch against the buffered group
+(K1's loop over protected rows), and flushes aggregate with
+staleness-damped weights (:mod:`.async_engine`), and (c) an opt-in
+process-wide cache that shares captured client programs across servers.
 
 Build through the registry::
 
     import repro_torch.fl as fl
-    from repro_torch.fl.runtime import RuntimeConfig
+    from repro_torch.fl.runtime import AsyncConfig, RuntimeConfig
 
     server = fl.build("fedentropy", cnn.apply, params, corpus, config,
                       engine="pipelined",
                       runtime=RuntimeConfig(speculate=True),
                       aggregator=fl.FusedAverageAggregator(backend="cuda"))
+    streaming = fl.build("fedentropy", cnn.apply, params, corpus, config,
+                         runtime=AsyncConfig(clock="straggler",
+                                             staleness_alpha=0.5))
 
 With ``RuntimeConfig()`` defaults (no speculation) the pipelined engine is
 the sequential ``Server``; with speculation on its history and params
 still equal the sequential server's bit for bit
-(tests/test_torch_engine.py).
+(tests/test_torch_engine.py). With ``AsyncConfig()`` defaults (K =
+|cohort|, the zero clock, no damping) so does the async engine
+(tests/test_torch_async.py).
 """
 from .compile_cache import (
     ProcessCompileCache, disable_process_cache, enable_process_cache,
     process_cache,
 )
 from .engine import PipelinedServer, RuntimeConfig, SequentialEngine
+from .async_engine import (
+    ArrivalClock, AsyncBufferedServer, AsyncConfig, staleness_weights,
+)
 
 __all__ = [
+    "ArrivalClock", "AsyncBufferedServer", "AsyncConfig",
     "PipelinedServer", "ProcessCompileCache", "RuntimeConfig",
     "SequentialEngine", "disable_process_cache", "enable_process_cache",
-    "process_cache",
+    "process_cache", "staleness_weights",
 ]

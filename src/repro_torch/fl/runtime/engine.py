@@ -34,6 +34,14 @@ on the card (2.5 MB at the paper's width), a chain cohort's
 ``group_id``/``chain_pos`` with them, so a miss re-aggregates round t
 with round t's chains.
 
+On a clustered server (a ``ModelBank``) the round speculates per
+cluster (``_clustered_spec_round``): the traced judge runs once on each
+non-empty cluster's rows (one launch of K1's loop each), the speculative
+aggregation is ``perclstr`` over the bank on the combined mask, and round
+t+1 is assigned against the speculatively aggregated bank and dispatched
+from it; the one device-to-host copy brings back every cluster's verdict
+with the soft labels and sizes.
+
 A drift event scheduled for round t+1 gates the speculative dispatch: the
 round keeps its speculated aggregation but feeds the oracle's verdict back
 directly, and round t+1 selects after the drift. A judge without
@@ -51,6 +59,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ...core.aggregation import comm_bytes
+from ...core.judgment import JudgmentResult
 from ..judges import MaxEntropyJudge
 from ..registry import register
 from ..server import Server
@@ -100,6 +109,22 @@ class SequentialEngine(Server):
                  **kwargs):
         super().__init__(*args, **kwargs)
         self.runtime = runtime or RuntimeConfig()
+
+
+def _combined(results, rows, m: int, device) -> JudgmentResult:
+    """Per-cluster traced verdicts as one cohort-wide result on the
+    device: the mask scattered to each cluster's rows, and the removal
+    orders (cluster-relative) concatenated in cluster order (None if any
+    judge is order-less)."""
+    at = torch.as_tensor(np.concatenate(rows), device=device)
+    mask = torch.zeros(m, device=device).index_copy(
+        0, at, torch.cat([jr.mask.to(torch.float32) for jr in results]))
+    order = None
+    if all(jr.removal_order is not None for jr in results):
+        order = torch.cat([jr.removal_order.to(torch.int32)
+                           for jr in results])
+    return JudgmentResult(mask=mask, entropy=None, initial_entropy=None,
+                          num_removed=None, removal_order=order)
 
 
 def _host_copy(jr, soft: torch.Tensor, sizes: torch.Tensor):
@@ -164,7 +189,9 @@ class PipelinedServer(Server):
     def _speculative_round(self, spec_fn) -> dict:
         # drift applies BEFORE selection, as sequentially; the spec_next
         # gate below keeps any pending dispatch from spanning a drift
-        self._apply_drift()
+        drifted = self._apply_drift()
+        if self.bank is not None:
+            return self._clustered_spec_round(spec_fn, drifted)
         cfg = self.config
         num = cfg.cohort_size()
 
@@ -251,6 +278,122 @@ class PipelinedServer(Server):
         rec = {"round": self.round_idx, "selected": sel, "positive": pos,
                "negative": neg, "entropy": ent, "comm": comm,
                "spec_hit": hit, "redispatched": redispatched}
+        self.history.append(rec)
+        self.round_idx += 1
+        return rec
+
+    # ------------------------------------------------- clustered speculation
+    def _clustered_spec_round(self, spec_fn, drifted) -> dict:
+        """The speculative round over a K-center ModelBank.
+
+        As ``_speculative_round`` with three differences: the traced judge
+        runs per cluster (masks combined over the cohort), the speculative
+        aggregation is the ``perclstr`` masked mean over the bank, and the
+        speculative NEXT assignment is computed against the speculatively
+        aggregated bank. On an oracle hit that bank is bitwise the one the
+        sequential path makes, so the assignment is too; on a miss the
+        dispatch is discarded as in the unclustered path. Assignment-state
+        folding (FeSEM) is verdict-independent and runs once a round,
+        before any speculative next-round assignment reads it.
+        """
+        cfg = self.config
+        num = cfg.cohort_size()
+
+        if self._pending is not None:
+            sel, cids, out = self._pending
+            self._pending = None
+            redispatched = False
+        else:
+            sel = self.selector.select(num)
+            cids = self.cluster.assign(sel)
+            out = self._dispatch_banked(sel, self.selector, cids)
+            redispatched = self._redispatch_next
+        self._redispatch_next = False
+        idx = np.asarray(sel)
+        cids = np.asarray(cids)
+        spec_next = not self._drift_at(self.round_idx + 1)
+
+        # --- per-cluster device verdicts (clusters ascending, the
+        # oracle's own order), combined into one cohort mask (queued) ---
+        sizes32 = out["size"].to(torch.float32)
+        soft32 = out["soft_label"].to(torch.float32)
+        rows, results = [], []
+        for k in sorted(int(c) for c in np.unique(cids)):
+            r = np.where(cids == k)[0]
+            at = torch.as_tensor(r, device=self.device)
+            rows.append(r)
+            results.append(spec_fn(soft32.index_select(0, at),
+                                   sizes32.index_select(0, at)))
+        jr = _combined(results, rows, len(sel), self.device)
+        out_c = self._with_clusters(out, cids)
+        bank_spec = self.bank.replace(self.aggregator(
+            self.bank.stacked, out_c, sizes32, jr.mask))
+        new_state = self.strategy.update_state(
+            self.state, self.bank.stacked, out, idx, cfg.num_clients)
+
+        spec_mask, order, soft, sizes = _host_copy(jr, soft32, sizes32)
+        spec_pos, spec_neg, off = [], [], 0
+        for r in rows:
+            spec_pos.extend(sel[int(r[i])] for i in range(len(r))
+                            if spec_mask[r[i]] > 0)
+            if order is not None:
+                spec_neg.extend(sel[int(r[int(j)])]
+                                for j in order[off:off + len(r)] if j >= 0)
+            else:
+                spec_neg.extend(sel[int(r[i])] for i in range(len(r))
+                                if spec_mask[r[i]] == 0)
+            off += len(r)
+        self.state = new_state
+        # once a round, against the PRE-aggregation centers, BEFORE the
+        # speculative next assignment reads the sticky state it may change
+        self.cluster.update(sel, cids, out, self.bank)
+
+        # --- speculatively select, assign and dispatch round t+1 ---------
+        kept_c = out_c
+        if spec_next:
+            # round t+1's replay overwrites a captured program's outputs;
+            # the miss path (and a judge on the device) read them after it
+            kept_c = pytree.tree_map(torch.clone, out_c)
+            sel_copy = copy.deepcopy(self.selector)
+            sel_copy.update(spec_pos, spec_neg)
+            next_sel = sel_copy.select(num)
+            next_cids = self.cluster.assign(next_sel, bank=bank_spec)
+            next_out = self._dispatch_banked(next_sel, sel_copy, next_cids,
+                                             bank=bank_spec)
+
+        # --- the per-cluster oracle, while round t+1 runs ----------------
+        if getattr(self.judge, "on_host", False):
+            jsoft, jsizes = torch.from_numpy(soft), torch.from_numpy(sizes)
+        else:
+            jsoft, jsizes = kept_c["soft_label"], kept_c["size"]
+        mask, pos, neg, ent, clusters = self._judge_clusters(
+            jsoft, jsizes, cids, sel)
+
+        hit = bool(np.array_equal(mask, spec_mask))
+        if hit:
+            self.bank = bank_spec
+            if spec_next:
+                self.selector = sel_copy      # same verdict -> same stream
+                self._pending = (next_sel, next_cids, next_out)
+            else:
+                self.selector.update(pos, neg)
+        else:                                  # discard, redo from oracle
+            self.bank = self.bank.replace(self.aggregator(
+                self.bank.stacked, kept_c, kept_c["size"],
+                torch.as_tensor(mask, device=self.device)))
+            self.selector.update(pos, neg)
+            self._redispatch_next = spec_next
+        self.global_params = self.bank.stacked
+
+        comm = comm_bytes(self.bank.center(0), len(sel), len(pos),
+                          soft.shape[-1],
+                          control_variate=self.strategy.doubles_uplink)
+        rec = {"round": self.round_idx, "selected": sel, "positive": pos,
+               "negative": neg, "entropy": ent, "comm": comm,
+               "cluster": [int(c) for c in cids], "clusters": clusters,
+               "spec_hit": hit, "redispatched": redispatched}
+        if drifted:
+            rec["drift"] = [list(ev.clients) for ev in drifted]
         self.history.append(rec)
         self.round_idx += 1
         return rec

@@ -19,6 +19,14 @@ chain groups read off the selector that made the selection
 (``prepare_round``), then put the outputs back in cohort order
 (``finish_round``).
 
+An optional fifth axis, ``cluster=`` (a :mod:`repro_torch.fl.clusters`
+assigner with ``ServerConfig.num_clusters`` > 1), swaps the single global
+model for a K-center ``ModelBank``: each client trains from its assigned
+center (the banked program maps the params slot on axis 0), judgment runs
+on each cluster's rows on their own, and the aggregator (``perclstr``)
+averages each center over its admitted members. With K = 1, or with no
+assigner, ``bank`` is None and the round is the single-model one.
+
 On a CUDA device the client program (vmapped, or a strategy's chain
 program) runs as a captured CUDA graph, one per key in a per-server LRU of
 ``ServerConfig.jit_cache_size`` entries (``fl.graph_cache``), the
@@ -53,6 +61,7 @@ class ServerConfig:
     seed: int = 0
     jit_cache_size: int = 4         # per-server captured-program LRU bound
     group_size: int = 2             # FedCAT chain length (catgroups/catchain)
+    num_clusters: int = 1           # K model-bank centers (1 = unclustered)
 
     def cohort_size(self) -> int:
         """|S_t| = max(1, round(N * C)). Python's ``round`` is banker's
@@ -100,6 +109,7 @@ class Server:
         judge: Judge,
         aggregator: Aggregator,
         data_plane: str = "auto",
+        cluster=None,
         drift=None,
         device="cuda",
     ):
@@ -115,6 +125,9 @@ class Server:
         self.apply_fn = apply_fn
         self.global_params = pytree.tree_map(
             lambda t: torch.as_tensor(t).to(self.device), init_params)
+        self._param_sig = tuple(
+            (tuple(t.shape), str(t.dtype))
+            for t in pytree.tree_leaves(self.global_params))
         self.corpus = ClientCorpus.from_stacked(client_data,
                                                 device=self.device)
         self.config = config
@@ -126,16 +139,43 @@ class Server:
                                          config.num_clients)
         self.round_idx = 0
         self.history: list[dict] = []
+        # ---- the optional cluster axis (K-center ModelBank) ----------
+        # K = 1 (or no assigner) keeps bank = None: every path below is
+        # the single-model server's, so clustered compositions reduce to
+        # it exactly
+        self.cluster = cluster
+        k = (getattr(cluster, "num_clusters", 1)
+             if cluster is not None else 1)
+        if k > 1:
+            if getattr(strategy, "make_client_fn", None) is not None or \
+                    getattr(strategy, "prepare_round", None) is not None:
+                raise ValueError(
+                    f"{type(strategy).__name__} builds its own client "
+                    "fan-out (chains/groups); the clustered ModelBank "
+                    "needs the plain vmapped ClientUpdate to thread "
+                    "per-client start params")
+            if self.state is not None:
+                raise ValueError(
+                    f"{type(strategy).__name__} carries cross-round "
+                    "client state; clustered rounds support stateless "
+                    "strategies only (per-cluster control variates are a "
+                    "recorded ROADMAP follow-up)")
+            from .clusters import ModelBank
+            self.bank = ModelBank.init(self.global_params, k,
+                                       seed=config.seed)
+            self.global_params = self.bank.stacked
+        else:
+            self.bank = None
         make = getattr(strategy, "make_client_fn", None)
         self._eager_fn = (
-            _make_client_fn(apply_fn, strategy.spec,
-                            strategy.client_in_axes())
+            _make_client_fn(apply_fn, strategy.spec, self._client_in_axes())
             if make is None else make(apply_fn))
         self._graphs = BoundedGraphCache(config.jit_cache_size)
         self._captures = 0
-        self._param_sig = tuple(
-            (tuple(t.shape), str(t.dtype))
-            for t in pytree.tree_leaves(self.global_params))
+        if cluster is not None:
+            bindc = getattr(cluster, "bind", None)
+            if bindc is not None:
+                bindc(self)
         # selectors that rank on corpus stats (the queue selector's label
         # entropy) bind the corpus once; the corpus caches the stats
         bind = getattr(selector, "bind_data", None)
@@ -170,12 +210,21 @@ class Server:
         # strategy's spec and in-axes, the params' shapes, the device, the
         # corpus signature, the cohort size and a chain cohort's (G, K)
         # layout. A drifted corpus keeps its signature, so its rounds
-        # replay the same graph.
+        # replay the same graph. The in-axes map the params slot on a
+        # clustered server, so banked and broadcast graphs never alias.
         tag = ("client" if getattr(self.strategy, "make_client_fn", None)
                is None else f"client-{type(self.strategy).__name__}")
         return (tag, self.apply_fn, self.strategy.spec,
-                tuple(self.strategy.client_in_axes()), self._param_sig,
+                self._client_in_axes(), self._param_sig,
                 str(self.device), self.corpus.signature(), cohort, layout)
+
+    def _client_in_axes(self) -> tuple:
+        """The strategy's vmap in-dims, with the params slot mapped (axis
+        0) on a clustered server: each cohort row then trains from its own
+        center (``ModelBank.gather``'s (m, ...) stack) instead of one
+        broadcast global model."""
+        ax = tuple(self.strategy.client_in_axes())
+        return ((0,) + ax[1:]) if self.bank is not None else ax
 
     def _capture(self, args) -> CapturedProgram:
         program = CapturedProgram(self._eager_fn, args)
@@ -232,26 +281,134 @@ class Server:
         return self._captures
 
     # -------------------------------------------------------------- drift
-    def _apply_drift(self) -> None:
+    def _apply_drift(self) -> list:
         """Apply every drift event scheduled for the current round (before
         selection): a new corpus on the device with the drifting clients'
-        rows replaced, and the selector's stats bound to it."""
+        rows replaced, and the selector's stats bound to it. Returns the
+        applied events (a clustered record notes them)."""
+        applied = []
         while self._drift and self._drift[0].round == self.round_idx:
             ev = self._drift.pop(0)
             self.corpus = self.corpus.with_rows(ev.clients, ev.data)
             bind = getattr(self.selector, "bind_data", None)
             if bind is not None:
                 bind(self.corpus)
+            applied.append(ev)
+        return applied
 
     def _drift_at(self, round_no: int) -> bool:
         """True if a drift event is still scheduled for ``round_no``: the
         pipelined engine must not speculate across that boundary."""
         return any(ev.round == round_no for ev in self._drift)
 
+    # ---------------------------------------------------------- clustering
+    def _dispatch_banked(self, sel, selector, cluster_ids, bank=None):
+        """The clustered cohort dispatch: each client starts from its
+        assigned center, gathered off ``bank`` (the server's own unless a
+        speculative bank is passed)."""
+        bank = self.bank if bank is None else bank
+        return self._run_cohort(sel, selector, bank.gather(cluster_ids))
+
+    def _judge_inputs(self, out) -> tuple[torch.Tensor, torch.Tensor]:
+        """The round's soft labels and sizes where the judge reads them:
+        one host copy of both for a judge ``on_host``, else the device
+        tensors."""
+        soft, sizes = out["soft_label"], out["size"]
+        if not getattr(self.judge, "on_host", False):
+            return soft, sizes
+        m, c = soft.shape
+        host = torch.cat([soft.reshape(-1), sizes.reshape(-1)]).cpu()
+        return host[:m * c].view(m, c), host[m * c:]
+
+    def _judge_clusters(self, soft, sizes, cluster_ids, sel):
+        """Per-cluster judgment: the composition's judge runs on each
+        cluster's member rows on their own (clusters ascending; on the
+        ``"cuda"`` judge one launch of K1's loop per non-empty cluster).
+
+        Returns ``(mask, pos, neg, entropy, clusters)``: the combined 0/1
+        admission mask over the cohort (numpy float32), positive and
+        negative client ids (clusters ascending, the judge's own order
+        within each), the member-count-weighted mean of the per-cluster
+        group entropies, and the per-cluster verdicts the record keeps.
+        """
+        cluster_ids = np.asarray(cluster_ids)
+        mask = np.zeros(len(sel), np.float32)
+        pos, neg, clusters = [], [], {}
+        ents = []
+        for k in sorted(int(c) for c in np.unique(cluster_ids)):
+            rows = np.where(cluster_ids == k)[0]
+            at = torch.as_tensor(rows, device=soft.device)
+            a_rel, r_rel, ent = self.judge(soft.index_select(0, at),
+                                           sizes.index_select(0, at))
+            mask[rows[a_rel]] = 1.0
+            p = [sel[int(rows[i])] for i in a_rel]
+            n = [sel[int(rows[i])] for i in r_rel]
+            pos.extend(p)
+            neg.extend(n)
+            clusters[str(k)] = {
+                "members": [sel[int(i)] for i in rows],
+                "positive": p, "negative": n, "entropy": ent}
+            if not np.isnan(ent):
+                ents.append((len(rows), ent))
+        total = sum(n for n, _ in ents)
+        entropy = (sum(n * e for n, e in ents) / total
+                   if total else float("nan"))
+        return mask, pos, neg, entropy, clusters
+
+    def _with_clusters(self, out, cluster_ids) -> dict:
+        """``out`` with the round's cluster ids on the device, for
+        ``perclstr``."""
+        out_c = dict(out)
+        out_c["cluster"] = torch.as_tensor(
+            np.asarray(cluster_ids, np.int32), device=self.device)
+        return out_c
+
+    def _clustered_round(self) -> dict:
+        """One clustered Alg. 2 round: assign -> per-center ClientUpdate
+        -> per-cluster judgment -> per-cluster aggregation -> feedback."""
+        cfg = self.config
+        sel = self.selector.select(cfg.cohort_size())
+        idx = np.asarray(sel)
+        cids = self.cluster.assign(sel)
+        out = self._dispatch_banked(sel, self.selector, cids)
+
+        soft, sizes = self._judge_inputs(out)
+        mask, pos, neg, ent, clusters = self._judge_clusters(
+            soft, sizes, cids, sel)
+
+        new_stacked = self.aggregator(
+            self.bank.stacked, self._with_clusters(out, cids), out["size"],
+            torch.as_tensor(mask, device=self.device))
+        self.state = self.strategy.update_state(
+            self.state, self.bank.stacked, out, idx, cfg.num_clients)
+        # assignment state folds against the PRE-aggregation centers
+        # (verdict-independent: the speculation contract)
+        self.cluster.update(sel, cids, out, self.bank)
+        self.bank = self.bank.replace(new_stacked)
+        self.global_params = self.bank.stacked
+        self.selector.update(pos, neg)
+
+        # positives ship ONE model each (their own center), so the
+        # template is a single center, never the K-stacked bank
+        comm = comm_bytes(self.bank.center(0), len(sel), len(pos),
+                          soft.shape[-1],
+                          control_variate=self.strategy.doubles_uplink)
+        rec = {"round": self.round_idx, "selected": sel, "positive": pos,
+               "negative": neg, "entropy": ent, "comm": comm,
+               "cluster": [int(c) for c in cids], "clusters": clusters}
+        self.history.append(rec)
+        self.round_idx += 1
+        return rec
+
     # ------------------------------------------------------------------
     def round(self) -> dict:
         """One paper Alg. 2 round; returns the history record."""
-        self._apply_drift()
+        drifted = self._apply_drift()
+        if self.bank is not None:
+            rec = self._clustered_round()
+            if drifted:
+                rec["drift"] = [list(ev.clients) for ev in drifted]
+            return rec
         cfg = self.config
         sel = self.selector.select(cfg.cohort_size())
         idx = np.asarray(sel)
@@ -282,17 +439,23 @@ class Server:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def evaluate(self, x, y, batch: int = 512) -> dict:
-        """Test-set accuracy/loss of the global model; ``x`` NHWC."""
+    def evaluate(self, x, y, batch: int = 512,
+                 center: int | None = None) -> dict:
+        """Test-set accuracy/loss of the global model; ``x`` NHWC. On a
+        clustered server ``center`` picks the bank center to score
+        (default 0, the un-jittered lineage of the init params);
+        unclustered servers ignore it."""
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, device=self.device)
         n = x.shape[0]
         if n == 0:
             raise ValueError("empty eval set (x has 0 rows)")
+        params = self.global_params if self.bank is None \
+            else self.bank.center(0 if center is None else int(center))
         correct, loss_sum = 0.0, 0.0
         for i in range(0, n, batch):
             bx, by = x[i:i + batch], y[i:i + batch]
-            logits = self.apply_fn(self.global_params, bx)[0]
+            logits = self.apply_fn(params, bx)[0]
             correct += float((logits.argmax(-1) == by).sum())
             loss_sum += float(cross_entropy(logits, by)) * bx.shape[0]
         return {"accuracy": correct / n, "loss": loss_sum / n}

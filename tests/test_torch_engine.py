@@ -249,7 +249,7 @@ def test_engine_registry(tiny):
     from repro_torch.fl.runtime import PipelinedServer, SequentialEngine
     assert tfl.get("engine", "pipelined") is PipelinedServer
     assert tfl.get("engine", "sequential") is SequentialEngine
-    assert tfl.names("engine") == ["pipelined", "sequential"]
+    assert tfl.names("engine") == ["async", "pipelined", "sequential"]
     with pytest.raises(ValueError, match="unknown engine 'warp'.*"
                                          "pipelined.*sequential"):
         _build(tiny, engine="warp")

@@ -121,8 +121,9 @@ def test_evaluate_matches_reference(tiny):
 def test_registry_surface():
     assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
                                         "fedentropy", "fedentropy+queue",
-                                        "fedprox", "moon", "scaffold"]
-    for name in ("ifca", "nope"):
+                                        "fedprox", "fesem", "ifca",
+                                        "ifca+maxent", "moon", "scaffold"]
+    for name in ("fedentropy-traced", "nope"):
         with pytest.raises(KeyError, match="no composition registered"):
             tfl.get("composition", name)
     want = rfl.get("composition", "fedcat")

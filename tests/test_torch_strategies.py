@@ -268,7 +268,8 @@ def test_localspec_defaults_and_conflicts():
 def test_registry_round_trips_the_five_compositions():
     assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
                                         "fedentropy", "fedentropy+queue",
-                                        "fedprox", "moon", "scaffold"]
+                                        "fedprox", "fesem", "ifca",
+                                        "ifca+maxent", "moon", "scaffold"]
     for name in tfl.names("composition"):
         got, want = tfl.get("composition", name), rfl.get("composition",
                                                            name)
