@@ -112,6 +112,29 @@ Phases, each of which raises on failure (exit code non-zero):
    fedentropy bit for bit; the IFCA assignment program's time; then a
    clustered round beside fedentropy's in turns and one profiled round of
    each.
+14. drive the scan engine (``fl.runtime.ScanServer``) at the same width
+   with ``FusedAverageAggregator("cuda")``: ``fedentropy-traced`` (the
+   eps-greedy pools on the threefry stream) in blocks of 4 rounds, each
+   block one captured CUDA graph holding the cohort draw, the gather, the
+   client program, K1's loop and K2 of every round, 8 rounds in
+   ``"stack"`` and in ``"remat"`` mode, each equal bit for bit to the
+   sequential ``Server`` and to the same blocks run eagerly
+   (``fl.disable_capture()``), with each block's K1 and K2 launches
+   (counted per replay), each graph's capture time and each natural
+   miss's float64 gap; the same with the traced form that admits
+   everyone (every rejecting round misses and cuts its block; each depth
+   is captured once, and the second block's time is a block's after a
+   miss), with each block graph's pool memory; in ``"remat"``, a traced
+   form that misses only one-removal rounds, so blocks are cut after
+   confirmed rounds and rewound by a shorter block; ``fedavg``
+   with host-drawn cohorts against sequential and with the device's
+   threefry draw captured against eager; ``fedentropy`` (numpy pools)
+   falling back to sequential rounds with its reason. Then, on the warm
+   ``"stack"`` and sequential servers of the first run, a block of 4
+   against 4 sequential rounds in turns, and one profiled block (its K1
+   and K2 kernels in the trace held against the counts) and 4 profiled
+   sequential rounds for the device's idle share; the two servers are
+   then held equal again.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -123,9 +146,12 @@ also carry ``launches_by_path``: ``fedentropy`` (phase 4), ``moon`` and
 ``scaffold`` (phase 9), phase 10's ``pipelined``, ``pipelined+miss``
 and ``fedentropy+queue``, phase 11's ``fedcat``, ``fedcat+maxent``,
 ``fedcat+maxent pipelined`` and ``fedcat+maxent pipelined+miss``, phase
-12's ``async``, ``async straggler`` and ``async straggler+plain``, and
+12's ``async``, ``async straggler`` and ``async straggler+plain``,
 phase 13's ``ifca+maxent``, ``ifca+maxent pipelined``,
-``ifca+maxent pipelined+miss`` and ``fesem``.
+``ifca+maxent pipelined+miss`` and ``fesem``, and phase 14's ``scan``,
+``scan remat``, ``scan+miss``, ``scan remat+miss``, ``scan remat+rewind``
+and ``scan fedavg``
+(a block's launches include the eager run before its first capture).
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -206,8 +232,12 @@ def _read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+_START = time.perf_counter()
+
+
 def _phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - _START:.1f} s)",
+          flush=True)
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -1691,6 +1721,394 @@ def time_clustered(params, corpus) -> None:
 
 
 
+# ------------------------------------------------------------- scan engine
+
+SCAN_R = 4               # rounds a block
+SCAN_ROUNDS = 8          # two blocks in (a) and (b); (a)'s servers run
+                         # 4 x SCAN_R more rounds in the timing
+SCAN_SHORT = 4           # one block in (c) and (d)
+# the kernels' names in a profile
+K1_KERNELS = ("judge_loop_warp", "judge_loop_kernel")
+K2_KERNELS = ("masked_weighted_sum_kernel",)
+
+
+class MissOnOneRemoval(fl.MaxEntropyJudge):
+    """The float64 oracle with a traced form that is K1's verdict, except
+    that a verdict removing exactly one device admits everyone: those
+    rounds miss and the others hit, so a block is cut after confirmed
+    rounds and its rewind point is read (``"stack"``) or rebuilt
+    (``"remat"``)."""
+
+    def traced(self, backend=None):
+        inner = super().traced("cuda")
+
+        def fn(soft, sizes):
+            jr = inner(soft, sizes)
+            return jr._replace(mask=torch.where(
+                jr.num_removed == 1, torch.ones_like(jr.mask), jr.mask))
+        return fn
+
+
+def build_scan(name: str, params, corpus, judge=None, **kw):
+    """Phase 14's servers: ``name`` at phase 4's configuration with the
+    composition's own judge (the float64 oracle for maxent) unless
+    ``judge`` is given, and ``FusedAverageAggregator("cuda")`` (K2);
+    ``kw`` goes to ``fl.build`` (``runtime``)."""
+    cfg = fl.ServerConfig(num_clients=100, participation=0.1, seed=0)
+    if judge is not None:
+        kw["judge"] = judge
+    return fl.build(name, cnn.apply, params, corpus, cfg, fl.LocalSpec(),
+                    aggregator=fl.FusedAverageAggregator(backend="cuda"),
+                    device="cuda", **kw)
+
+
+def scan_config(**kw) -> "fl.ScanConfig":
+    return fl.ScanConfig(rounds_per_scan=SCAN_R, **kw)
+
+
+def _block_programs(server) -> dict:
+    """The server's captured blocks by depth."""
+    return {key[1]: prog for key, prog in
+            server._block_graphs._entries.items()}
+
+
+def _pool_mib(prog) -> float:
+    """MiB of device memory the private pool of ``prog``'s graph holds
+    (its segments in the allocator's snapshot)."""
+    pool = tuple(prog.graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool) / 2**20
+
+
+def _graphs_line(server) -> str:
+    """Each captured block of ``server`` by depth: capture seconds,
+    launches a replay and its pool's MiB; then the captures its block
+    and client caches made (evicted entries included)."""
+    progs = _block_programs(server)
+    return ("; ".join(f"depth {r}: capture {p.capture_s:.3f} s, launches "
+                      f"a replay {p.launches}, pool {_pool_mib(p):.1f} MiB"
+                      for r, p in sorted(progs.items()))
+            + f"; block captures {server._block_graphs.captures}, client "
+            f"program captures {server.graphs_captured}")
+
+
+def run_scan(server, rounds: int, label: str) -> dict:
+    """``rounds`` rounds of a scan server with every count at 0 just
+    before and read just after; prints each round's flags and, on a
+    round that ran blocks, their K1-loop and K2 launches and wall time."""
+    _reset_counts()
+    prev = _read_counts()
+    for _ in range(rounds):
+        blocks = server._blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = server.round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        now = _read_counts()
+        ran = server._blocks - blocks
+        line = (f"[{label}] round {rec['round']}: spec_hit={rec['spec_hit']}"
+                f" redispatched={rec['redispatched']} "
+                f"negative={rec['negative']}")
+        if ran:
+            k1, k2 = (now[k] - prev[k] for k in ("entropy_judge_loop",
+                                                 "masked_weighted_sum"))
+            line += (f"; ran {ran} block(s) in {wall:.4f} s, launches: K1 "
+                     f"loop {k1}, K2 {k2}")
+        print(line, flush=True)
+        prev = now
+    return _read_counts()
+
+
+def _profiled_rounds(server, rounds: int):
+    """``rounds`` rounds of ``server`` under torch.profiler: (wall s,
+    device busy s, the device events' names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            server.round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return wall, _busy_s(prof), names
+
+
+def time_scan(servers: dict) -> None:
+    """Blocks of 4 rounds against 4 sequential rounds on (a)'s warm
+    servers (``servers``: "scan" the stack-mode scan server, "sequential"
+    its sequential twin, each past 8 rounds), in turns (scan, sequential;
+    sequential, scan; scan, sequential), so each pair runs the same rounds
+    (8-11, 12-15, 16-19); a pair whose block missed is kept and labelled
+    (its time holds the oracle round and, the first time a depth is
+    needed, that depth's capture). Then one profiled block (rounds 20-23)
+    and those 4 sequential rounds under the profiler for the device's
+    idle share, with the block's K1 and K2 kernels in the profile held
+    against the counts' deltas."""
+    times = {"scan": [], "sequential": []}
+    hit = []
+    for order in (("scan", "sequential"), ("sequential", "scan"),
+                  ("scan", "sequential")):
+        for route in order:
+            server = servers[route]
+            start = len(server.history)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCAN_R):
+                server.round()
+            torch.cuda.synchronize()
+            times[route].append(time.perf_counter() - t0)
+            flags = ""
+            if route == "scan":
+                flags = [r["spec_hit"] for r in server.history[start:]]
+                hit.append(all(flags))
+            print(f"{route}: rounds {start}-{start + SCAN_R - 1} "
+                  f"{times[route][-1]:.5f} s {flags}", flush=True)
+    idle = {}
+    for route in ("scan", "sequential"):
+        server = servers[route]
+        start = len(server.history)
+        before = _read_counts()
+        wall, busy, names = _profiled_rounds(server, SCAN_R)
+        after = _read_counts()
+        idle[route] = 1 - busy / wall
+        line = (f"profiled {route}, rounds {start}-{start + SCAN_R - 1}: wall "
+                f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
+                f"{idle[route]:.3f}, {len(names)} device events "
+                "(profiler on)")
+        if route == "scan":
+            seen = {"entropy_judge_loop": sum(
+                any(k in n for k in K1_KERNELS) for n in names),
+                "masked_weighted_sum": sum(
+                any(k in n for k in K2_KERNELS) for n in names)}
+            counted = {k: after[k] - before[k] for k in seen}
+            hits = [r["spec_hit"] for r in server.history[start:]]
+            line += (f"; spec_hit {hits}; K1 loop and K2 launches counted "
+                     f"{counted}, in the profile {seen}")
+            if counted != seen:
+                raise AssertionError(f"scan: counted launches {counted} "
+                                     f"differ from the profile's {seen}")
+        print(line, flush=True)
+    # the host work a block takes out of each round (the pools' draw on
+    # the host, 3 threefry calls and 2 argsorts of small CPU tensors) and
+    # what it adds once a block (the graph's launch)
+    graph = _block_programs(servers["scan"])[SCAN_R].graph
+    launch = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        launch.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    selector = copy.deepcopy(servers["sequential"].selector)
+    host = _host_us({"TracedPoolSelector.select(10) at N = 100":
+                     lambda: selector.select(10)}, calls=100)
+    print(f"host: a depth-{SCAN_R} block graph's launch (replay() until it "
+          f"returns) median {statistics.median(launch) * 1e3:.3f} ms of 5; "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in host.items()))
+    equal_to_sequential(servers["sequential"], servers["scan"],
+                        "scan after the timing: captured vs sequential")
+    miss_margins(servers["sequential"], servers["scan"], "scan, timing")
+    ratio = [s / q for s, q in zip(times["scan"], times["sequential"])]
+    print(f"{SCAN_R} rounds s in turns (scan, sequential; sequential, "
+          f"scan; scan, sequential): scan {times['scan']}, sequential "
+          f"{times['sequential']}; block / sequential by pair "
+          + ", ".join(f"{x:.4f} ({'hit' if h else 'missed'})"
+                      for x, h in zip(ratio, hit))
+          + f"; profiled idle share: block {idle['scan']:.3f}, sequential "
+          f"{idle['sequential']:.3f}")
+
+
+def scan_path(params, corpus) -> dict:
+    """Phase 14: the scan engine at the main path's width. Returns the
+    launches by path."""
+    out = {}
+    seq = build_scan("fedentropy-traced", params, corpus,
+                     judge=RecordingJudge(fl.MaxEntropyJudge()))
+    for _ in range(SCAN_ROUNDS):
+        seq.round()
+
+    # (a) fedentropy-traced, blocks of 4, each one captured graph with
+    # K1's loop and K2 inside it: equal to sequential and to eager; the
+    # stack server and seq go on to the timing
+    timed = {"sequential": seq}
+    for mode in ("stack", "remat"):
+        label = "scan" if mode == "stack" else "scan remat"
+        scan = build_scan("fedentropy-traced", params, corpus,
+                          runtime=scan_config(params_mode=mode))
+        t0 = time.perf_counter()
+        got = run_scan(scan, SCAN_ROUNDS, label)
+        stats = scan.stats()
+        progs = _block_programs(scan)
+        print(f"{label}: {stats['blocks']} blocks, "
+              f"{stats['mismatch_rounds']} natural misses, "
+              f"captured_block={stats['captured_block']}, launches {got}, "
+              f"{time.perf_counter() - t0:.2f} s in all; graphs: "
+              + _graphs_line(scan))
+        if mode == "stack":
+            timed["scan"] = scan
+        if not stats["captured_block"] or SCAN_R not in progs:
+            raise AssertionError(f"{label}: no captured depth-{SCAN_R} block")
+        for r, p in progs.items():
+            if p.launches != {"entropy_judge_loop": r,
+                              "masked_weighted_sum": r}:
+                raise AssertionError(f"{label}: depth {r} graph launches "
+                                     f"{p.launches} a replay")
+        equal_to_sequential(seq, scan, f"{label}: captured vs sequential")
+        miss_margins(seq, scan, label)
+        with fl.disable_capture():
+            eager = build_scan("fedentropy-traced", params, corpus,
+                               runtime=scan_config(params_mode=mode))
+            for _ in range(SCAN_ROUNDS):
+                eager.round()
+            if eager.stats()["captured_block"] is not False:
+                raise AssertionError(f"{label}: eager route captured")
+        equal_to_sequential(eager, scan, f"{label}: captured vs eager",
+                            flags=False)
+        out[label] = got
+
+    # (b) forced misses: the admit-all traced form; every rejecting round
+    # must miss and cut its block. Each cut block runs at a new depth, so
+    # the first 4 rounds capture depths 4..1 and the next 4 replay them:
+    # their time is a block's after a miss, with no capture in it
+    for mode in ("stack", "remat"):
+        label = f"scan{' remat' if mode == 'remat' else ''}+miss"
+        scan = build_scan("fedentropy-traced", params, corpus,
+                          judge=AdmitAllTraced(),
+                          runtime=scan_config(params_mode=mode))
+        got = run_scan(scan, SCAN_ROUNDS, label)
+        equal_to_sequential(seq, scan, f"{label}: captured vs sequential")
+        for rec in scan.history:
+            if rec["spec_hit"] == bool(rec["negative"]):
+                raise AssertionError(f"{label}: round {rec['round']} "
+                                     f"spec_hit={rec['spec_hit']} with "
+                                     f"negative={rec['negative']}")
+        if got["entropy_judge_loop"] != 0 or \
+                all(r["spec_hit"] for r in scan.history):
+            raise AssertionError(f"{label}: launches {got}, no miss")
+        depths = _block_programs(scan)
+        if scan._block_graphs.captures != len(depths):
+            raise AssertionError(f"{label}: {scan._block_graphs.captures} "
+                                 f"block captures for depths "
+                                 f"{sorted(depths)}: a graph was evicted")
+        print(f"{label}: {scan.stats()['mismatch_rounds']} misses, "
+              f"{scan.stats()['blocks']} blocks, launches {got}; graphs: "
+              + _graphs_line(scan))
+        out[label] = got
+
+    # (b') misses after confirmed rounds, in remat: each cut rewinds inside
+    # its block to a depth-j block's output (stack's ys["params"][j - 1]
+    # rewind runs in the card tests)
+    label = "scan remat+rewind"
+    scan = build_scan("fedentropy-traced", params, corpus,
+                      judge=MissOnOneRemoval(),
+                      runtime=scan_config(params_mode="remat"))
+    got = run_scan(scan, SCAN_ROUNDS, label)
+    equal_to_sequential(seq, scan, f"{label}: captured vs sequential")
+    for rec in scan.history:
+        if rec["spec_hit"] == (len(rec["negative"]) == 1):
+            raise AssertionError(f"{label}: round {rec['round']} "
+                                 f"spec_hit={rec['spec_hit']} with "
+                                 f"negative={rec['negative']}")
+    inside = [r["round"] for r, prev in zip(scan.history[1:], scan.history)
+              if not r["spec_hit"] and prev["spec_hit"]
+              and r["round"] % SCAN_R]
+    print(f"{label}: misses at rounds "
+          f"{[r['round'] for r in scan.history if not r['spec_hit']]}, cut "
+          f"after confirmed rounds of a block at {inside}; launches {got}; "
+          "graphs: " + _graphs_line(scan))
+    if not inside:
+        raise AssertionError(f"{label}: no block was cut after a confirmed "
+                             "round")
+    out[label] = got
+
+    # (c) fedavg: host-drawn cohorts (replay) against sequential, and the
+    # device's threefry draw, captured against eager
+    seq = build_scan("fedavg", params, corpus)
+    scan = build_scan("fedavg", params, corpus, runtime=scan_config())
+    for _ in range(SCAN_SHORT):
+        seq.round()
+    out["scan fedavg"] = run_scan(scan, SCAN_SHORT, "scan fedavg")
+    equal_to_sequential(seq, scan, "scan fedavg: captured vs sequential")
+    dev = build_scan("fedavg", params, corpus,
+                     runtime=scan_config(selection="device"))
+    run_scan(dev, SCAN_SHORT, "scan fedavg device")
+    with fl.disable_capture():
+        eager = build_scan("fedavg", params, corpus,
+                           runtime=scan_config(selection="device"))
+        for _ in range(SCAN_SHORT):
+            eager.round()
+    equal_to_sequential(eager, dev, "scan fedavg device: captured vs eager",
+                        flags=False)
+    print("scan fedavg device: cohorts "
+          f"{[r['selected'] for r in dev.history]}")
+
+    # (d) the numpy pools cannot fold: sequential rounds, with the reason
+    seq = build_scan("fedentropy", params, corpus)
+    scan = build_scan("fedentropy", params, corpus, runtime=scan_config())
+    for _ in range(SCAN_SHORT):
+        seq.round()
+        scan.round()
+    codes = [r["code"] for r in scan.fallback_reasons]
+    if codes != ["verdict-coupled-selector"] or scan.scan_rounds() != 1:
+        raise AssertionError(f"fedentropy on scan: reasons {codes}")
+    equal_to_sequential(seq, scan, "scan fedentropy (fallback) vs "
+                        "sequential", flags=False,
+                        extra=frozenset({"scan_fallback"}))
+
+    capture_checks()
+    time_scan(timed)
+    return out
+
+
+def capture_checks() -> None:
+    """What the block graph holds, each captured alone against its eager
+    launch: the pool draw and the device selection's permutation (stable
+    argsorts whose scratch comes from the graph's pool) against the CPU's
+    integers, at N = 100 and N = 2000 (two sort rounds); K1's loop as the
+    warp kernel at (10, 10) and as a cluster (a launch with a cluster
+    attribute) at (10, 4096) and forced to 2 CTAs at (10, 10), bit for
+    bit, one launch a replay."""
+    from repro_torch.core import threefry
+    from repro_torch.core.pools import pools_draw
+    for n, num in ((100, 10), (2000, 200)):
+        gen = np.random.default_rng(n)
+        pos = torch.from_numpy((gen.random(n) < 0.5).astype(np.float32))
+        key = threefry.prng_key(7)
+
+        def draw(k, p, q, num=num, n=n):
+            sel, k2 = pools_draw(k, p, q, num=num, eps=0.8)
+            return sel, k2, threefry.permutation(k2, n)
+
+        want = draw(key, pos, 1.0 - pos)
+        args = (key.cuda(), pos.cuda(), (1.0 - pos).cuda())
+        prog = graph_cache.CapturedProgram(draw, args)
+        got = prog(*args)
+        if not all(torch.equal(w, g.cpu()) for w, g in zip(want, got)):
+            raise AssertionError(f"captured draw at N = {n} differs from "
+                                 "the CPU's")
+    print("captured pool draw and permutation equal the CPU's at N = 100 "
+          "and N = 2000")
+    for c, cluster in ((10, None), (4096, None), (10, 2)):
+        soft, sizes, _ = _k1_inputs(10, c, seed=c)
+        fn = (lambda s, z, cluster=cluster:
+              entropy_judge_loop(s, z, _cluster=cluster))
+        eager = fn(soft, sizes).clone()
+        prog = graph_cache.CapturedProgram(fn, (soft, sizes))
+        got = prog(soft, sizes)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), eager.view(torch.int32)) \
+                or prog.launches != {"entropy_judge_loop": 1}:
+            raise AssertionError(f"K1 loop captured at (10, {c}) cluster "
+                                 f"{cluster}: differs or {prog.launches}")
+        print(f"K1 loop captured at (10, {c}) "
+              f"({_loop_kernel_of(10, c, cluster)}): equal to its eager "
+              f"launch bit for bit, {prog.launches} a replay")
+
 def profile_round(server, label: str) -> tuple[float, float]:
     """One more round of ``server`` under torch.profiler: wall time,
     summed kernel time, the device's idle share and the top kernels."""
@@ -2400,6 +2818,9 @@ def main() -> int:
            "judged per cluster in K1's loop, perclstr in K2, sequential "
            "and pipelined; fesem")
     clustered = cluster_path(*setup, split)
+    _phase("14. the scan engine at the main path's width: blocks of 4 "
+           "rounds, each one CUDA graph with K1's loop and K2 inside it")
+    scanned = scan_path(*setup)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2446,7 +2867,8 @@ def main() -> int:
                 path: n[name] for path, n in pipelined.items()}, **{
                 path: n[name] for path, n in fedcat.items()}, **{
                 path: n[name] for path, n in asynced.items()}, **{
-                path: n[name] for path, n in clustered.items()}}
+                path: n[name] for path, n in clustered.items()}, **{
+                path: n[name] for path, n in scanned.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

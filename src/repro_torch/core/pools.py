@@ -12,6 +12,12 @@ seed draws the same cohorts in both packages:
 * selected devices are removed from their pools for the round and
   re-filed according to the judgment verdict.
 
+``pools_draw`` and ``pools_refile`` are the same semantics as tensor
+functions of (threefry key, membership masks) — the traced pools, which
+the scan engine carries on the device through a block of rounds — drawn
+on :mod:`.threefry`, JAX's own stream, so they select what the
+reference's traced pools select.
+
 ``label_histograms`` and ``hist_entropy`` are the per-client label
 statistics the queue selector ranks on, and ``greedy_entropy_groups`` the
 FedCAT grouping built on them, transcribed from the same module.
@@ -21,7 +27,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from . import threefry
 from .entropy import entropy_np
 
 
@@ -69,6 +77,56 @@ class DevicePools:
 
     def stats(self) -> dict:
         return {"positive": len(self.positive), "negative": len(self.negative)}
+
+
+# ---- traced pools (the scan engine's device-resident carry) --------------
+
+def pools_draw(key: torch.Tensor, pos_mask: torch.Tensor,
+               neg_mask: torch.Tensor, *, num: int, eps: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 2 lines 4-8 as a draw on tensors (the reference's jitted
+    ``pools_draw``, on the same threefry stream).
+
+    With probability ``eps`` (compared in float32) the round draws from
+    the positive pool, otherwise the negative; a pool with fewer than
+    ``num`` members spills into the other. Returns ``(sel, new_key)``:
+    (num,) int32 client ids and the key after the draw, on the device of
+    ``key``; the masks are not changed (:func:`pools_refile` removes and
+    re-files). A random 31-bit score per client fixes a permutation
+    (stable argsort of the negated scores, in int64), and a second stable
+    argsort by membership of the first pool floats its members to the
+    front with that order kept within each pool. Nothing is read back to
+    the host.
+    """
+    keys = threefry.split(key, 3)
+    k_eps, k_bits, new_key = keys[0], keys[1], keys[2]
+    # eps rounded to float32, the reference's weakly typed compare; exact
+    # in float64 too, so no tensor is made (and nothing copied) for it
+    use_pos = threefry.uniform(k_eps) < float(np.float32(eps))
+    first = torch.where(use_pos, pos_mask, neg_mask).to(torch.float32)
+    n = pos_mask.shape[0]
+    score = threefry.random_bits(k_bits, n) >> 1
+    perm = torch.argsort(-score, stable=True)
+    front = torch.argsort(-first[perm], stable=True)
+    sel = perm[front][:num].to(torch.int32)
+    return sel, new_key
+
+
+def pools_refile(pos_mask: torch.Tensor, neg_mask: torch.Tensor,
+                 sel: torch.Tensor, admitted: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 2 line 22 with the draw's removal: the round's cohort ``sel``
+    leaves both pools and re-files by the (m,) 0/1 verdict ``admitted``
+    (admitted -> positive), by a scatter over ``sel``; every other
+    client's membership stays. Returns the new (N,) float32 masks."""
+    n = pos_mask.shape[0]
+    at = sel.to(torch.int64)
+    zero = torch.zeros(n, dtype=torch.float32, device=pos_mask.device)
+    hot = zero.scatter(0, at, 1.0)
+    acc = zero.scatter(0, at, admitted.to(torch.float32))
+    new_pos = torch.where(hot > 0, acc, pos_mask.to(torch.float32))
+    new_neg = torch.where(hot > 0, 1.0 - acc, neg_mask.to(torch.float32))
+    return new_pos, new_neg
 
 
 # ---- label-distribution stats (the queue selector's ranking input) -------

@@ -44,9 +44,14 @@ class Normalize:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32) * self.scale
-        mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
-        return (x - mean) / std
+        return (x - self._const(self.mean, x)) / self._const(self.std, x)
+
+    @staticmethod
+    def _const(values: tuple, x: torch.Tensor) -> torch.Tensor:
+        # filled on the device rather than copied from the host, so the
+        # gather can run inside a CUDA graph capture (the scan engine's)
+        return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                       device=x.device) for v in values])
 
 
 @dataclass(frozen=True)
@@ -207,13 +212,18 @@ class ClientCorpus(Mapping):
         """
         idx = np.asarray(idx, np.int64)
         if active is None:
-            rows = torch.as_tensor(idx, device=self.device)
-        else:
-            both = torch.as_tensor(
-                np.stack([idx, np.asarray(active, np.int64)]),
-                device=self.device)
-            rows, active = both[0], both[1]
-        out = {k: v.index_select(0, rows) for k, v in self._arrays.items()}
+            return self.traced_cohort(torch.as_tensor(idx,
+                                                      device=self.device))
+        both = torch.as_tensor(np.stack([idx, np.asarray(active, np.int64)]),
+                               device=self.device)
+        return self.traced_cohort(both[0], both[1])
+
+    def traced_cohort(self, idx: torch.Tensor, active=None) -> dict:
+        """:meth:`cohort`'s gather on ``idx`` (and ``active``) already on
+        the corpus's device: no upload and no host read, so a CUDA graph
+        can capture it (the scan engine's block gathers each round's
+        cohort so). ``idx`` is int32 or int64."""
+        out = {k: v.index_select(0, idx) for k, v in self._arrays.items()}
         if self.transform is not None:
             out["x"] = self.transform(out["x"])
         if active is not None and "w" in out:

@@ -7,6 +7,7 @@ Paper Alg. 2 decomposed into four swappable axes (see
 axis           question it answers                 built-ins
 =============  ==================================  =====================
 ``Selector``   who is asked to train this round    ``pools``, ``uniform``,
+                                                   ``pools-traced``,
                                                    ``queue``, ``catgroups``,
                                                    ``catgroups-pools``
 ``ClientStrategy``  how each client trains         ``fedavg``, ``fedprox``,
@@ -43,7 +44,9 @@ speculates each round's verdict on the card (``fl.runtime``);
 ``fl.build("fedcat+maxent", ...)`` trains entropy-grouped device chains
 (FedCAT) and judges chain members before concatenation;
 ``runtime=fl.AsyncConfig(...)`` streams arrivals through the async
-buffered engine; ``drift=fl.drift_schedule(...)`` re-partitions clients
+buffered engine; ``fl.build("fedentropy-traced", ...,
+runtime=fl.ScanConfig(rounds_per_scan=4))`` runs blocks of 4 rounds, each
+one CUDA graph on the card; ``drift=fl.drift_schedule(...)`` re-partitions clients
 mid-run.
 """
 from ..core.strategies import LocalSpec
@@ -59,14 +62,14 @@ from .protocols import (Aggregator, ClientStrategy, ClusterAssigner, Judge,
                         Selector)
 from .registry import Composition, build, get, names, register
 from .selectors import (CatGrouper, PoolCatGrouper, PoolSelector,
-                        QueueSelector, UniformSelector)
+                        QueueSelector, TracedPoolSelector, UniformSelector)
 from .server import Server, ServerConfig, total_uplink_bytes
 from .strategies import (CatChainStrategy, FedAvgStrategy, FedProxStrategy,
                          MoonStrategy, ScaffoldStrategy)
 from .runtime import (AsyncBufferedServer, AsyncConfig, PipelinedServer,
-                      ProcessCompileCache, RuntimeConfig, SequentialEngine,
-                      disable_process_cache, enable_process_cache,
-                      process_cache)
+                      ProcessCompileCache, RuntimeConfig, ScanConfig,
+                      ScanServer, SequentialEngine, disable_process_cache,
+                      enable_process_cache, process_cache)
 
 __all__ = [
     "Aggregator", "AsyncBufferedServer", "AsyncConfig", "BoundedGraphCache",
@@ -78,8 +81,9 @@ __all__ = [
     "MoonStrategy", "Normalize", "PassThroughJudge", "PerClusterAggregator",
     "PipelinedServer", "PoolCatGrouper", "PoolSelector",
     "ProcessCompileCache", "QueueSelector", "RuntimeConfig",
-    "ScaffoldAggregator", "ScaffoldStrategy", "Selector",
-    "SequentialEngine", "Server", "ServerConfig", "UniformSelector",
+    "ScaffoldAggregator", "ScaffoldStrategy", "ScanConfig", "ScanServer",
+    "Selector", "SequentialEngine", "Server", "ServerConfig",
+    "TracedPoolSelector", "UniformSelector",
     "WeightedAverageAggregator", "argmin_assign", "build",
     "disable_capture", "disable_process_cache", "drift_schedule",
     "enable_process_cache", "get", "names", "process_cache", "register",

@@ -15,17 +15,26 @@ per op.
 * :func:`disable_capture` — the counterpart of ``jax.disable_jit()``: the
   server runs the program eagerly on the card inside it.
 
+A kernel wrapper counts its launches in Python (``fn.launches``), which a
+replay never enters: a program records how far each count moved during
+its capture, takes that back (the capture launched nothing), and adds it
+on every replay, so the counts stay the device's launches.
+
 On the CPU the program always runs eagerly: CUDA graphs do not exist
 there. A capture that fails raises; nothing falls back to eager.
 """
 from __future__ import annotations
 
+import gc
+import time
 from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
+
+from ..kernels._build import COUNTED
 
 _disabled = 0
 # eager runs on a side stream before the capture: one sets up the
@@ -63,6 +72,9 @@ class CapturedProgram:
     call copies its arguments into the graph's static input buffers,
     replays the graph and returns the graph's static outputs: the next
     call overwrites them, so a caller clones whatever must outlive it.
+    ``launches`` maps each counted kernel wrapper's name to its launches
+    in one replay; ``capture_s`` is the host seconds of the capture (the
+    warm-up runs apart).
     """
 
     def __init__(self, fn: Callable, args: tuple):
@@ -74,9 +86,31 @@ class CapturedProgram:
             for _ in range(WARMUP_RUNS):
                 fn(*inputs)
         torch.cuda.current_stream().wait_stream(side)
+        counters = list(COUNTED)
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._outputs = fn(*inputs)
+        # torch.cuda.graph collects garbage before a capture only under
+        # torch.compiler.config.force_cudagraph_gc (False by default), so
+        # a collection can fall inside one; one that destroys a dead
+        # cycle's captured graph there invalidates the capture
+        # (tests/test_torch_capture.py): hold the collector off until the
+        # capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self._outputs = fn(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self._counted = []
+        for c, n in zip(counters, before):
+            if c.launches != n:
+                self._counted.append((c, c.launches - n))
+                c.launches = n
+        self.launches = {c.__name__: d for c, d in self._counted}
 
     def __call__(self, *args):
         leaves, spec = pytree.tree_flatten(args)
@@ -92,6 +126,8 @@ class CapturedProgram:
                     f"the captured {tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
         self.graph.replay()
+        for c, d in self._counted:
+            c.launches += d
         return self._outputs
 
 

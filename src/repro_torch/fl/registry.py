@@ -8,11 +8,12 @@ Compositions name one component per axis of the round::
 Built-in component classes expose ``from_config(config, local)``; entries
 without it are constructed with no arguments. Passing an
 already-constructed instance to :func:`build` bypasses the registry for
-that axis. This package registers the ``fedentropy``, ``fedavg``,
-``fedprox``, ``moon``, ``scaffold``, ``fedcat``, ``fedcat+maxent``,
-``fedentropy+queue``, ``ifca``, ``ifca+maxent`` and ``fesem``
-compositions and the ``sequential``, ``pipelined`` and ``async`` engines;
-any other name raises ``KeyError``.
+that axis. This package registers the ``fedentropy``,
+``fedentropy-traced``, ``fedavg``, ``fedprox``, ``moon``, ``scaffold``,
+``fedcat``, ``fedcat+maxent``, ``fedentropy+queue``, ``ifca``,
+``ifca+maxent`` and ``fesem`` compositions and the ``sequential``,
+``pipelined``, ``async`` and ``scan`` engines; any other name raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -91,20 +92,24 @@ def build(name: str, apply_fn, init_params, client_data, config,
     :class:`repro_torch.fl.Server` by default, ``"sequential"`` (the same
     under the engine registry), ``"pipelined"``
     (:class:`repro_torch.fl.runtime.PipelinedServer`, on-device verdict
-    speculation) or ``"async"``
+    speculation), ``"async"``
     (:class:`repro_torch.fl.runtime.AsyncBufferedServer`, streaming
-    buffered rounds); ``runtime`` passes it its config, a
+    buffered rounds) or ``"scan"``
+    (:class:`repro_torch.fl.runtime.ScanServer`, blocks of R rounds, one
+    CUDA graph each); ``runtime`` passes it its config, a
     :class:`repro_torch.fl.runtime.RuntimeConfig` for sequential and
-    pipelined, an :class:`repro_torch.fl.runtime.AsyncConfig` for async.
-    A ``runtime`` without an ``engine`` implies the engine the config
-    belongs to (RuntimeConfig: ``"pipelined"``, AsyncConfig:
-    ``"async"``); an unknown engine name raises ``ValueError`` listing
-    the registered names, and a runtime of the wrong type for the engine
-    raises here::
+    pipelined, an :class:`repro_torch.fl.runtime.AsyncConfig` for async,
+    a :class:`repro_torch.fl.runtime.ScanConfig` for scan. A ``runtime``
+    without an ``engine`` implies the engine the config belongs to
+    (RuntimeConfig: ``"pipelined"``, AsyncConfig: ``"async"``,
+    ScanConfig: ``"scan"``); an unknown engine name raises
+    ``ValueError`` listing the registered names, and a runtime of the
+    wrong type for the engine raises here::
 
         build("fedentropy", ..., engine="pipelined",
               runtime=RuntimeConfig(speculate=True))
         build("fedentropy", ..., runtime=AsyncConfig(clock="straggler"))
+        build("fedentropy-traced", ..., runtime=ScanConfig(rounds_per_scan=4))
 
     ``cluster`` overrides the composition's cluster assigner (a name or
     an instance); with ``ServerConfig.num_clusters`` > 1 the engine then
@@ -132,6 +137,8 @@ def build(name: str, apply_fn, init_params, client_data, config,
             engine_cls = Server
         elif isinstance(runtime, _runtime.AsyncConfig):
             engine_cls = get("engine", "async")
+        elif isinstance(runtime, _runtime.ScanConfig):
+            engine_cls = get("engine", "scan")
         else:
             engine_cls = get("engine", "pipelined")
     elif isinstance(engine, str):
@@ -150,7 +157,7 @@ def build(name: str, apply_fn, init_params, client_data, config,
             f"engine {engine_cls.__name__} takes runtime="
             f"{expected.__name__}, got {type(runtime).__name__} "
             "(RuntimeConfig drives sequential/pipelined, AsyncConfig "
-            "drives async)")
+            "drives async, ScanConfig drives scan)")
     kwargs = {}
     if runtime is not None:
         kwargs["runtime"] = runtime
@@ -179,6 +186,13 @@ def build(name: str, apply_fn, init_params, client_data, config,
 # ---- built-in composition recipes (paper Tables 1-3) --------------------
 register("composition", "fedentropy",
          Composition(strategy="fedavg", selector="pools", judge="maxent"))
+# fedentropy with the pools drawn on JAX's threefry stream: the same Alg. 2
+# semantics, drawn by a tensor function the scan engine folds into its
+# block (engine="scan" runs R > 1 rounds per graph); the same cohorts as
+# the reference's "fedentropy-traced", not as the numpy "pools" stream
+register("composition", "fedentropy-traced",
+         Composition(strategy="fedavg", selector="pools-traced",
+                     judge="maxent"))
 register("composition", "fedavg", Composition(strategy="fedavg"))
 register("composition", "fedprox", Composition(strategy="fedprox"))
 register("composition", "moon", Composition(strategy="moon"))

@@ -9,13 +9,16 @@ async buffered engine, which drops the round barrier: clients stream
 updates under a deterministic simulated arrival clock, max-entropy
 judgment admits or rejects each arrival batch against the buffered group
 (K1's loop over protected rows), and flushes aggregate with
-staleness-damped weights (:mod:`.async_engine`), and (c) an opt-in
-process-wide cache that shares captured client programs across servers.
+staleness-damped weights (:mod:`.async_engine`), (c) the scan engine,
+which runs blocks of R speculative rounds, each one captured CUDA graph
+on the card with K1's loop and K2 inside it, and replays the float64
+oracle once a block (:mod:`.scan_engine`), and (d) an opt-in process-wide
+cache that shares captured client programs across servers.
 
 Build through the registry::
 
     import repro_torch.fl as fl
-    from repro_torch.fl.runtime import AsyncConfig, RuntimeConfig
+    from repro_torch.fl.runtime import AsyncConfig, RuntimeConfig, ScanConfig
 
     server = fl.build("fedentropy", cnn.apply, params, corpus, config,
                       engine="pipelined",
@@ -24,13 +27,16 @@ Build through the registry::
     streaming = fl.build("fedentropy", cnn.apply, params, corpus, config,
                          runtime=AsyncConfig(clock="straggler",
                                              staleness_alpha=0.5))
+    blocks = fl.build("fedentropy-traced", cnn.apply, params, corpus,
+                      config, runtime=ScanConfig(rounds_per_scan=4))
 
 With ``RuntimeConfig()`` defaults (no speculation) the pipelined engine is
 the sequential ``Server``; with speculation on its history and params
 still equal the sequential server's bit for bit
 (tests/test_torch_engine.py). With ``AsyncConfig()`` defaults (K =
 |cohort|, the zero clock, no damping) so does the async engine
-(tests/test_torch_async.py).
+(tests/test_torch_async.py), and so does the scan engine's, with blocks
+of any R (tests/test_torch_scan.py).
 """
 from .compile_cache import (
     ProcessCompileCache, disable_process_cache, enable_process_cache,
@@ -40,10 +46,11 @@ from .engine import PipelinedServer, RuntimeConfig, SequentialEngine
 from .async_engine import (
     ArrivalClock, AsyncBufferedServer, AsyncConfig, staleness_weights,
 )
+from .scan_engine import ScanConfig, ScanServer
 
 __all__ = [
     "ArrivalClock", "AsyncBufferedServer", "AsyncConfig",
     "PipelinedServer", "ProcessCompileCache", "RuntimeConfig",
-    "SequentialEngine", "disable_process_cache", "enable_process_cache",
+    "ScanConfig", "ScanServer", "SequentialEngine", "disable_process_cache", "enable_process_cache",
     "process_cache", "staleness_weights",
 ]

@@ -6,6 +6,12 @@
 ``UniformSelector`` — uniform sampling without replacement. Seeded with
                       ``seed + 1`` by the registry, as in the JAX package,
                       so both draw the same cohorts.
+``TracedPoolSelector`` — the same eps-greedy pools drawn on JAX's
+                      threefry stream (``core.pools.pools_draw`` /
+                      ``pools_refile``), so the draw can also run inside
+                      the scan engine's block on the card (the
+                      ``fedentropy-traced`` composition); it selects what
+                      the reference's ``TracedPoolSelector`` selects.
 ``CatGrouper``      — FedCAT (arXiv 2202.12751) device grouping over an
                       inner selector: who trains is delegated, and the
                       selection is packed into ordered groups by
@@ -26,16 +32,19 @@ server passes its corpus once, whose cached ``label_histograms()`` and
 Selectors hold no device tensors, so the pipelined engine's
 ``copy.deepcopy`` of one copies host state only. Every selector here is
 an exact transcription of ``repro.fl.selectors``: its selection is a pure
-function of its numpy Generator and its counts.
+function of its generator (numpy's, or the traced pools' threefry key)
+and its counts.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from ..core import threefry
 from ..core.pools import (DevicePools, greedy_entropy_groups, hist_entropy,
-                          label_histograms)
+                          label_histograms, pools_draw)
 from ..data.corpus import DataQueue
 from .registry import register
 
@@ -70,6 +79,85 @@ class PoolSelector:
 
     def stats(self) -> dict:
         return self.pools.stats()
+
+
+@register("selector", "pools-traced")
+class TracedPoolSelector:
+    """Epsilon-greedy pools on JAX's threefry stream: the scan-foldable
+    twin of :class:`PoolSelector`.
+
+    The semantics are the paper's (eps-greedy pool pick with spillover,
+    the cohort out of both pools for the round, re-filed by verdict), but
+    the draw is :func:`repro_torch.core.pools.pools_draw` over (key,
+    membership masks), state the scan engine carries on the card through
+    a block of rounds. :meth:`select` runs that draw on the host's CPU
+    (the same integers as on the card), so a block and the sequential
+    ``Server`` walk the same selector states, and the reference's
+    selector on the same seed draws the same cohorts.
+
+    The scan engine's fold surface: :meth:`fold_carry`, the (key, pos,
+    neg) carry a block starts from; :meth:`fold_drawn`, which mirrors one
+    draw made in a block (the cohort leaves the pools, the key after the
+    draw is adopted) before the engine confirms the round with
+    :meth:`update`, the sequential select/update cycle.
+    """
+
+    def __init__(self, num_clients: int, eps: float = 0.8, seed: int = 0):
+        self.num_clients = int(num_clients)
+        self.eps = float(eps)
+        self._key = threefry.prng_key(seed)
+        self.positive: set[int] = set(range(self.num_clients))
+        self.negative: set[int] = set()
+
+    @classmethod
+    def from_config(cls, config, local):
+        return cls(config.num_clients, config.eps, config.seed)
+
+    def _masks(self, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+        both = torch.zeros(2, self.num_clients, dtype=torch.float32)
+        both[0, sorted(self.positive)] = 1.0
+        both[1, sorted(self.negative)] = 1.0
+        both = both.to(device)
+        return both[0], both[1]
+
+    def select(self, num: int) -> list[int]:
+        num = min(num, self.num_clients)
+        pos, neg = self._masks()
+        sel, self._key = pools_draw(self._key, pos, neg, num=num,
+                                    eps=self.eps)
+        chosen = sel.tolist()
+        for c in chosen:        # out for the round, like DevicePools
+            self.positive.discard(c)
+            self.negative.discard(c)
+        return chosen
+
+    def update(self, positives: Sequence[int],
+               negatives: Sequence[int]) -> None:
+        self.positive.update(int(i) for i in positives)
+        self.negative.update(int(i) for i in negatives)
+
+    # ---- the scan engine's fold surface ---------------------------------
+    def fold_carry(self, device="cpu"
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(key (2,) int64, pos (N,), neg (N,) float32) on ``device``: the
+        state the next :meth:`select` would draw from."""
+        pos, neg = self._masks(device)
+        return self._key.to(device), pos, neg
+
+    def fold_drawn(self, sel, key_after) -> None:
+        """Mirror a draw made in a block that the engine confirmed (or
+        replays eagerly): the cohort leaves both pools and the key moves
+        to the key after that draw."""
+        for c in torch.as_tensor(sel).tolist():
+            self.positive.discard(int(c))
+            self.negative.discard(int(c))
+        self._key = torch.as_tensor(key_after).to("cpu", torch.int64,
+                                                  copy=True)
+
+    def stats(self) -> dict:
+        return {"selector": "pools-traced",
+                "positive": len(self.positive),
+                "negative": len(self.negative)}
 
 
 @register("selector", "uniform")

@@ -37,6 +37,21 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+# the kernel wrappers that count their launches (:func:`counted`)
+COUNTED: list = []
+
+
+def counted(fn):
+    """Mark ``fn`` as a kernel wrapper that counts its launches in
+    ``fn.launches``: it adds to the count where it launches its kernel and
+    nowhere else. :data:`COUNTED` lists every such wrapper, so a reader of
+    the counts (a captured program, the chip smoke) needs no list of its
+    own."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

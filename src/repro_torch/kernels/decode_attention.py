@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import bind, launch
+from ._build import bind, counted, launch
 
 _KERNELS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
@@ -29,6 +29,7 @@ _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_void_p)
 
 
+@counted
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_positions: torch.Tensor,
                      index: torch.Tensor | int, *, window: int = 0,
@@ -83,6 +84,3 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kh, d, int(window), float(scale))
     decode_attention.launches += 1
     return out
-
-
-decode_attention.launches = 0   # kernel launches, for the chip smoke

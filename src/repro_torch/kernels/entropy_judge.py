@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import bind, launch
+from ._build import bind, counted, launch
 
 _BLOCK_C = 1024         # classes per block of the sweep: one launch up to it
 _CLASSES_PER_CTA = 1024  # the loop's cluster grows by powers of two above it
@@ -96,6 +96,7 @@ def _checked(soft_labels, sizes, mask):
             _vector(mask, soft_labels, m, "mask"))
 
 
+@counted
 def entropy_judge_sweep(soft_labels: torch.Tensor, sizes: torch.Tensor,
                         mask: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -122,9 +123,6 @@ def entropy_judge_sweep(soft_labels: torch.Tensor, sizes: torch.Tensor,
     return buf[0], buf[1:m + 1]
 
 
-entropy_judge_sweep.launches = 0   # kernel launches, for the chip smoke
-
-
 def cluster_size(c: int) -> int:
     """CTAs in the loop's cluster for C classes: one up to 1024 classes,
     then the power of two that gives each CTA at most 1024, up to 16
@@ -145,6 +143,7 @@ def loop_kernel(m: int, c: int, cluster: int | None = None
     return "cluster", cluster_size(c) if cluster is None else int(cluster)
 
 
+@counted
 def entropy_judge_loop(soft_labels: torch.Tensor, sizes: torch.Tensor,
                        active: torch.Tensor | None = None,
                        protected: torch.Tensor | None = None,
@@ -186,6 +185,3 @@ def entropy_judge_loop(soft_labels: torch.Tensor, sizes: torch.Tensor,
         launch(_loop_fn(False), soft_labels.get_device(), *args, cluster)
     entropy_judge_loop.launches += 1
     return out
-
-
-entropy_judge_loop.launches = 0    # kernel launches, for the chip smoke

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import bind, launch
+from ._build import bind, counted, launch
 
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_void_p)
@@ -51,6 +51,7 @@ def _checked(flat: torch.Tensor, weights: torch.Tensor, block: int):
     return w
 
 
+@counted
 def masked_weighted_sum(flat: torch.Tensor, weights: torch.Tensor, *,
                         block: int = BLOCK) -> torch.Tensor:
     """Returns (P,) float32 = sum_i weights[i] * flat[i, :].
@@ -69,6 +70,3 @@ def masked_weighted_sum(flat: torch.Tensor, weights: torch.Tensor, *,
            out.data_ptr(), m, p, block)
     masked_weighted_sum.launches += 1
     return out
-
-
-masked_weighted_sum.launches = 0   # kernel launches, for the chip smoke

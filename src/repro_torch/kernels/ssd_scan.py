@@ -25,7 +25,7 @@ import functools
 import torch
 
 from . import ref
-from ._build import bind, launch, load
+from ._build import bind, counted, launch, load
 
 _KERNELS = {torch.float32: "ssd_chunk_scan_f32",
             torch.bfloat16: "ssd_chunk_scan_bf16"}
@@ -43,6 +43,7 @@ def _smem_bytes():
     return fn
 
 
+@counted
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b_mat: torch.Tensor, c_mat: torch.Tensor, *,
                 chunk: int = 256, init_state=None
@@ -97,6 +98,3 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
            p, g, n, q)
     ssd_chunked.launches += LAUNCHES_PER_CALL
     return y, state
-
-
-ssd_chunked.launches = 0   # kernel launches, for the chip smoke

@@ -10,6 +10,9 @@ nothing of JAX, so they run where JAX is not installed::
 
 The LRU itself is plain Python and is checked here on the CPU too.
 """
+import os
+import subprocess
+import sys
 from dataclasses import replace
 
 import numpy as np
@@ -146,6 +149,69 @@ def test_card_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         CapturedProgram(lambda t: t * float(t.sum()), (x,))
     torch.cuda.synchronize()
+
+
+_DEAD_GRAPH = """
+import gc
+import torch
+from repro_torch.fl.graph_cache import CapturedProgram
+
+
+class Cycle:
+    def __init__(self):
+        self.me = self
+
+
+def dead_graph():
+    # a captured graph that only a reference cycle holds
+    c = Cycle()
+    c.x = torch.ones(1024, device="cuda")
+    c.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(c.graph):
+        c.y = c.x * 2
+
+
+def program(x):
+    # the warm-up leaves a dead graph; inside the capture a collection
+    # falls where the collector is on, as an automatic one could
+    if not torch.cuda.is_current_stream_capturing():
+        dead_graph()
+    elif gc.isenabled():
+        gc.collect()
+    return (x + 1) * 2
+
+
+x = torch.ones(1024, device="cuda")
+captured = CapturedProgram(program, (x,))
+assert torch.equal(captured(x), torch.full_like(x, 4.0))
+print("program captured", flush=True)
+gc.disable()
+dead_graph()
+try:
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        y = x + 1
+        gc.collect()
+    print("plain capture captured")
+except Exception as e:
+    print("plain capture failed:", type(e).__name__, str(e).splitlines()[0])
+"""
+
+
+def test_card_capture_survives_collecting_a_dead_graph(cuda):
+    """A collection inside a capture that destroys a dead cycle's captured
+    graph invalidates the capture (a plain ``torch.cuda.graph``, which
+    collects before a capture only under ``torch.compiler.config.
+    force_cudagraph_gc``, False by default). ``CapturedProgram`` holds
+    the collector off during its capture, so a program whose warm-up
+    leaves such garbage still captures. Run in a child process: the
+    failed capture is the point of the second half. Should the plain
+    capture ever survive, ``CapturedProgram`` need not hold the collector
+    off."""
+    out = subprocess.run([sys.executable, "-c", _DEAD_GRAPH],
+                         capture_output=True, text=True, timeout=300,
+                         env=os.environ.copy())
+    assert "plain capture failed" in out.stdout, out.stdout + out.stderr
+    assert "program captured" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("strategy,use_judgment,use_pools", [

@@ -249,9 +249,10 @@ def test_engine_registry(tiny):
     from repro_torch.fl.runtime import PipelinedServer, SequentialEngine
     assert tfl.get("engine", "pipelined") is PipelinedServer
     assert tfl.get("engine", "sequential") is SequentialEngine
-    assert tfl.names("engine") == ["async", "pipelined", "sequential"]
+    assert tfl.names("engine") == ["async", "pipelined", "scan",
+                                   "sequential"]
     with pytest.raises(ValueError, match="unknown engine 'warp'.*"
-                                         "pipelined.*sequential"):
+                                         "pipelined.*scan.*sequential"):
         _build(tiny, engine="warp")
     assert isinstance(_build(tiny, engine="pipelined"), PipelinedServer)
     assert type(_build(tiny)) is tfl.Server

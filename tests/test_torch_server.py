@@ -121,11 +121,12 @@ def test_evaluate_matches_reference(tiny):
 def test_registry_surface():
     assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
                                         "fedentropy", "fedentropy+queue",
-                                        "fedprox", "fesem", "ifca",
-                                        "ifca+maxent", "moon", "scaffold"]
-    for name in ("fedentropy-traced", "nope"):
-        with pytest.raises(KeyError, match="no composition registered"):
-            tfl.get("composition", name)
+                                        "fedentropy-traced", "fedprox",
+                                        "fesem", "ifca", "ifca+maxent",
+                                        "moon", "scaffold"]
+    assert tfl.names("composition") == rfl.names("composition")
+    with pytest.raises(KeyError, match="no composition registered"):
+        tfl.get("composition", "nope")
     want = rfl.get("composition", "fedcat")
     assert want.cluster is None and tfl.get("composition", "fedcat") == \
         tfl.Composition(want.strategy, want.selector, want.judge,

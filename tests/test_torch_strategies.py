@@ -268,8 +268,9 @@ def test_localspec_defaults_and_conflicts():
 def test_registry_round_trips_the_five_compositions():
     assert tfl.names("composition") == ["fedavg", "fedcat", "fedcat+maxent",
                                         "fedentropy", "fedentropy+queue",
-                                        "fedprox", "fesem", "ifca",
-                                        "ifca+maxent", "moon", "scaffold"]
+                                        "fedentropy-traced", "fedprox",
+                                        "fesem", "ifca", "ifca+maxent",
+                                        "moon", "scaffold"]
     for name in tfl.names("composition"):
         got, want = tfl.get("composition", name), rfl.get("composition",
                                                            name)
@@ -284,3 +285,4 @@ def test_registry_round_trips_the_five_compositions():
     assert tfl.get("selector", "catgroups-pools") is tfl.PoolCatGrouper
     assert tfl.get("strategy", "catchain") is tfl.CatChainStrategy
     assert tfl.get("aggregator", "devconcat") is tfl.DeviceConcatAggregator
+    assert tfl.get("selector", "pools-traced") is tfl.TracedPoolSelector
