@@ -135,6 +135,21 @@ Phases, each of which raises on failure (exit code non-zero):
    and K2 kernels in the trace held against the counts) and 4 profiled
    sequential rounds for the device's idle share; the two servers are
    then held equal again.
+15. drive the streaming data plane at the same width over N = 1000
+   clients of 500 uint8 samples each (phase 4's images quantised once,
+   rows repeated across clients; 1.54 GB, over the 1 GiB resident
+   budget, so ``data_plane="auto"`` streams it) with
+   ``cifar10_normalizer()``: 3 rounds of fedentropy (K1's loop, K2) on
+   the streaming, memory-mapped (``HostCorpus.save``/``open``) and
+   resident planes, bit for bit, with the device bytes each corpus
+   allocates and its ``memory_report()``; the pipelined engine on the
+   streaming plane for 5 rounds (round t+1's cohort gathered into pinned
+   memory and copied on a side stream by the prefetch thread while the
+   oracle runs) against the sequential server bit for bit, prefetch hits
+   equal to speculation hits, and with the admit-all traced form (each
+   miss cancels its staged cohort); a capture while a prefetch is in
+   flight; one cohort's host gather and copy times; the sequential and
+   the pipelined round on the streaming and resident planes in turns.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -151,7 +166,9 @@ phase 13's ``ifca+maxent``, ``ifca+maxent pipelined``,
 ``ifca+maxent pipelined+miss`` and ``fesem``, and phase 14's ``scan``,
 ``scan remat``, ``scan+miss``, ``scan remat+miss``, ``scan remat+rewind``
 and ``scan fedavg``
-(a block's launches include the eager run before its first capture).
+(a block's launches include the eager run before its first capture), and
+phase 15's ``streaming``, ``streaming pipelined`` and ``streaming
+pipelined+miss``.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -163,6 +180,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2065,6 +2083,270 @@ def scan_path(params, corpus) -> dict:
     return out
 
 
+# ------------------------------------------------------- streaming plane
+
+STREAM_N = 1000          # clients; 500 samples each, uint8, 1.536 GB of x
+STREAM_S = 500
+STREAM_COHORT = 10       # participation 0.01
+STREAM_ROUNDS = 3
+STREAM_SPEC = 5
+
+
+def streamed_corpus(split) -> dict:
+    """Phase 15's stacked dict: phase 4's 50,000 images quantised once to
+    uint8 (the inverse of ``cifar10_normalizer``, clipped), and N = 1000
+    clients of 500 seeded rows each from their case-1 class (client i
+    holds class i % 10); rows repeat across clients."""
+    from repro_torch.data.ingest import CIFAR10_MEAN, CIFAR10_STD
+    xtr, ytr = split
+    x8 = np.clip(np.rint((xtr * np.float32(CIFAR10_STD)
+                          + np.float32(CIFAR10_MEAN)) * 255.0), 0, 255
+                 ).astype(np.uint8)
+    rng = np.random.default_rng(0)
+    by_class = [np.where(ytr == c)[0] for c in range(10)]
+    rows = np.stack([rng.choice(by_class[i % 10], STREAM_S, replace=False)
+                     for i in range(STREAM_N)])
+    return {"x": x8[rows], "y": ytr[rows].astype(np.int32),
+            "w": np.ones((STREAM_N, STREAM_S), np.float32)}
+
+
+def build_streamed(params, corpus, judge=None, **kw):
+    """fedentropy at phase 4's configuration (E = 5, batch 50, lr 0.01,
+    momentum 0.5, a cohort of 10) over ``corpus`` (a stacked dict, or a
+    built corpus of either plane) with N = 1000: ``judge`` (default K1's
+    loop) and ``FusedAverageAggregator("cuda")``; ``kw`` goes to
+    ``fl.build`` (``data_plane``, ``runtime``)."""
+    cfg = fl.ServerConfig(num_clients=STREAM_N,
+                          participation=STREAM_COHORT / STREAM_N, seed=0)
+    return fl.build("fedentropy", cnn.apply, params, corpus, cfg,
+                    fl.LocalSpec(),
+                    judge=judge or fl.MaxEntropyJudge(backend="cuda"),
+                    aggregator=fl.FusedAverageAggregator(backend="cuda"),
+                    device="cuda", **kw)
+
+
+def _round_turns(servers: dict, rounds: int, sync: bool) -> dict:
+    """Round seconds of two warm servers in turns (a, b, b, a), ``rounds``
+    consecutive rounds each time: the host clock from one round's return
+    to the next (with a synchronise after each round when ``sync``; a
+    pipelined round returns with round t+1 in flight). Returns each
+    server's median, the first round of each turn left out."""
+    (a, sa), (b, sb) = servers.items()
+    gaps = {a: [], b: []}
+    for name, server in ((a, sa), (b, sb), (b, sb), (a, sa)):
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        for _ in range(rounds):
+            server.round()
+            if sync:
+                torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        gaps[name] += list(np.diff(stamps)[1:])
+    return {name: float(statistics.median(g)) for name, g in gaps.items()}
+
+
+def cohort_copy_times(data: dict, idx: np.ndarray) -> None:
+    """One cohort's host gather into pinned memory and its copy to the
+    card, each timed alone (the gather on the host clock, the copy with
+    CUDA events), beside a pageable copy of the same bytes."""
+    x = data["x"]
+    pinned = torch.empty((len(idx),) + x.shape[1:], dtype=torch.uint8,
+                         pin_memory=True)
+    dev = torch.empty(pinned.shape, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        np.take(x, idx, axis=0, out=pinned.numpy(), mode="wrap")
+    gather_ms = (time.perf_counter() - t0) / 10 * 1e3
+    pinned_ms = _time_ms(lambda: dev.copy_(pinned, non_blocking=True),
+                         iters=20, warmup=3)
+    pageable = np.ascontiguousarray(x[idx])
+    src = torch.from_numpy(pageable)
+    pageable_ms = _time_ms(lambda: dev.copy_(src), iters=20, warmup=3)
+    nbytes = pinned.numel()
+    print(f"one cohort's x ({len(idx)} clients, {nbytes / 1e6:.2f} MB "
+          f"uint8): host gather into pinned memory {gather_ms:.3f} ms; "
+          f"copy to the card from pinned memory {pinned_ms:.3f} ms "
+          f"({nbytes / pinned_ms / 1e6:.2f} GB/s), from pageable memory "
+          f"{pageable_ms:.3f} ms ({nbytes / pageable_ms / 1e6:.2f} GB/s)")
+
+
+def capture_during_prefetch(data: dict, transform, idx, want: dict) -> None:
+    """A prefetch started inside a capture, so its worker reaches its CUDA
+    calls while the round thread captures; the capture lock holds them
+    until the capture ends. The program and the staged cohort must both
+    be right."""
+    hc = fl.HostCorpus(dict(data), transform=transform, device="cuda")
+    hc.prefetcher()
+    calls = []
+
+    def fn(x):
+        calls.append(time.perf_counter())
+        if len(calls) == graph_cache.WARMUP_RUNS + 1:    # the capture
+            hc.prefetch(idx)
+            time.sleep(0.1)
+        return x * 2 + 1
+
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    prog = graph_cache.CapturedProgram(fn, (x,))
+    held = time.perf_counter() - calls[-1]
+    got = hc.cohort(idx)
+    y = torch.randn(4096, device="cuda")
+    ok = torch.equal(prog(y), y * 2 + 1)
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    stats = hc.prefetch_stats()
+    print(f"capture during an in-flight prefetch: the worker's copy waited "
+          f"{stats['stage_s']:.4f} s (the capture held the lock "
+          f"{held:.4f} s after the prefetch started); captured program "
+          f"right: {ok}; staged cohort equal to the resident gather: "
+          f"{same}; prefetch {stats}")
+    if not (ok and same and stats["hits"] == 1
+            and stats["stage_s"] >= 0.09):
+        raise AssertionError("capture during an in-flight prefetch failed")
+
+
+def streaming_path(params, split) -> dict:
+    """Phase 15: the streaming plane at the main path's width over N =
+    1000 clients (1.54 GB of uint8, over the 1 GiB budget, so "auto"
+    streams it). Returns the launches by path."""
+    from repro_torch.data.ingest import cifar10_normalizer
+    from repro_torch.data.stream import RESIDENT_BUDGET_BYTES, HostCorpus
+    out = {}
+    t0 = time.perf_counter()
+    data = streamed_corpus(split)
+    norm = cifar10_normalizer()
+    nbytes = sum(v.nbytes for v in data.values())
+    print(f"corpus x{data['x'].shape} uint8: {nbytes / 1e9:.4f} GB "
+          f"against a resident budget of {RESIDENT_BUDGET_BYTES / 1e9:.4f} "
+          f"GB; built in {time.perf_counter() - t0:.1f} s")
+
+    def host():
+        return fl.as_data_plane(data, "streaming", transform=norm,
+                                device="cuda")
+
+    # fl.build resolves a stacked dict this size to the streaming plane
+    probe = build_streamed(params, data)
+    if not isinstance(probe.corpus, HostCorpus):
+        raise AssertionError(f"auto gave {type(probe.corpus).__name__}")
+    print(f"fl.build(..., data_plane=\"auto\") on the stacked dict: "
+          f"{type(probe.corpus).__name__}")
+    del probe
+
+    # (a) the same rounds on the streaming ("auto"), memory-mapped and
+    # resident planes, bit for bit; device memory at each build
+    servers, alloc = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for plane in ("streaming", "mmap", "resident"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            if plane == "streaming":
+                corpus = fl.as_data_plane(data, "auto", transform=norm,
+                                          device="cuda")
+                if not isinstance(corpus, HostCorpus):
+                    raise AssertionError(f"auto gave {type(corpus)}")
+            elif plane == "mmap":
+                t1 = time.perf_counter()
+                corpus = HostCorpus.open(servers["streaming"].corpus.save(
+                    tmp.name), device="cuda")
+                print(f"saved and memory-mapped in "
+                      f"{time.perf_counter() - t1:.1f} s; mmap "
+                      f"{corpus.memory_report()['host_is_mmap']}")
+            else:
+                corpus = fl.as_data_plane(data, "resident", transform=norm,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            alloc[plane] = torch.cuda.memory_allocated() - before
+            servers[plane] = build_streamed(params, corpus)
+        for plane, server in servers.items():
+            _reset_counts()
+            run_rounds_n(server, f"{plane}", STREAM_ROUNDS)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            if plane == "streaming":
+                out["streaming"] = launches
+            if launches["entropy_judge_loop"] != STREAM_ROUNDS or \
+                    launches["masked_weighted_sum"] != STREAM_ROUNDS:
+                raise AssertionError(f"{plane}: launches {launches}")
+        for plane in ("mmap", "resident"):
+            equal_to_sequential(servers["streaming"], servers[plane],
+                                f"streaming vs {plane}", flags=False)
+        for plane, server in servers.items():
+            print(f"{plane}: device bytes allocated when the corpus was "
+                  f"built {alloc[plane]}; memory_report "
+                  f"{server.corpus.memory_report()}")
+        rep = servers["streaming"].corpus.memory_report()
+        # one cohort's storage bytes (x uint8, y int32, w float32)
+        cohort = STREAM_COHORT * STREAM_S * (
+            int(np.prod(data["x"].shape[2:])) + 8)
+        if alloc["streaming"] != 0 or \
+                rep["device_resident_bytes"] > 2 * cohort or \
+                alloc["resident"] < data["x"].nbytes:
+            raise AssertionError(f"streaming holds {rep}, allocated "
+                                 f"{alloc}; expected about one cohort")
+
+        # (b) the pipelined engine on the streaming plane: round t+1's
+        # cohort staged on the prefetch thread while the oracle runs; each
+        # server has a HostCorpus (and a prefetcher) of its own over the
+        # same host arrays
+        seq = build_streamed(params, host(), judge=fl.MaxEntropyJudge())
+        pip = build_streamed(params, host(), judge=fl.MaxEntropyJudge(),
+                             runtime=SPEC)
+        out["streaming pipelined"] = run_speculative(
+            seq, pip, STREAM_SPEC, "streaming pipelined")
+        stats = pip.corpus.prefetch_stats()
+        hits = sum(r["spec_hit"] for r in pip.history)
+        print(f"streaming pipelined: prefetch {stats}; speculation hits "
+              f"{hits}")
+        if stats["hits"] != hits or not hits or \
+                out["streaming pipelined"]["entropy_judge_loop"] \
+                != STREAM_SPEC:
+            raise AssertionError("streaming pipelined: prefetch hits "
+                                 f"{stats['hits']} != speculation hits "
+                                 f"{hits}")
+
+        # (c) a forced miss cancels the staged cohort
+        seq_m = build_streamed(params, host(), judge=fl.MaxEntropyJudge())
+        pip_m = build_streamed(params, host(), judge=AdmitAllTraced(),
+                               runtime=SPEC)
+        out["streaming pipelined+miss"] = run_speculative(
+            seq_m, pip_m, STREAM_SPEC, "streaming pipelined+miss")
+        stats = pip_m.corpus.prefetch_stats()
+        misses = sum(not r["spec_hit"] for r in pip_m.history)
+        print(f"streaming pipelined+miss: prefetch {stats}; misses "
+              f"{misses}")
+        if not misses or stats["cancelled"] != misses:
+            raise AssertionError(f"forced miss: {misses} misses, prefetch "
+                                 f"{stats}")
+
+        # (d) a capture while a prefetch is in flight
+        idx = np.asarray(servers["streaming"].history[0]["selected"])
+        want = servers["resident"].corpus.cohort(idx)
+        capture_during_prefetch(data, norm, idx, want)
+
+        # (e) times: one cohort's gather and copy; the rounds in turns
+        cohort_copy_times(data, idx)
+        seq_t = _round_turns({"streaming": servers["streaming"],
+                              "resident": servers["resident"]}, 5, True)
+        res_pip = build_streamed(params, servers["resident"].corpus,
+                                 judge=fl.MaxEntropyJudge(), runtime=SPEC)
+        res_pip.round()
+        pip_t = _round_turns({"streaming": pip, "resident": res_pip}, 5,
+                             False)
+        print(f"sequential round s in turns, medians: streaming "
+              f"{seq_t['streaming']:.5f}, resident {seq_t['resident']:.5f}"
+              f"; pipelined round s: streaming {pip_t['streaming']:.5f}, "
+              f"resident {pip_t['resident']:.5f}; pipelined streaming "
+              f"prefetch {pip.corpus.prefetch_stats()}")
+    finally:
+        tmp.cleanup()
+    return out
+
+
+def run_rounds_n(server, label: str, rounds: int) -> list:
+    return [timed_round(server, label) for _ in range(rounds)]
+
+
 def capture_checks() -> None:
     """What the block graph holds, each captured alone against its eager
     launch: the pool draw and the device selection's permutation (stable
@@ -2821,6 +3103,10 @@ def main() -> int:
     _phase("14. the scan engine at the main path's width: blocks of 4 "
            "rounds, each one CUDA graph with K1's loop and K2 inside it")
     scanned = scan_path(*setup)
+    _phase("15. the streaming plane at the main path's width: N = 1000 "
+           "uint8 clients (1.54 GB) on the host, one cohort uploaded a "
+           "round, staged ahead in pinned memory on a side stream")
+    streamed = streaming_path(setup[0], split)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2868,7 +3154,8 @@ def main() -> int:
                 path: n[name] for path, n in fedcat.items()}, **{
                 path: n[name] for path, n in asynced.items()}, **{
                 path: n[name] for path, n in clustered.items()}, **{
-                path: n[name] for path, n in scanned.items()}}
+                path: n[name] for path, n in scanned.items()}, **{
+                path: n[name] for path, n in streamed.items()}}
         if name == "ssd_chunked":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]

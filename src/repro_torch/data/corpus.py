@@ -13,6 +13,12 @@ round:
   :meth:`label_entropy` are the per-client stats the selectors rank and
   weigh by, computed once on the host and cached.
 
+It is the *resident* plane. The streaming plane,
+:class:`repro_torch.data.stream.HostCorpus`, keeps the arrays on the host
+and uploads one cohort a round; both planes finish a gathered cohort with
+:func:`finish_cohort`, so their cohorts are equal bit for bit, and both
+account their bytes with :func:`cohort_nbytes` and :func:`memory_report`.
+
 ``DataQueue`` is the round-indexed subset schedule behind the
 dynamic-data-queue selector (arXiv 2410.17792): each client's effective
 local dataset starts small and grows to the full shard; the corpus
@@ -92,9 +98,74 @@ class DataQueue:
         return np.clip(np.maximum(want, self.min_samples), 0, sizes)
 
 
+def finish_cohort(out: dict, transform: Normalize | None,
+                  active: torch.Tensor | None = None) -> dict:
+    """A gathered cohort's dtype transform and queue mask: the one op
+    sequence both data planes run after their gathers, so a cohort is the
+    same bits on either. ``out`` maps keys to tensors on one device (the
+    storage dtype) and is updated in place; ``active`` (per-row released
+    sample counts, on the same device) masks each row's ``w`` down to its
+    first ``active[i]`` samples."""
+    if transform is not None and "x" in out:
+        out["x"] = transform(out["x"])
+    if active is not None and "w" in out:
+        s = out["w"].shape[1]
+        live = torch.arange(s, device=out["w"].device)[None, :] \
+            < active[:, None]
+        out["w"] = out["w"] * live.to(out["w"].dtype)
+    return out
+
+
+def _itemsize(v) -> int:
+    return v.element_size() if isinstance(v, torch.Tensor) \
+        else v.dtype.itemsize
+
+
+def storage_nbytes(arrays: dict) -> int:
+    """Bytes of a dict of tensors or numpy arrays, each in its dtype."""
+    return int(sum(int(np.prod(v.shape, dtype=np.int64)) * _itemsize(v)
+                   for v in arrays.values()))
+
+
+def cohort_nbytes(arrays: dict, transform: Normalize | None, m: int) -> int:
+    """Bytes a host-slice data plane would ship per round for a cohort of
+    ``m`` clients of ``arrays`` (either plane's): ``x`` in float32 after
+    the transform, the other arrays in their storage dtype."""
+    total = 0
+    for k, v in arrays.items():
+        itemsize = 4 if k == "x" and transform is not None else _itemsize(v)
+        total += int(np.prod(v.shape[1:], dtype=np.int64)) * itemsize * m
+    return total
+
+
+def memory_report(corpus, *, host_mapped_bytes: int = 0,
+                  host_is_mmap: bool = False,
+                  staging_nbytes: int = 0) -> dict:
+    """Plane-aware byte accounting, with the reference's keys, for a
+    corpus of either plane; the defaults are the resident plane's."""
+    return {
+        "plane": corpus.plane,
+        "host_mapped_bytes": int(host_mapped_bytes),
+        "host_is_mmap": bool(host_is_mmap),
+        "device_resident_bytes": corpus.device_nbytes(),
+        "staging_nbytes": int(staging_nbytes),
+        "num_clients": corpus.num_clients,
+    }
+
+
+def refuse_shard(corpus) -> None:
+    """The client axis over several cards is not ported: both planes'
+    ``shard`` raises."""
+    raise NotImplementedError(
+        f"{type(corpus).__name__}.shard (the client axis over several "
+        "GPUs) is not ported: ROADMAP queue 1, \"Several cards\"")
+
+
 class ClientCorpus(Mapping):
     """Stacked client arrays resident on ``device``; see the module
     docstring. A ``Mapping`` over its arrays."""
+
+    plane = "resident"
 
     def __init__(self, arrays: dict, *, transform: Normalize | None = None,
                  device="cuda"):
@@ -162,12 +233,28 @@ class ClientCorpus(Mapping):
     @property
     def nbytes(self) -> int:
         """Resident bytes of the stored corpus (storage dtype)."""
-        return int(sum(v.numel() * v.element_size()
-                       for v in self._arrays.values()))
+        return storage_nbytes(self._arrays)
+
+    def device_nbytes(self) -> int:
+        """Bytes the corpus holds on its device: all of it."""
+        return self.nbytes
+
+    def cohort_nbytes(self, m: int) -> int:
+        """Bytes a host-slice data plane would ship per round for a cohort
+        of ``m`` clients (this plane ships only the ids)."""
+        return cohort_nbytes(self._arrays, self.transform, m)
 
     def as_numpy(self) -> dict:
         """Host copy of the raw (untransformed) arrays, storage dtype."""
         return {k: v.cpu().numpy() for k, v in self._arrays.items()}
+
+    def memory_report(self) -> dict:
+        """The whole corpus on the device, no host mapping or staging
+        buffers (:func:`memory_report`'s keys)."""
+        return memory_report(self)
+
+    def shard(self, mesh, axis: str = "clients"):
+        refuse_shard(self)
 
     # ------------------------------------------------- control-plane stats
     def sizes(self) -> np.ndarray:
@@ -224,14 +311,7 @@ class ClientCorpus(Mapping):
         can capture it (the scan engine's block gathers each round's
         cohort so). ``idx`` is int32 or int64."""
         out = {k: v.index_select(0, idx) for k, v in self._arrays.items()}
-        if self.transform is not None:
-            out["x"] = self.transform(out["x"])
-        if active is not None and "w" in out:
-            s = out["w"].shape[1]
-            live = torch.arange(s, device=self.device)[None, :] \
-                < active[:, None]
-            out["w"] = out["w"] * live.to(out["w"].dtype)
-        return out
+        return finish_cohort(out, self.transform, active)
 
     def with_rows(self, clients, rows: dict) -> "ClientCorpus":
         """A new corpus on the same device in which clients ``clients``

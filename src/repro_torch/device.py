@@ -1,7 +1,18 @@
 """Where the port runs: the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# Held by a CUDA graph capture (``fl.graph_cache.CapturedProgram``) and by
+# every CUDA call another thread makes while the round thread may capture
+# (the streaming plane's prefetch thread: its pinned allocations, copies
+# and event waits). A capture runs in CUDA's global mode, in which such a
+# call from any thread can fail or invalidate the capture; holding this
+# lock keeps the two apart. Re-entrant: a program captured inside another
+# program's warm-up takes it again on the same thread.
+CAPTURE_LOCK = threading.RLock()
 
 
 def resolve_device(device="cuda") -> torch.device:

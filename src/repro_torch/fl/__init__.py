@@ -47,11 +47,15 @@ speculates each round's verdict on the card (``fl.runtime``);
 buffered engine; ``fl.build("fedentropy-traced", ...,
 runtime=fl.ScanConfig(rounds_per_scan=4))`` runs blocks of 4 rounds, each
 one CUDA graph on the card; ``drift=fl.drift_schedule(...)`` re-partitions clients
-mid-run.
+mid-run. ``data_plane="streaming"`` (or ``"auto"`` past 1 GiB) keeps the
+corpus on the host as an ``fl.HostCorpus`` and uploads one cohort a round;
+the pipelined engine stages its speculated next cohort on a prefetch
+thread (``fl.as_data_plane`` resolves a plane).
 """
 from ..core.strategies import LocalSpec
 from ..data.corpus import ClientCorpus, DataQueue, Normalize
 from ..data.partition import DriftEvent, drift_schedule
+from ..data.stream import HostCorpus, as_data_plane
 from .aggregators import (DeviceConcatAggregator, FusedAverageAggregator,
                           PerClusterAggregator, ScaffoldAggregator,
                           WeightedAverageAggregator)
@@ -75,17 +79,15 @@ __all__ = [
     "Aggregator", "AsyncBufferedServer", "AsyncConfig", "BoundedGraphCache",
     "BudgetedJudge", "CatChainStrategy", "CatGrouper", "ClientCorpus",
     "ClientStrategy", "ClusterAssigner", "Composition", "DataQueue",
-    "DeviceConcatAggregator", "DriftEvent", "FeSEMAssigner",
-    "FedAvgStrategy", "FedProxStrategy", "FusedAverageAggregator",
-    "IFCAAssigner", "Judge", "LocalSpec", "MaxEntropyJudge", "ModelBank",
-    "MoonStrategy", "Normalize", "PassThroughJudge", "PerClusterAggregator",
-    "PipelinedServer", "PoolCatGrouper", "PoolSelector",
-    "ProcessCompileCache", "QueueSelector", "RuntimeConfig",
-    "ScaffoldAggregator", "ScaffoldStrategy", "ScanConfig", "ScanServer",
-    "Selector", "SequentialEngine", "Server", "ServerConfig",
-    "TracedPoolSelector", "UniformSelector",
-    "WeightedAverageAggregator", "argmin_assign", "build",
-    "disable_capture", "disable_process_cache", "drift_schedule",
-    "enable_process_cache", "get", "names", "process_cache", "register",
-    "total_uplink_bytes",
+    "DeviceConcatAggregator", "DriftEvent", "FeSEMAssigner", "FedAvgStrategy",
+    "FedProxStrategy", "FusedAverageAggregator", "HostCorpus", "IFCAAssigner",
+    "Judge", "LocalSpec", "MaxEntropyJudge", "ModelBank", "MoonStrategy",
+    "Normalize", "PassThroughJudge", "PerClusterAggregator", "PipelinedServer",
+    "PoolCatGrouper", "PoolSelector", "ProcessCompileCache", "QueueSelector",
+    "RuntimeConfig", "ScaffoldAggregator", "ScaffoldStrategy", "ScanConfig",
+    "ScanServer", "Selector", "SequentialEngine", "Server", "ServerConfig",
+    "TracedPoolSelector", "UniformSelector", "WeightedAverageAggregator",
+    "argmin_assign", "as_data_plane", "build", "disable_capture",
+    "disable_process_cache", "drift_schedule", "enable_process_cache", "get",
+    "names", "process_cache", "register", "total_uplink_bytes",
 ]

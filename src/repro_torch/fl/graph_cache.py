@@ -22,10 +22,17 @@ on every replay, so the counts stay the device's launches.
 
 On the CPU the program always runs eagerly: CUDA graphs do not exist
 there. A capture that fails raises; nothing falls back to eager.
+
+A capture runs in CUDA's global mode and holds
+:data:`repro_torch.device.CAPTURE_LOCK` from its warm-up to its end: the
+streaming plane's prefetch thread takes the same lock around each of its
+CUDA calls, so none falls inside a capture (where it could fail or
+invalidate the capture).
 """
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -34,6 +41,7 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from ..device import CAPTURE_LOCK
 from ..kernels._build import COUNTED
 
 _disabled = 0
@@ -78,6 +86,10 @@ class CapturedProgram:
     """
 
     def __init__(self, fn: Callable, args: tuple):
+        with CAPTURE_LOCK:
+            self._capture(fn, args)
+
+    def _capture(self, fn: Callable, args: tuple) -> None:
         inputs = pytree.tree_map(_clone, args)
         self._leaves, self._spec = pytree.tree_flatten(inputs)
         side = torch.cuda.Stream()
@@ -135,22 +147,64 @@ class BoundedGraphCache:
     """LRU of captured programs, owned by one ``Server`` (or shared by all
     of a process, :mod:`repro_torch.fl.runtime.compile_cache`);
     ``captures`` counts the entries it has built (evicted ones
-    included)."""
+    included), ``hits`` the lookups that found one.
+
+    Thread-safe, with the reference's ``BoundedJitCache`` semantics:
+    ``make()`` runs outside the lock (a capture takes seconds and must not
+    stall other keys' lookups), once per key: concurrent callers of one
+    missing key wait for the building thread and take its entry (a hit).
+    A failed build counts nothing and lets the next caller build. A
+    server's round loop looks programs up from one thread (the streaming
+    plane's prefetch thread makes no lookups); the lock is for servers run
+    on several threads at once, which share the process cache.
+    """
 
     def __init__(self, maxsize: int):
         self.maxsize = max(1, int(maxsize))
         self._entries: OrderedDict[Any, Any] = OrderedDict()
+        self._building: dict[Any, threading.Event] = {}
+        self._lock = threading.RLock()
         self.captures = 0
+        self.hits = 0
 
     def get(self, key, make: Callable[[], Any]):
-        if key in self._entries:
-            self._entries.move_to_end(key)
-            return self._entries[key]
-        entry = self._entries[key] = make()
-        self.captures += 1
-        while len(self._entries) > self.maxsize:
-            self._entries.popitem(last=False)
+        while True:
+            with self._lock:
+                if key in self._entries:
+                    self._entries.move_to_end(key)
+                    self.hits += 1
+                    return self._entries[key]
+                ev = self._building.get(key)
+                if ev is None:
+                    ev = self._building[key] = threading.Event()
+                    break
+            # another thread builds this key: wait, then look again (if
+            # its build failed, or the entry was evicted meanwhile, this
+            # thread builds on the next pass)
+            ev.wait()
+        try:
+            entry = make()
+        except BaseException:
+            with self._lock:
+                self._building.pop(key, None)
+            ev.set()
+            raise
+        with self._lock:
+            self._entries[key] = entry
+            self.captures += 1
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+            self._building.pop(key, None)
+        ev.set()
         return entry
 
+    def trim(self, maxsize: int) -> None:
+        """Rebound the LRU to ``maxsize`` entries, dropping the oldest."""
+        with self._lock:
+            self.maxsize = max(1, int(maxsize))
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+
     def __len__(self) -> int:
-        return len(self._entries)
+        with self._lock:
+            return len(self._entries)

@@ -115,10 +115,13 @@ def build(name: str, apply_fn, init_params, client_data, config,
     an instance); with ``ServerConfig.num_clusters`` > 1 the engine then
     carries a K-center ``ModelBank``.
 
-    ``data_plane`` is ``"auto"`` or ``"resident"``: both keep the corpus
-    on the device at any size, where the reference's ``"auto"`` streams a
-    corpus above 1 GiB from the host; the streaming plane is not ported
-    (ROADMAP queue 3, F6). ``drift`` is a list of
+    ``data_plane`` picks where the client data lives
+    (:func:`repro_torch.data.stream.as_data_plane`): ``"resident"`` (a
+    ``ClientCorpus`` on the device), ``"streaming"`` (a ``HostCorpus`` on
+    the host, one cohort uploaded a round, staged ahead by the pipelined
+    engine's speculation) or ``"auto"`` (the default: a built corpus keeps
+    its plane, a stacked dict streams once its storage bytes exceed 1 GiB,
+    as in the reference). ``drift`` is a list of
     :class:`repro_torch.data.partition.DriftEvent`. ``device`` is where
     the params, the corpus and the round's tensor work live; it defaults
     to the card and raises when there is none.

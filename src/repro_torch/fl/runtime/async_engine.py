@@ -15,9 +15,11 @@ been screened. Admitted updates aggregate with staleness-damped weights
 (FedBuff's ``(1 + τ)^-α``, τ = flushes since the update's model version);
 rejected updates are dropped before they ship weights.
 
-The dispatch unit stays a whole cohort: one gather off the resident
-corpus and one run of the client program (a captured CUDA graph on the
-card, inherited from ``Server``). What the port adds to the reference:
+The dispatch unit stays a whole cohort: one ``corpus.cohort`` gather
+(on the device off the resident plane, or a host gather and upload off
+the streaming plane, as in the reference) and one run of the client
+program (a captured CUDA graph on the card, inherited from ``Server``).
+What the port adds to the reference:
 
 * a dispatch's client outputs are cloned on the card (2.5 MB at the
   paper's width). A captured program returns the graph's own output

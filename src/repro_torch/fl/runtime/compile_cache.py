@@ -21,9 +21,11 @@ Usage::
     print(cache.stats())            # {"hits": ..., "misses": ..., ...}
     disable_process_cache()
 
-The transcription of ``repro.fl.runtime.compile_cache``; it is not
-thread-safe, as the port's round loop runs on one thread (the reference
-locks for its streaming plane's prefetch thread, which the port has not).
+The transcription of ``repro.fl.runtime.compile_cache``. Like the
+per-server cache it is thread-safe and builds outside its lock, once per
+key (``BoundedGraphCache.get``), so servers run on several threads at once
+can share it: a capture on one thread does not stall another's lookups,
+and racing threads on one missing key build it once.
 """
 from __future__ import annotations
 
@@ -33,21 +35,13 @@ from ..graph_cache import BoundedGraphCache
 
 
 class ProcessCompileCache(BoundedGraphCache):
-    """Bounded LRU shared by every Server in the process, with hit stats."""
+    """Bounded LRU shared by every Server in the process, with hit stats:
+    a miss is a build (``captures``), so racing threads on one key count
+    one miss, and a failed build counts nothing."""
 
-    def __init__(self, maxsize: int = 32):
-        super().__init__(maxsize)
-        self.hits = 0
-        self.misses = 0
-
-    def get(self, key, make):
-        hit = key in self._entries
-        entry = super().get(key, make)    # a failed build counts nothing
-        if hit:
-            self.hits += 1
-        else:
-            self.misses += 1
-        return entry
+    @property
+    def misses(self) -> int:
+        return self.captures
 
     def stats(self) -> dict:
         return {"hits": self.hits, "misses": self.misses,
@@ -67,9 +61,7 @@ def enable_process_cache(maxsize: int = 32) -> ProcessCompileCache:
     if _PROCESS_CACHE is None:
         _PROCESS_CACHE = ProcessCompileCache(maxsize)
     else:
-        _PROCESS_CACHE.maxsize = max(1, int(maxsize))
-        while len(_PROCESS_CACHE._entries) > _PROCESS_CACHE.maxsize:
-            _PROCESS_CACHE._entries.popitem(last=False)
+        _PROCESS_CACHE.trim(maxsize)
     return _PROCESS_CACHE
 
 

@@ -42,6 +42,15 @@ t+1 is assigned against the speculatively aggregated bank and dispatched
 from it; the one device-to-host copy brings back every cluster's verdict
 with the soft labels and sizes.
 
+On the streaming plane (a corpus with ``prefetch``, the
+:class:`repro_torch.data.stream.HostCorpus`) round t+1 is not dispatched
+before the oracle: its speculated cohort (with the selector copy's queue
+schedule) is staged on the corpus's prefetch thread, gathered into pinned
+memory and copied to the card on a side stream while the oracle runs;
+the dispatch waits for the verdict and takes the staged cohort on a hit,
+and a miss cancels it. The clustered dispatch stays eager, as in the
+reference: its assignment reads the cohort's data first.
+
 A drift event scheduled for round t+1 gates the speculative dispatch: the
 round keeps its speculated aggregation but feeds the oracle's verdict back
 directly, and round t+1 selects after the drift. A judge without
@@ -231,17 +240,32 @@ class PipelinedServer(Server):
         self.state = new_state
 
         # --- speculatively select and dispatch round t+1 on a copy -------
-        kept = out
+        prefetch = getattr(self.corpus, "prefetch", None)
+        kept, next_out = out, None
         if spec_next:
-            # round t+1's replay overwrites a captured program's outputs;
-            # the miss path (and a judge on the device) read them after it
-            kept = pytree.tree_map(torch.clone, out)
             sel_copy = copy.deepcopy(self.selector)
             sel_copy.update(spec_pos, spec_neg)
             next_sel = sel_copy.select(num)
             # the copy made this selection, so its queue schedule rides
-            # with the dispatch
-            next_out = self._run_cohort(next_sel, sel_copy, new_global_spec)
+            # with the dispatch (and with the prefetch)
+            if prefetch is None:
+                # round t+1's replay overwrites a captured program's
+                # outputs; the miss path (and a judge on the device) read
+                # them after it
+                kept = pytree.tree_map(torch.clone, out)
+                next_out = self._run_cohort(next_sel, sel_copy,
+                                            new_global_spec)
+            else:
+                # streaming plane: a dispatch here would block this thread
+                # on the host gather and upload of round t+1's cohort.
+                # Stage it on the prefetch thread instead, while the oracle
+                # runs below; the dispatch waits for the verdict (a hit
+                # takes the staged cohort, a miss only discards it). The
+                # schedule's counts are fixed at select time, so the
+                # dispatch's own read gives the same key.
+                sched = getattr(sel_copy, "data_schedule", None)
+                prefetch(np.asarray(next_sel),
+                         None if sched is None else sched(next_sel))
 
         # --- the oracle, on the host while round t+1 runs ----------------
         if getattr(self.judge, "on_host", False):
@@ -259,12 +283,21 @@ class PipelinedServer(Server):
             self.global_params = new_global_spec
             if spec_next:
                 self.selector = sel_copy      # same verdict -> same stream
+                if next_out is None:
+                    # streaming plane: the cohort was staged above; this
+                    # dispatch takes it (a prefetch hit)
+                    next_out = self._run_cohort(next_sel, sel_copy,
+                                                new_global_spec)
                 self._pending = (next_sel, next_out)
             else:
                 # drift boundary: nothing in flight; feed the verdict back
                 # directly (the sequential call)
                 self.selector.update(pos, neg)
         else:                                  # discard, redo from oracle
+            if spec_next and prefetch is not None:
+                # selector misprediction: drop the staged cohort; the
+                # re-selected round t+1 gathers synchronously
+                self.corpus.cancel_prefetch()
             self.global_params = self.aggregator(
                 self.global_params, kept, kept["size"],
                 torch.as_tensor(mask, device=self.device))

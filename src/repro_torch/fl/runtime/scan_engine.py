@@ -240,8 +240,8 @@ class ScanServer(PipelinedServer):
                 "component": type(self.strategy).__name__,
                 "detail": "the strategy lays out whole device groups per "
                           "round (prepare_round)"})
-        # the reference's streaming plane gathers on the host; the port has
-        # only the resident plane until that plane is ported
+        # the streaming plane (HostCorpus) gathers on the host, so a block
+        # cannot carry its gather: only the resident plane folds
         if not hasattr(self.corpus, "traced_cohort"):
             reasons.append({
                 "code": "host-data-plane",
@@ -408,12 +408,12 @@ class ScanServer(PipelinedServer):
         """(classes, soft-label dtype, size dtype) of the client program's
         outputs, from the model's forward on meta tensors (nothing
         runs)."""
-        x = self.corpus["x"][:1, :1].to("meta")[0]
+        x = torch.as_tensor(self.corpus["x"][:1, :1]).to("meta")[0]
         if self.corpus.transform is not None:
             x = self.corpus.transform(x)
         params = pytree.tree_map(lambda t: t.to("meta"), self.global_params)
         logits = self.apply_fn(params, x)[0]
-        w = self.corpus["w"].dtype
+        w = torch.as_tensor(self.corpus["w"][:1, :1]).dtype
         return (int(logits.shape[-1]), torch.promote_types(logits.dtype, w),
                 w)
 

@@ -28,7 +28,9 @@
 
 Selectors that consume corpus statistics implement ``bind_data``: the
 server passes its corpus once, whose cached ``label_histograms()`` and
-``sizes()`` the selector keeps as numpy (a raw stacked dict binds too).
+``sizes()`` the selector keeps as numpy. The stats surface is duck-typed,
+so a corpus of either plane binds (the streaming ``HostCorpus`` computes
+the same stats in one pass at open time), and a raw stacked dict too.
 Selectors hold no device tensors, so the pipelined engine's
 ``copy.deepcopy`` of one copies host state only. Every selector here is
 an exact transcription of ``repro.fl.selectors``: its selection is a pure
@@ -50,7 +52,8 @@ from .registry import register
 
 
 def _corpus_histograms(client_data) -> np.ndarray:
-    """Label histograms from a corpus (cached) or a raw stacked dict."""
+    """Label histograms from a corpus of either plane (cached, duck-typed)
+    or a raw stacked dict."""
     cached = getattr(client_data, "label_histograms", None)
     if cached is not None:
         return cached()
@@ -218,8 +221,8 @@ class CatGrouper:
                    config.group_size)
 
     def bind_data(self, client_data) -> None:
-        """Per-device label histograms off the corpus (cached there) or a
-        raw stacked dict, kept as numpy."""
+        """Per-device label histograms off a corpus of either plane
+        (cached there) or a raw stacked dict, kept as numpy."""
         self._hists = _corpus_histograms(client_data)
 
     def select(self, num: int) -> list[int]:
@@ -295,8 +298,9 @@ class QueueSelector:
         return cls(config.num_clients, config.eps, config.seed)
 
     def bind_data(self, client_data) -> None:
-        """Per-client entropy ranks and real sizes off the corpus (or a
-        raw stacked dict), kept as numpy."""
+        """Per-client entropy ranks and real sizes off a corpus of either
+        plane (the stats surface is duck-typed) or a raw stacked dict,
+        kept as numpy."""
         if hasattr(client_data, "label_entropy"):
             self._entropy = client_data.label_entropy()
             self._sizes = client_data.sizes()

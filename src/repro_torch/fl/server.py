@@ -4,14 +4,19 @@ One ``round()`` = (drift) -> select -> ClientUpdate mapped over the cohort
 -> judge -> aggregate -> state/pool feedback. The data plane (client
 updates, aggregation) is tensor code on ``device`` over a stacked client
 axis; the control plane (selection, pool bookkeeping, the numpy judgment)
-is host-side numpy. The cohort comes off the device-resident
-:class:`repro_torch.data.corpus.ClientCorpus`, so per round only the
-cohort's ids cross from host to device, with the released-sample counts
-of a selector that has a ``data_schedule`` (the dynamic data queue),
-which the gather applies as a weight mask. Selectors that rank on corpus
-statistics bind the corpus once (``bind_data``). Scheduled drift events
-(``drift=``, :func:`repro_torch.data.partition.drift_schedule`) replace
-the drifting clients' rows at the start of their round.
+is host-side numpy. The client data lives on a *data plane*
+(``data_plane=``, resolved by :func:`repro_torch.data.stream.as_data_plane`):
+the device-resident :class:`repro_torch.data.corpus.ClientCorpus`, whose
+cohort gather runs on the device so only the cohort's ids cross from host
+to device, or the host-resident streaming
+:class:`repro_torch.data.stream.HostCorpus`, which gathers the cohort on
+the host and uploads it. Either way ``corpus.cohort(idx, active)`` applies
+the transform and the released-sample counts of a selector that has a
+``data_schedule`` (the dynamic data queue) as a weight mask, the same bits
+on both planes. Selectors that rank on corpus statistics bind the corpus
+once (``bind_data``). Scheduled drift events (``drift=``,
+:func:`repro_torch.data.partition.drift_schedule`) replace the drifting
+clients' rows at the start of their round, on the corpus's own plane.
 
 Group-aware strategies (FedCAT's ``CatChainStrategy``) bring their own
 client program (``make_client_fn``) and lay the gathered cohort out in
@@ -46,7 +51,7 @@ from torch.utils import _pytree as pytree
 
 from ..core.aggregation import comm_bytes
 from ..core.strategies import ApplyFn, client_update, cross_entropy
-from ..data.corpus import ClientCorpus
+from ..data.stream import as_data_plane
 from ..device import resolve_device
 from .graph_cache import BoundedGraphCache, CapturedProgram, capture_enabled
 from .protocols import Aggregator, ClientStrategy, Judge, Selector
@@ -91,17 +96,18 @@ class Server:
                         aggregator=WeightedAverageAggregator())
         server.fit(rounds=60, eval_every=5, eval_data=(xte, yte))
 
-    ``data_plane="auto"`` (or ``"resident"``) keeps the corpus on the
-    device at any size, where the reference's ``"auto"`` streams a corpus
-    above 1 GiB from the host; the streaming plane is not ported (ROADMAP
-    queue 3, F6).
+    ``data_plane`` is ``"auto"`` (a built corpus keeps its plane; a
+    stacked dict stays on the device while its storage bytes fit
+    ``RESIDENT_BUDGET_BYTES``, 1 GiB, and streams from the host past it),
+    ``"resident"`` or ``"streaming"``, as in the reference; any other
+    name raises ``ValueError``.
     """
 
     def __init__(
         self,
         apply_fn: ApplyFn,
         init_params,
-        client_data,                # ClientCorpus or x:(N,S,...), y, w dict
+        client_data,                # a corpus or x:(N,S,...), y, w dict
         config: ServerConfig,
         *,
         selector: Selector,
@@ -113,14 +119,6 @@ class Server:
         drift=None,
         device="cuda",
     ):
-        if data_plane in ("stream", "streaming"):
-            raise NotImplementedError(
-                "the streaming host-resident data plane is not ported yet "
-                "(ROADMAP queue 1, \"data/stream.py and data/ingest.py\"); "
-                "use data_plane='resident'")
-        if data_plane not in ("auto", "resident"):
-            raise ValueError(f"unknown data plane {data_plane!r}; expected "
-                             "'auto' or 'resident'")
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.global_params = pytree.tree_map(
@@ -128,8 +126,8 @@ class Server:
         self._param_sig = tuple(
             (tuple(t.shape), str(t.dtype))
             for t in pytree.tree_leaves(self.global_params))
-        self.corpus = ClientCorpus.from_stacked(client_data,
-                                                device=self.device)
+        self.corpus = as_data_plane(client_data, data_plane,
+                                    device=self.device)
         self.config = config
         self.selector = selector
         self.strategy = strategy
@@ -283,9 +281,11 @@ class Server:
     # -------------------------------------------------------------- drift
     def _apply_drift(self) -> list:
         """Apply every drift event scheduled for the current round (before
-        selection): a new corpus on the device with the drifting clients'
-        rows replaced, and the selector's stats bound to it. Returns the
-        applied events (a clustered record notes them)."""
+        selection): a new corpus on the same plane with the drifting
+        clients' rows replaced (on the device for the resident plane; on
+        the host, copying only the rewritten arrays, for the streaming
+        one), and the selector's stats bound to it. Returns the applied
+        events (a clustered record notes them)."""
         applied = []
         while self._drift and self._drift[0].round == self.round_idx:
             ev = self._drift.pop(0)

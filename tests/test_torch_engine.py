@@ -286,13 +286,15 @@ def test_runtime_config_checks():
 
 @pytest.mark.parametrize("plane", ["stream", "streaming", "mmap"])
 def test_data_plane(tiny, plane):
+    """The reference's planes: "streaming" builds a ``HostCorpus``; any
+    name outside ``PLANES`` raises."""
+    from repro_torch.data.stream import HostCorpus
     assert _build(tiny, data_plane="resident").corpus.num_clients == 8
-    if plane == "mmap":
-        with pytest.raises(ValueError, match="unknown data plane"):
-            _build(tiny, data_plane=plane)
+    if plane == "streaming":
+        corpus = _build(tiny, data_plane=plane).corpus
+        assert isinstance(corpus, HostCorpus) and corpus.num_clients == 8
     else:
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP queue 1, "data/stream.py'):
+        with pytest.raises(ValueError, match="unknown data plane"):
             _build(tiny, data_plane=plane)
 
 
