@@ -5,7 +5,8 @@ The LM: the JAX package stacks the layers of a model on a leading axis
 the port keeps one module per layer under the same names, so
 :func:`lm_params_from_numpy` unstacks each leaf into ``layers.<i>.<path>``
 or ``ssm_layers.<g>.<j>.<path>``, a state dict for the port's
-``Transformer``.
+``Transformer``; :func:`lm_params_to_numpy` restacks the port's weights
+into the reference's tree.
 
 The CNN: ``repro.models.cnn`` keeps convolutions in HWIO and dense layers as
 (in, out); the port keeps convolutions in OIHW and dense layers as
@@ -52,10 +53,7 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict[str, torch.Tensor]:
     state dict of the port's ``Transformer`` (float32 CPU tensors; loading
     casts them to the model's parameter dtype and device). Raises if a
     stacked subtree's leading axes are not ``cfg``'s layer counts."""
-    stacked = {"layers": (cfg.num_layers,)}
-    if cfg.attn_every:
-        stacked["ssm_layers"] = (cfg.num_layers // cfg.attn_every,
-                                 cfg.attn_every - 1)
+    stacked = _stacked_axes(cfg)
     out: dict[str, torch.Tensor] = {}
 
     def put(prefix: str, node, index: tuple) -> None:
@@ -77,6 +75,55 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict[str, torch.Tensor]:
         for index in np.ndindex(*shape):
             put(".".join([name, *map(str, index)]), sub, index)
     return out
+
+
+def lm_params_to_numpy(cfg, state: dict) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: a state dict (or
+    ``Model.params()``) of the port's ``Transformer`` -> the
+    ``repro.models.transformer`` tree of numpy float32 arrays, each
+    ``layers.<i>`` (``ssm_layers.<g>.<j>``) leaf restacked on the leading
+    layer axes. Raises unless every stacked leaf has all of ``cfg``'s
+    layers. A round trip through both functions gives the same bits."""
+    stacked = _stacked_axes(cfg)
+    out: dict = {}
+    layers: dict = {}        # name -> subpath -> {index: array}
+    for key, t in state.items():
+        arr = t.detach().to(torch.float32).cpu().numpy()
+        name, *rest = key.split(".")
+        if name not in stacked:
+            _put_path(out, [name, *rest], arr)
+            continue
+        n = len(stacked[name])
+        index = tuple(int(i) for i in rest[:n])
+        layers.setdefault(name, {}).setdefault(tuple(rest[n:]), {})[
+            index] = arr
+    for name, paths in layers.items():
+        want = list(np.ndindex(*stacked[name]))
+        for path, by_index in paths.items():
+            if sorted(by_index) != want:
+                raise ValueError(
+                    f"{name}.{'.'.join(path)}: layers "
+                    f"{sorted(by_index)}, but {cfg.name} has "
+                    f"{stacked[name]}")
+            leaf = np.stack([by_index[i] for i in want])
+            _put_path(out, [name, *path], leaf.reshape(
+                stacked[name] + leaf.shape[1:]))
+    return out
+
+
+def _stacked_axes(cfg) -> dict[str, tuple]:
+    """The reference tree's stacked subtrees and their leading axes."""
+    stacked = {"layers": (cfg.num_layers,)}
+    if cfg.attn_every:
+        stacked["ssm_layers"] = (cfg.num_layers // cfg.attn_every,
+                                 cfg.attn_every - 1)
+    return stacked
+
+
+def _put_path(tree: dict, path: list, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
 
 
 def _first_leaf(node):

@@ -1,11 +1,12 @@
-"""Synthetic image dataset (offline: no CIFAR download).
+"""Synthetic datasets (offline: no CIFAR download, no text corpus).
 
 ``make_image_dataset`` builds a class-conditional image dataset whose
 difficulty is controllable: each class c gets a random low-frequency
 template; samples are template + per-sample Gaussian noise + random
-global brightness/contrast jitter. An exact numpy transcription of
-``repro.data.synthetic.make_image_dataset``: one seed gives the same
-arrays in both packages.
+global brightness/contrast jitter. ``make_token_dataset`` builds an LM corpus
+of per-domain Zipfian token streams. Both are exact numpy transcriptions
+of ``repro.data.synthetic``: one seed gives the same arrays in both
+packages.
 """
 from __future__ import annotations
 
@@ -55,3 +56,34 @@ def make_image_dataset(
     xtr, ytr = sample(train_per_class, rng)
     xte, yte = sample(test_per_class, np.random.default_rng(seed + 1))
     return (xtr, ytr), (xte, yte)
+
+
+def make_token_dataset(
+    vocab_size: int = 1024,
+    num_domains: int = 8,
+    docs_per_domain: int = 64,
+    seq_len: int = 128,
+    seed: int = 0,
+):
+    """Per-domain Zipf token streams (domains are latent classes): each
+    domain draws its documents of ``seq_len + 1`` tokens from its own
+    permutation of a Zipf(1.2) distribution. Returns (tokens int32
+    (num_domains * docs_per_domain, seq_len + 1), domain int32), shuffled;
+    an exact transcription of ``repro.data.synthetic.make_token_dataset``.
+    """
+    rng = np.random.default_rng(seed)
+    xs, ds = [], []
+    for d in range(num_domains):
+        ranks = rng.permutation(vocab_size)
+        p = 1.0 / (1.0 + np.arange(vocab_size, dtype=np.float64)) ** 1.2
+        p /= p.sum()
+        probs = np.empty(vocab_size)
+        probs[ranks] = p
+        toks = rng.choice(vocab_size, size=(docs_per_domain, seq_len + 1),
+                          p=probs)
+        xs.append(toks)
+        ds.append(np.full(docs_per_domain, d, np.int32))
+    x = np.concatenate(xs).astype(np.int32)
+    dom = np.concatenate(ds)
+    perm = rng.permutation(len(dom))
+    return x[perm], dom[perm]

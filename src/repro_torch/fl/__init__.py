@@ -12,7 +12,7 @@ axis           question it answers                 built-ins
                                                    ``catgroups-pools``
 ``ClientStrategy``  how each client trains         ``fedavg``, ``fedprox``,
                                                    ``moon``, ``scaffold``,
-                                                   ``catchain``
+                                                   ``catchain``, ``lmstep``
 ``Judge``      whose update is admitted            ``maxent``, ``none``,
                                                    ``budget``
 ``Aggregator`` how admitted updates merge          ``weighted``, ``fused``,
@@ -69,7 +69,7 @@ from .selectors import (CatGrouper, PoolCatGrouper, PoolSelector,
                         QueueSelector, TracedPoolSelector, UniformSelector)
 from .server import Server, ServerConfig, total_uplink_bytes
 from .strategies import (CatChainStrategy, FedAvgStrategy, FedProxStrategy,
-                         MoonStrategy, ScaffoldStrategy)
+                         LMWindowStrategy, MoonStrategy, ScaffoldStrategy)
 from .runtime import (AsyncBufferedServer, AsyncConfig, PipelinedServer,
                       ProcessCompileCache, RuntimeConfig, ScanConfig,
                       ScanServer, SequentialEngine, disable_process_cache,
@@ -81,13 +81,14 @@ __all__ = [
     "ClientStrategy", "ClusterAssigner", "Composition", "DataQueue",
     "DeviceConcatAggregator", "DriftEvent", "FeSEMAssigner", "FedAvgStrategy",
     "FedProxStrategy", "FusedAverageAggregator", "HostCorpus", "IFCAAssigner",
-    "Judge", "LocalSpec", "MaxEntropyJudge", "ModelBank", "MoonStrategy",
-    "Normalize", "PassThroughJudge", "PerClusterAggregator", "PipelinedServer",
-    "PoolCatGrouper", "PoolSelector", "ProcessCompileCache", "QueueSelector",
-    "RuntimeConfig", "ScaffoldAggregator", "ScaffoldStrategy", "ScanConfig",
-    "ScanServer", "Selector", "SequentialEngine", "Server", "ServerConfig",
-    "TracedPoolSelector", "UniformSelector", "WeightedAverageAggregator",
-    "argmin_assign", "as_data_plane", "build", "disable_capture",
-    "disable_process_cache", "drift_schedule", "enable_process_cache", "get",
-    "names", "process_cache", "register", "total_uplink_bytes",
+    "Judge", "LMWindowStrategy", "LocalSpec", "MaxEntropyJudge", "ModelBank",
+    "MoonStrategy", "Normalize", "PassThroughJudge", "PerClusterAggregator",
+    "PipelinedServer", "PoolCatGrouper", "PoolSelector", "ProcessCompileCache",
+    "QueueSelector", "RuntimeConfig", "ScaffoldAggregator", "ScaffoldStrategy",
+    "ScanConfig", "ScanServer", "Selector", "SequentialEngine", "Server",
+    "ServerConfig", "TracedPoolSelector", "UniformSelector",
+    "WeightedAverageAggregator", "argmin_assign", "as_data_plane", "build",
+    "disable_capture", "disable_process_cache", "drift_schedule",
+    "enable_process_cache", "get", "names", "process_cache", "register",
+    "total_uplink_bytes",
 ]

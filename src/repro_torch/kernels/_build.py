@@ -52,6 +52,22 @@ def counted(fn):
     return fn
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raises if autograd would record through a kernel wrapper that has
+    no backward: grad mode on and any of ``tensors`` requiring grad. The
+    wrapper's output comes from a C call that autograd cannot see, so
+    going on would cut every gradient through it without a word. Checked
+    on every device, so the CPU (where the wrapper would take its plain
+    version) refuses as the card does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the cuda route has no backward (the kernel writes "
+            "its output outside autograd, and the JAX package's Pallas "
+            "kernel defines no VJP either); build the model with "
+            "kernels='torch' to train, or call it under torch.no_grad()")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

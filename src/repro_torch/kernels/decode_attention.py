@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import bind, counted, launch
+from ._build import bind, counted, launch, refuse_autograd
 
 _KERNELS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
@@ -35,6 +35,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      index: torch.Tensor | int, *, window: int = 0,
                      scale: float | None = None) -> torch.Tensor:
     """Returns (B, 1, H, D) in q's dtype."""
+    refuse_autograd("decode_attention", q, k, v)
     b = q.shape[0]
     if q.device.type == "cpu":
         off = torch.as_tensor(index).reshape(-1, 1)

@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import bind, counted, launch
+from ._build import bind, counted, launch, refuse_autograd
 
 _KERNELS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
@@ -31,6 +31,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
     """Returns (B, S, H, D) in q's dtype."""
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.mha_reference(q, k, v, causal=causal, window=window,
                                  scale=scale)

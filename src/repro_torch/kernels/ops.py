@@ -8,6 +8,17 @@ backend="cuda"  — the hand-written CUDA kernels; on a CUDA tensor the
 The route is an argument of every call: the LM modules receive it from
 ``build_model(..., kernels=...)``, the FL judge and aggregator from their
 own ``backend``. There is no global default.
+
+The ``"cuda"`` routes of attention (K3, K4) and the SSD scan (K5) have no
+backward: the wrappers fill an output buffer through a C call, which
+autograd cannot see, and the JAX package's Pallas kernels define no VJP
+either (``jax.grad`` through them fails). So their wrappers, and with
+them ``attention`` and ``ssd`` on the ``"cuda"`` route, raise whenever
+autograd would record through them (grad mode on and an input that
+requires grad), on any device (``_build.refuse_autograd``), rather than
+hand back an output that silently cuts the gradient. Training runs
+on the ``"torch"`` route; serving (under ``inference_mode``) and the FL
+kernels (detached inputs) are unaffected.
 """
 from __future__ import annotations
 

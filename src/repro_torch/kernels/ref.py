@@ -36,7 +36,10 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qq = q.reshape(b, s, kh, g, d).to(torch.float32)
     logits = torch.einsum("bskgd,btkd->bkgst", qq,
                           k.to(torch.float32)) * scale
-    off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+    # a Python offset stays on the host: no copy, so a CUDA graph can
+    # capture the plain version
+    off = (q_offset if isinstance(q_offset, int) else
+           torch.as_tensor(q_offset, device=dev).reshape(-1, 1))
     q_pos = torch.arange(s, device=dev)[None, :] + off           # (1|B, S)
     if kv_positions is None:
         kv_pos = torch.arange(t, device=dev)[None, :]            # (1, T)
@@ -50,7 +53,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window:
         mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
     logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(NEG_INF, device=dev))
+                         torch.full((), NEG_INF, device=dev))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
     return out.reshape(b, s, h, d).to(q.dtype)

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from . import ref
-from ._build import bind, counted, launch, load
+from ._build import bind, counted, launch, load, refuse_autograd
 
 _KERNELS = {torch.float32: "ssd_chunk_scan_f32",
             torch.bfloat16: "ssd_chunk_scan_bf16"}
@@ -49,6 +49,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 chunk: int = 256, init_state=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     assert init_state is None, "ssd_chunked kernel assumes zero init state"
+    refuse_autograd("ssd_chunked", x, dt, a, b_mat, c_mat)
     if x.device.type == "cpu":
         return ref.ssd_chunked_reference(x, dt, a, b_mat, c_mat, chunk=chunk)
     if x.device.type != "cuda":

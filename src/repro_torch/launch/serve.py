@@ -1,8 +1,10 @@
 """Batched serving: prefill a batch of prompts, then decode — the port
 of ``repro.launch.serve``.
 
-Serves random-init weights drawn from ``--seed`` (checkpoint restore
-waits for the port of the checkpoint I/O), in float32, on the card
+Serves random-init weights drawn from ``--seed``, or with ``--ckpt-dir``
+the latest checkpoint there (``repro_torch.checkpoint``: what
+``repro_torch.launch.train --ckpt-dir`` saves), restored into
+``Model.params()`` with every shape checked, in float32, on the card
 unless ``--device cpu``; ``--kernels cuda`` runs prefill attention,
 decode attention and the SSD scan on the hand-written kernels,
 ``--kernels torch`` on their plain versions.
@@ -18,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import restore
 from ..configs import ARCHS
 from ..device import resolve_device
 from ..models.api import build_model
@@ -40,6 +43,7 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kernels", default="cuda", choices=("cuda", "torch"))
@@ -52,6 +56,10 @@ def main(argv=None) -> np.ndarray:
     device = resolve_device(args.device)
     model = build_model(cfg, device=device, kernels=args.kernels,
                         seed=args.seed)
+    if args.ckpt_dir:
+        params, meta, step = restore(args.ckpt_dir, model.params())
+        model.net.load_state_dict(params)
+        print(f"restored step {step}: {meta}")
 
     b, s = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)

@@ -6,12 +6,21 @@ forward / hidden / prefill / decode_step / init_cache, the port of
 for the CPU, and fixes the kernel route: ``kernels="cuda"`` sends prefill
 attention to K3, decode attention to K4 and the SSD scan to K5;
 ``kernels="torch"`` runs their plain versions.
+
+The functional forward, for training: ``Model.params()`` is the weights
+by name, and ``apply`` / ``apply_hidden`` / ``loss`` take such a dict
+(``torch.func.functional_call``), so ``torch.func.grad`` and ``vmap`` or
+``torch.autograd`` differentiate with respect to it, as the reference
+differentiates ``model.forward(params, batch)``. The ``"cuda"`` route's
+attention and SSD kernels have no backward and refuse autograd
+(``kernels.ops``): a model that trains is built with ``kernels="torch"``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.func import functional_call
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -38,6 +47,35 @@ class Model:
     def hidden(self, batch: dict, *, window: int | None = None):
         return transformer.hidden(self.net, self._batch(batch),
                                   window=window)
+
+    def params(self) -> dict[str, torch.Tensor]:
+        """The weights by name (``named_parameters``): the tree
+        ``apply`` takes, ``convert.lm_params_to_numpy`` restacks and the
+        checkpoints hold."""
+        return dict(self.net.named_parameters())
+
+    def apply(self, params: dict, batch: dict, *,
+              window: int | None = None):
+        """(logits (B, S, V), aux) of ``batch`` (tensors on the model's
+        device) under the weights ``params``."""
+        return functional_call(self.net, params, (batch,),
+                               {"window": window})
+
+    def apply_hidden(self, params: dict, batch: dict, *,
+                     window: int | None = None):
+        """(final-norm hidden states (B, S, D), aux) under ``params``."""
+        return functional_call(self.net, params, (batch,),
+                               {"window": window, "head": False})
+
+    def loss(self, params: dict, batch: dict, *,
+             window: int | None = None):
+        """(next-token loss + router_aux_weight * aux, logits) of
+        ``batch`` (``tokens``, optional ``loss_weights``) under
+        ``params``."""
+        logits, aux = self.apply(params, batch, window=window)
+        loss = transformer.lm_loss(self.cfg, logits, batch["tokens"],
+                                   batch.get("loss_weights"))
+        return loss + self.cfg.router_aux_weight * aux, logits
 
     @torch.inference_mode()
     def prefill(self, batch: dict, *, window: int | None = None,

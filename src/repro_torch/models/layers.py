@@ -172,21 +172,32 @@ class Embed(nn.Module):
                      normal(gen, (d, v), d ** -0.5, pdtype_of(cfg)))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed.to(dtype_of(self.cfg))[tokens]
+        # F.embedding, not ``embed[tokens]``: under ``vmap(grad(...))`` the
+        # indexing's backward adds repeated tokens' rows in a varying
+        # order on the CPU, and a round must repeat to the bit
+        x = F.embedding(tokens, self.embed.to(dtype_of(self.cfg)))
         if self.cfg.embed_scale:
             x = x * self.cfg.d_model ** 0.5
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.tie_embeddings:
-            logits = x @ self.embed.to(x.dtype).T
-        else:
-            logits = x @ self.head.to(x.dtype)
-        v = cfg.padded_vocab
-        if v != cfg.vocab_size:                 # mask padded vocab slots
-            real = torch.arange(v, device=x.device) < cfg.vocab_size
-            logits = torch.where(real, logits,
-                                 torch.tensor(-1e9, dtype=logits.dtype,
-                                              device=x.device))
-        return logits
+        return logits_apply(self.cfg, {"embed": self.embed,
+                                       "head": self.head}, x)
+
+
+def logits_apply(cfg: ModelConfig, tok: dict,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Logits (..., padded vocab) of hidden states ``x`` from the ``tok``
+    weights (``embed``, and ``head`` when untied), the padded vocabulary
+    slots masked to -1e9 (probability 0 after a softmax)."""
+    if cfg.tie_embeddings:
+        logits = x @ tok["embed"].to(x.dtype).T
+    else:
+        logits = x @ tok["head"].to(x.dtype)
+    v = cfg.padded_vocab
+    if v != cfg.vocab_size:                 # mask padded vocab slots
+        real = torch.arange(v, device=x.device) < cfg.vocab_size
+        logits = torch.where(real, logits,
+                             torch.full((), -1e9, dtype=logits.dtype,
+                                        device=x.device))
+    return logits

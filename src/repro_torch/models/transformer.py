@@ -83,6 +83,13 @@ class Transformer(nn.Module):
                 for _ in range(groups))
             self.shared_attn = AttnBlock(cfg, gen)
 
+    def forward(self, batch: dict, *, window: int | None = None,
+                head: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """The full-sequence pass: (logits, aux), or with ``head=False``
+        (final-norm hidden states, aux). ``torch.func.functional_call``
+        runs it over a dict of weights (``Model.apply``)."""
+        return (forward if head else hidden)(self, batch, window=window)
+
 
 def init(cfg: ModelConfig, gen: torch.Generator,
          kernels: str = "torch") -> Transformer:
@@ -150,6 +157,28 @@ def forward(model: Transformer, batch: dict, *,
     """Training / eval forward. Returns (logits (B, S, V), aux)."""
     h, aux = hidden(model, batch, window=window)
     return model.tok.logits(h), aux
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(-log p(target), log p) at each position: the float32 log-softmax
+    of ``logits`` over the last axis, gathered at ``targets``."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(logp, targets.long()[..., None],
+                                dim=-1)[..., 0]
+    return nll, logp
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, tokens: torch.Tensor,
+            weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token cross entropy in float32. logits: (B, S, V); tokens:
+    (B, S); ``weights`` (B, S) weigh each target position (the first
+    column is unused)."""
+    nll, _ = token_nll(logits[:, :-1], tokens[:, 1:])
+    if weights is not None:
+        w = weights[:, 1:]
+        return (nll * w).sum() / w.sum().clamp(min=1e-9)
+    return nll.mean()
 
 
 # --------------------------------------------------------------- serving

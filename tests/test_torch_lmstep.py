@@ -1,0 +1,347 @@
+"""The lmstep client rule (``fl.LMWindowStrategy``) and the last-token LM
+client on the port's four engines, against the live JAX reference.
+
+``fl.build("fedentropy", lm_window_apply(model, cfg), ..., strategy=
+"lmstep")`` as ``repro.launch.train --lm-objective window`` builds it:
+reduced qwen3-0.6b (dense; reduced mamba2-130m, ssm, on the sequential
+server), 8 logical clients of 4 windows of 13 tokens from the
+domain-skewed corpus (``launch.train.build_fl_corpus``, case 1), cohorts
+of 4, E = 1 epoch of minibatch SGD (batch 2, momentum 0.5, lr 0.01: the
+paper's and the training CLI's), 3 rounds, on the CPU. The reference's
+init weights cross to the port as numpy
+(``convert.lm_params_from_numpy``).
+
+Against the reference (the port's policy, ROADMAP F1): the integer
+records (``selected``, ``positive``, ``negative``, comm bytes, and the
+pipelined and scan engines' ``spec_hit``/``redispatched``) equal; the
+entropy within 1e-6 (measured up to 6e-8 at about 6.1; the last-token
+client is held to 8 float32 spacings, see its test; at lr 0.05 lmstep's
+soft labels collapse to an entropy of 4.56 in round 0 and the two
+packages' float32 sums part by 1.6e-6 there, with equal verdicts); the
+params digest (sum of |w|) within a relative 1e-6 (measured 3e-8).
+Inside the port: the pipelined (speculation off and on) and async (zero
+clock) engines equal the sequential server bit for bit, and the scan
+engine (``pools-traced``) equals the sequential server on the same
+selector bit for bit, as ``examples/fl_llm_finetune.py --verify``
+asserts for the reference.
+
+The ``test_card_*`` cases need a card and skip without one; they take
+the port's own init weights and import nothing of JAX::
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_lmstep.py -k card
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+
+import repro_torch.fl as tfl
+from repro_torch.configs import ARCHS
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.fl.runtime import AsyncConfig, RuntimeConfig, ScanConfig
+from repro_torch.kernels.entropy_judge import entropy_judge_loop
+from repro_torch.kernels.fused_aggregate import masked_weighted_sum
+from repro_torch.launch import train as ttrain
+from repro_torch.models.api import build_model
+
+ROUNDS = 3
+ENT_ATOL = 1e-6
+DIGEST_RTOL = 1e-6
+SEQ, SAMPLES, CLIENTS = 12, 4, 8
+# engine -> (engine name, runtime factory by package, selector)
+ENGINES = {
+    "sequential": ("sequential", None, "pools"),
+    "pipelined-spec-off": ("pipelined", lambda fl: fl.RuntimeConfig(
+        speculate=False), "pools"),
+    "pipelined-spec-on": ("pipelined", lambda fl: fl.RuntimeConfig(
+        speculate=True), "pools"),
+    "async": ("async", lambda fl: fl.AsyncConfig(), "pools"),
+    "scan": ("scan", lambda fl: fl.ScanConfig(rounds_per_scan=2),
+             "pools-traced"),
+}
+INT_KEYS = ("round", "selected", "positive", "negative")
+
+
+def _data(cfg, seed=0):
+    corpus, idx = ttrain.build_fl_corpus(cfg, CLIENTS, "case1", SEQ, seed)
+    return corpus, idx, ttrain.stack_lm_clients(corpus, idx, SAMPLES, SEQ,
+                                                seed)
+
+
+def _local(fl):
+    return fl.LocalSpec(epochs=1, lr=0.01, batch_size=2)
+
+
+def _config(fl):
+    return fl.ServerConfig(num_clients=CLIENTS, participation=0.5, seed=0)
+
+
+def _drift_args(at):
+    return SimpleNamespace(seed=0, samples_per_client=SAMPLES,
+                           seq_len=SEQ, drift_at=at)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jax = pytest.importorskip("jax")
+    import repro.fl as rfl
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.launch import train as jtrain
+    from repro.models.api import build_model as jbuild
+    return SimpleNamespace(jax=jax, fl=rfl, train=jtrain, archs=JAX_ARCHS,
+                           build=jbuild)
+
+
+@pytest.fixture(scope="module")
+def lm(ref):
+    """arch -> (JAX model, JAX params, port model with those weights,
+    port config)."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            jcfg, cfg = ref.archs[arch].reduced(), ARCHS[arch].reduced()
+            jm = ref.build(jcfg)
+            params = jm.init(ref.jax.random.PRNGKey(0))
+            model = build_model(cfg, device="cpu", kernels="torch")
+            model.net.load_state_dict(lm_params_from_numpy(
+                cfg, ref.jax.tree.map(np.asarray, params)))
+            built[arch] = (jm, params, model, cfg)
+        return built[arch]
+    return get
+
+
+def _build(pkg, model, cfg, params, data, engine, *, window=True,
+           drift=None, **kw):
+    """The same composition in either package (``pkg``: the reference's
+    or the port's ``fl`` and ``train``)."""
+    eng, runtime, selector = ENGINES[engine]
+    apply = (pkg.train.lm_window_apply if window
+             else pkg.train.lm_client_apply)(model, cfg)
+    return pkg.fl.build(
+        "fedentropy", apply, params, data, _config(pkg.fl), _local(pkg.fl),
+        selector=selector, strategy="lmstep" if window else None,
+        engine=eng, runtime=runtime and runtime(pkg.fl), drift=drift, **kw)
+
+
+def _run(server, rounds=ROUNDS):
+    for _ in range(rounds):
+        server.round()
+    return server
+
+
+@pytest.fixture(scope="module")
+def reference(ref, lm):
+    """``reference(arch, engine, window=True, drift_at=-1)``: the live
+    reference's server after ROUNDS rounds, cached."""
+    runs = {}
+
+    def get(arch, engine, window=True, drift_at=-1):
+        key = (arch, engine, window, drift_at)
+        if key not in runs:
+            jm, params, _, _ = lm(arch)
+            corpus, idx, data = _data(jm.cfg)
+            drift = None
+            if drift_at >= 0:
+                drift = ref.train.build_drift_events(
+                    _drift_args(drift_at), _config(ref.fl), corpus, idx)
+            jdata = {k: ref.jax.numpy.asarray(v) for k, v in data.items()}
+            pkg = SimpleNamespace(fl=ref.fl, train=ref.train)
+            runs[key] = _run(_build(pkg, jm, jm.cfg, params, jdata, engine,
+                                    window=window, drift=drift))
+        return runs[key]
+    return get
+
+
+def _port(model, cfg, engine, *, window=True, drift_at=-1, device="cpu"):
+    corpus, idx, data = _data(cfg)
+    drift = None
+    if drift_at >= 0:
+        drift = ttrain.build_drift_events(_drift_args(drift_at),
+                                          _config(tfl), corpus, idx)
+    params = {k: v.detach() for k, v in model.params().items()}
+    pkg = SimpleNamespace(fl=tfl, train=ttrain)
+    return _build(pkg, model, cfg, params, data, engine, window=window,
+                  drift=drift, device=device)
+
+
+def _digest(leaves) -> float:
+    return sum(float(np.abs(np.asarray(x, np.float64)).sum())
+               for x in leaves)
+
+
+def _assert_matches_reference(got, want, ent_ulps=None):
+    """Integer records equal, entropy within ENT_ATOL (or within
+    ``ent_ulps`` float32 spacings at the entropy), params digest within
+    DIGEST_RTOL."""
+    assert len(got.history) == len(want.history) == ROUNDS
+    for x, y in zip(got.history, want.history):
+        for key in INT_KEYS + ("spec_hit", "redispatched"):
+            assert x.get(key) == y.get(key), (x["round"], key)
+        assert x["comm"]["total_bytes"] == y["comm"]["total_bytes"]
+        tol = (ENT_ATOL if ent_ulps is None else
+               ent_ulps * float(np.spacing(np.float32(y["entropy"]))))
+        assert x["entropy"] == pytest.approx(y["entropy"], abs=tol)
+    import jax
+    assert _digest(t.numpy() for t in got.global_params.values()) == \
+        pytest.approx(_digest(jax.tree.leaves(want.global_params)),
+                      rel=DIGEST_RTOL)
+
+
+def _assert_bit_equal(a, b):
+    assert len(a.history) == len(b.history)
+    for x, y in zip(a.history, b.history):
+        for key in INT_KEYS + ("entropy",):
+            assert x[key] == y[key], (x["round"], key)
+        assert x["comm"] == y["comm"]
+    for p, q in zip(pytree.tree_leaves(a.global_params),
+                    pytree.tree_leaves(b.global_params), strict=True):
+        assert torch.equal(p, q)
+
+
+# ------------------------------------------------------------- reference
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+@pytest.mark.parametrize("objective", ["window", "last-token"])
+def test_engines_match_reference(lm, reference, objective, engine):
+    """``lmstep`` (``lm_window_apply``) and the last-token client
+    (``lm_client_apply``: each window a classification sample, its last
+    token the label, under the plain fedavg rule) on every engine.
+
+    The last-token soft label averages only the S = 4 last-position
+    distributions (lmstep's averages S x L = 48), so the two packages'
+    float32 logits (3.1e-6 apart at init, of |logits| up to 3.9) reach
+    the group entropy less smoothed: measured up to 1.24e-6 apart at
+    4.97, 2.6 float32 spacings. It is held to 8 spacings at the entropy
+    (3.8e-6 there), the margin the port's 1e-6 gives the CNN's entropies
+    (spacing 1.2e-7 below ln 10)."""
+    _, _, model, cfg = lm("qwen3-0.6b")
+    window = objective == "window"
+    got = _run(_port(model, cfg, engine, window=window))
+    _assert_matches_reference(
+        got, reference("qwen3-0.6b", engine, window=window),
+        ent_ulps=None if window else 8)
+    assert any(rec["negative"] for rec in got.history)     # judged
+    if engine == "scan":
+        assert got.scan_rounds() == 2
+        assert got.fallback_reasons == []
+
+
+def test_lmstep_ssm_matches_reference(lm, reference):
+    _, _, model, cfg = lm("mamba2-130m")
+    got = _run(_port(model, cfg, "sequential"))
+    _assert_matches_reference(got, reference("mamba2-130m", "sequential"))
+
+
+def test_drift_events_and_drifted_rounds_match_reference(ref, lm,
+                                                         reference):
+    jm, _, model, cfg = lm("qwen3-0.6b")
+    corpus, idx, _ = _data(cfg)
+    got = ttrain.build_drift_events(_drift_args(1), _config(tfl), corpus,
+                                    idx)
+    want = ref.train.build_drift_events(_drift_args(1), _config(ref.fl),
+                                        corpus, idx)
+    assert len(got) == len(want) == 1
+    assert (got[0].round, got[0].clients) == (want[0].round,
+                                               want[0].clients)
+    for k in ("x", "y", "w"):
+        np.testing.assert_array_equal(got[0].data[k], want[0].data[k])
+        assert got[0].data[k].dtype == np.asarray(want[0].data[k]).dtype
+    server = _run(_port(model, cfg, "sequential", drift_at=1))
+    _assert_matches_reference(server, reference("qwen3-0.6b", "sequential",
+                                                drift_at=1))
+    assert server.corpus.cohort(np.arange(2))["x"].dtype == torch.int32
+
+
+# ---------------------------------------------------------- inside the port
+
+def test_port_engines_equal_sequential_bit_for_bit(lm):
+    _, _, model, cfg = lm("qwen3-0.6b")
+    seq = _run(_port(model, cfg, "sequential"))
+    for engine in ("pipelined-spec-off", "pipelined-spec-on", "async"):
+        _assert_bit_equal(_run(_port(model, cfg, engine)), seq)
+
+
+def test_scan_equals_sequential_bit_for_bit(lm):
+    """The scan engine runs lmstep in blocks (no fallback) and equals the
+    sequential server on the same traced pools, as the reference's
+    ``examples/fl_llm_finetune.py --verify`` asserts."""
+    _, _, model, cfg = lm("qwen3-0.6b")
+    corpus, idx, data = _data(cfg)
+    params = {k: v.detach() for k, v in model.params().items()}
+    apply = ttrain.lm_window_apply(model, cfg)
+
+    def build(engine, runtime=None):
+        return tfl.build("fedentropy", apply, params, data, _config(tfl),
+                         _local(tfl), selector="pools-traced",
+                         strategy="lmstep", engine=engine, runtime=runtime,
+                         device="cpu")
+
+    scan = _run(build("scan", ScanConfig(rounds_per_scan=2,
+                                         params_mode="remat")), 4)
+    assert scan.stats()["effective_rounds_per_scan"] == 2
+    _assert_bit_equal(scan, _run(build("sequential"), 4))
+
+
+@pytest.mark.parametrize("plane", ["resident", "streaming"])
+def test_token_windows_stay_int32(plane):
+    """No transform casts the token windows: the cohort, a drifted row and
+    the queue mask keep ``x`` int32 on both data planes."""
+    cfg = ARCHS["qwen3-0.6b"].reduced()
+    corpus, idx, data = _data(cfg)
+    plane_corpus = tfl.as_data_plane(data, plane, device="cpu")
+    new = ttrain.build_drift_events(_drift_args(0), _config(tfl), corpus,
+                                    idx)[0]
+    drifted = plane_corpus.with_rows(new.clients, new.data)
+    for c in (plane_corpus, drifted):
+        out = c.cohort(np.arange(3), active=np.array([1, 2, 4]))
+        assert out["x"].dtype == torch.int32
+        np.testing.assert_array_equal(out["w"].sum(1).numpy(), [1, 2, 4])
+    np.testing.assert_array_equal(
+        drifted.cohort(np.asarray(new.clients))["x"].numpy(), new.data["x"])
+
+
+def test_lmstep_is_registered_and_refuses_other_rules():
+    assert tfl.get("strategy", "lmstep") is tfl.LMWindowStrategy
+    with pytest.raises(ValueError, match="conflicts"):
+        tfl.LMWindowStrategy(tfl.LocalSpec("moon"))
+
+
+# --------------------------------------------------------------- card only
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and K1 have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def test_card_lmstep_pipelined_captured_equals_sequential(cuda):
+    """lmstep's client program captured as one CUDA graph: the pipelined
+    engine (K1's loop speculating, K2 aggregating) equals the sequential
+    server bit for bit, with one K1 launch a speculated round."""
+    cfg = ARCHS["qwen3-0.6b"].reduced()
+    model = build_model(cfg, device=cuda, kernels="torch")
+    _, _, data = _data(cfg)
+    params = {k: v.detach() for k, v in model.params().items()}
+    apply = ttrain.lm_window_apply(model, cfg)
+
+    def build(engine, runtime=None):
+        return tfl.build(
+            "fedentropy", apply, params, data, _config(tfl), _local(tfl),
+            strategy="lmstep", engine=engine, runtime=runtime,
+            aggregator=tfl.FusedAverageAggregator("cuda"), device=cuda)
+
+    seq = _run(build("sequential"))
+    assert seq.graphs_captured == 1
+    k1, k2 = entropy_judge_loop.launches, masked_weighted_sum.launches
+    pip = _run(build("pipelined", RuntimeConfig(speculate=True)))
+    assert entropy_judge_loop.launches - k1 == ROUNDS
+    assert masked_weighted_sum.launches - k2 >= ROUNDS
+    _assert_bit_equal(pip, seq)
+    with tfl.disable_capture():
+        eager = _run(build("async", AsyncConfig()))
+    _assert_bit_equal(eager, seq)
