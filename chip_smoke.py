@@ -37,9 +37,12 @@ Phases, each of which raises on failure (exit code non-zero):
    empty kernel launched the same way);
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
-   the JAX kernel tests' shapes and at the serve path's (K5 also with
-   strong decay over 16 chunks, and twice on the same inputs, which must
-   give the same bits);
+   the JAX kernel tests' shapes and at the serve paths' (Zamba2-2.7B's;
+   qwen3-moe-235b-a22b's 64 query heads over 4 KV heads, where K4 splits
+   each group of 16 over two blocks, and chatglm3-6b's 32 over 2;
+   gemma-7b's head width of 256; K5 also with strong decay over 16
+   chunks, and twice on the same inputs, which must give the same
+   bits);
 7. serve Zamba2-2.7B at full width (random weights, float32): 4 prompts
    of 1024 tokens, then 32 greedy tokens, through ``build_model(...,
    kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
@@ -175,6 +178,27 @@ Phases, each of which raises on failure (exit code non-zero):
    a flush) and the scan engine (blocks of 2 captured, pools-traced)
    equal the sequential server bit for bit; and the cuda route of
    ``ops.attention`` and ``ops.ssd`` refuses tensors that require grad.
+17. serve qwen3-moe-235b-a22b at its published widths (d_model 4096, 64
+   heads of 128 over 4 KV heads, 128 experts of d_ff 1536, top 8, vocab
+   151,936 padded to 152,064, untied) cut to 4 of its 94 layers,
+   11,196,732,416 float32 params from a seed, one copy on the card: 4
+   prompts of 1024 tokens, then 32 greedy tokens, through
+   ``build_model(..., kernels="cuda")``, the reference's sort-based
+   capacity dispatch in every layer; K3 4 launches, K4 124 and nothing
+   else. The same model replays the prompts and tokens on the plain
+   route (``Transformer.kernels`` switched): each layer's routing
+   integers (top-k expert sets, positions in expert, dropped counts)
+   must equal the kernel route's, except at a split, a token at a tie of
+   its k-th and (k+1)-th experts at LOGITS_RTOL (its router input equal
+   on both routes within LOGITS_RTOL, the two experts' float64
+   probabilities within LOGITS_RTOL of each other), which is printed
+   with float32's spacing at the probability, and everything downstream
+   of it left out of the comparisons; logits within LOGITS_RTOL
+   elsewhere. Prefill cold and
+   warm, decode ms per step, a profile of the prefill and its stages
+   (routing and dispatch, expert products, combine, attention, head) by
+   CUDA events, the memory before the phase and its peak, and K3 and K4
+   at this model's shapes in turns with their plain versions and SDPA.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -197,7 +221,10 @@ and ``scan fedavg``
 phase 15's ``streaming``, ``streaming pipelined`` and ``streaming
 pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 ``lmstep pipelined``, ``lmstep async`` and ``lmstep scan``; they also
-carry ``lm_shapes``, phase 16's times at the LM shapes.
+carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
+``launches_by_path`` (``zamba2 serve``, phase 7, and ``qwen3-moe
+serve``, phase 17) and ``lm_shapes``, phase 17's times at that model's
+shapes.
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -235,7 +262,7 @@ from repro_torch.kernels import (  # noqa: E402
     _build, entropy_judge, fused_aggregate, ref)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention)
+    HEADS_PER_BLOCK, decode_attention)
 from repro_torch.kernels.entropy_judge import (  # noqa: E402
     entropy_judge_loop, entropy_judge_sweep)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -245,7 +272,9 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.time_judge import judgment_ms  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 
@@ -268,6 +297,11 @@ K5_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
 # serve path: Zamba2-2.7B, B prompts of S tokens, then GEN greedy tokens
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_GEN = "zamba2-2.7b", 4, 1024, 32
 LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
+# phase 17: qwen3-moe-235b-a22b cut to MOE_LAYERS of its 94 layers at its
+# published widths; the parameter count is jax.eval_shape's of the
+# reference's init at that depth
+MOE_ARCH, MOE_LAYERS, MOE_PARAMS = "qwen3-moe-235b-a22b", 4, 11_196_732_416
+MOE_B, MOE_S, MOE_GEN = 4, 1024, 32
 
 WRAPPERS = {"entropy_judge_sweep": entropy_judge_sweep,
             "entropy_judge_loop": entropy_judge_loop,
@@ -2740,6 +2774,8 @@ def check_k3() -> float:
         (1, 90, 90, 4, 4, 17, 0),                           # odd D
         (2, 300, 300, 4, 4, 80, 24),          # fully masked leading tiles
         (1, 16, 300, 4, 2, 80, 0),                          # S < T, T % 64
+        (MOE_B, MOE_S, MOE_S, 64, 4, 128, 0),       # qwen3-moe prefill
+        (MOE_B, MOE_S, MOE_S, 16, 16, 256, 0),      # gemma-7b's D = 256
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -2772,6 +2808,13 @@ def check_k4() -> float:
         (SERVE_B, t_serve, 32, 32, 80, 256, 1040),          # ... windowed
         (SERVE_B, t_serve, 32, 32, 80, 0, [1055, 900, 700, 1030]),  # ragged
         (SERVE_B, t_serve, 16, 8, 128, 0, 1040),            # Qwen3 GQA
+        # qwen3-moe-235b-a22b: g = 16, a group split over two blocks
+        (MOE_B, t_serve, 64, 4, 128, 0, 1040),
+        (MOE_B, t_serve, 64, 4, 128, 256, 1040),
+        (MOE_B, t_serve, 64, 4, 128, 0, [1055, 900, 700, 1030]),
+        (MOE_B, t_serve, 64, 4, 128, 256, [1055, 900, 700, 1030]),
+        (MOE_B, t_serve, 32, 2, 128, 0, 1040),              # chatglm3-6b
+        (MOE_B, t_serve, 16, 16, 256, 0, 1040),             # gemma-7b
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -3235,8 +3278,9 @@ def gradient_step() -> dict:
 def build_lmstep(model, cfg, data, engine="sequential", **kw):
     """``fl.build("fedentropy", lm_window_apply(...), strategy="lmstep")``
     as ``launch.train --lm-objective window`` builds it: 8 logical
-    clients, cohorts of 4, E = 1, minibatches of 2, lr 0.01, with K2
-    aggregating (``FusedAverageAggregator("cuda")``)."""
+    clients, cohorts of 4, E = 1, minibatches of 2, lr 0.01; with K2
+    aggregating (``FusedAverageAggregator("cuda")``, passed here: the
+    CLI's aggregator is the composition's)."""
     params = {k: v.detach() for k, v in model.params().items()}
     return fl.build(
         "fedentropy", train.lm_window_apply(model, cfg), params, data,
@@ -3521,6 +3565,429 @@ def lm_training_path() -> dict:
             "peak_bytes": peak, "k1_err": k1_err}
 
 
+# ------------------------------------------- 17. qwen3-moe-235b-a22b serve
+
+def _moe_config():
+    return ARCHS[MOE_ARCH].replace(num_layers=MOE_LAYERS, remat="none",
+                                   param_dtype="float32", dtype="float32")
+
+
+class RoutingRecorder:
+    """Forward pre-hooks on every layer's MoE block. For each call (the
+    prefill, then each decode step) and layer they keep the block's input
+    and its routing as ``moe.route`` and ``moe.positions`` compute it:
+    the block's own functions on the block's own input. Everything stays
+    on the card until :meth:`host` (no host read inside a timed step)."""
+
+    def __init__(self, model):
+        self.cfg, self.calls = model.cfg, []
+        self.handles = [lp.moe.register_forward_pre_hook(self._hook(i))
+                        for i, lp in enumerate(model.net.layers)]
+
+    def _hook(self, layer):
+        def hook(block, args):
+            xt = args[0].reshape(-1, args[0].shape[-1])
+            if layer == 0:
+                self.calls.append([])
+            _, top_i, _, probs = moe_mod.route(self.cfg, block.router.w, xt)
+            self.calls[-1].append({
+                "x": xt.clone(), "probs": probs, "top_i": top_i,
+                "pos": moe_mod.positions(top_i),
+                "cap": moe_mod.capacity(self.cfg, xt.shape[0])})
+        return hook
+
+    def host(self) -> list:
+        """Removes the hooks; the calls with the integers as numpy."""
+        for h in self.handles:
+            h.remove()
+        for call in self.calls:
+            for rec in call:
+                rec["top_i"] = rec["top_i"].cpu().numpy()
+                rec["pos"] = rec["pos"].cpu().numpy()
+        return self.calls
+
+
+def _kth_margin(probs_row: torch.Tensor, k: int) -> float:
+    """The k-th largest probability minus the (k+1)-th, float32."""
+    top = torch.topk(probs_row, k + 1).values
+    return float(top[k - 1] - top[k])
+
+
+def _by_expert(top_i: np.ndarray, pos: np.ndarray, e: int) -> np.ndarray:
+    """(T, E): each token's position in each expert, -1 where the token
+    is not routed there."""
+    t, k = top_i.shape
+    out = np.full((t, e), -1, dtype=np.int64)
+    out[np.repeat(np.arange(t), k), top_i.reshape(-1)] = pos
+    return out
+
+
+def routing_splits(model, rec_k: list, rec_p: list, b: int, s: int):
+    """Holds the plain route's routing (``rec_p``) against the kernel
+    route's (``rec_k``), call by call and layer by layer.
+
+    A token whose top-k expert set differs between the routes is a
+    split. The two routes' attention differs within its tolerance, so
+    the router's inputs differ by that much, and a token at a near-tie
+    of its k-th and (k+1)-th experts can change sides. A split is
+    admissible when it is a tie at the phase's tolerance: the token's
+    router input agrees between the routes within LOGITS_RTOL (max |diff|
+    / max |x|), and the experts it swaps differ in router probability,
+    recomputed in float64 from the kernel route's input, by less than
+    LOGITS_RTOL of the larger one. Each split is printed with both
+    routes' k-th/(k+1)-th float32 margins and float32's spacing at the
+    probability (information). A split changes the token's output, so
+    from the next layer on every later position of its row (causal
+    attention) is downstream of it: left out of the set comparisons and
+    of the logits. Positions in expert depend only on which earlier
+    tokens an expert took, so each expert's positions are compared up to
+    the first token whose membership in it differs, and its dropped count
+    where none does. Returns (first, splits, bad, counts): first[r] the
+    first position of row r downstream of a split (inf when none), every
+    split, the failures, and how much each comparison covered."""
+    cfg = model.cfg
+    k, e = cfg.experts_per_token, cfg.num_experts
+    first = np.full(b, np.inf)
+    splits, bad = [], []
+    counts = {"tokens": 0, "assignments": 0, "experts_dropped": 0,
+              "order": 0, "pairs": 0}
+    for c, (call_k, call_p) in enumerate(zip(rec_k, rec_p)):
+        per_row = s if c == 0 else 1
+        base = 0 if c == 0 else s + c - 1        # position of the token
+        for layer, (lk, lp) in enumerate(zip(call_k, call_p)):
+            ik, ip = lk["top_i"], lp["top_i"]
+            t = ik.shape[0]
+            rows = np.arange(t) // per_row
+            where = base + np.arange(t) % per_row
+            out = where >= first[rows]               # downstream of a split
+            same = (np.sort(ik, 1) == np.sort(ip, 1)).all(1)
+            counts["tokens"] += int((~out).sum())
+            counts["order"] += int((~out & same & (ik != ip).any(1)).sum())
+            counts["pairs"] += 1
+            dk = _by_expert(ik, lk["pos"], e)
+            dp = _by_expert(ip, lp["pos"], e)
+            differ = (dk >= 0) != (dp >= 0)
+            upto = np.where(differ.any(0), differ.argmax(0), t)
+            ok = (np.arange(t)[:, None] < upto[None, :]) & (dk >= 0)
+            if not np.array_equal(dk[ok], dp[ok]):
+                bad.append(f"call {c} layer {layer}: positions in expert "
+                           f"differ where the experts' earlier tokens agree")
+            counts["assignments"] += int(ok.sum())
+            whole = upto == t
+            drop_k = (dk >= lk["cap"]).sum(0)[whole]
+            drop_p = (dp >= lp["cap"]).sum(0)[whole]
+            if not np.array_equal(drop_k, drop_p):
+                bad.append(f"call {c} layer {layer}: dropped counts differ "
+                           f"in experts whose tokens agree")
+            counts["experts_dropped"] += int(whole.sum())
+            w = model.net.layers[layer].moe.router.w.detach().double()
+            for j in np.flatnonzero(~out & ~same):
+                xk, xp = lk["x"][j], lp["x"][j]
+                x_rel = float((xk - xp).abs().max() / xk.abs().max())
+                p64 = torch.softmax(xk.double() @ w, -1).cpu()
+                gone = sorted(set(ik[j].tolist()) - set(ip[j].tolist()))
+                came = sorted(set(ip[j].tolist()) - set(ik[j].tolist()))
+                gap, top = max((abs(float(p64[a] - p64[n])),
+                                max(float(p64[a]), float(p64[n])))
+                               for a in gone for n in came)
+                split = {"call": c, "layer": layer, "row": int(rows[j]),
+                         "position": int(where[j]), "kernel_only": gone,
+                         "plain_only": came, "input_rel_diff": x_rel,
+                         "float64_gap": gap, "probability": top,
+                         "f32_spacing": _f32_ulp(top),
+                         "kernel_margin": _kth_margin(lk["probs"][j], k),
+                         "plain_margin": _kth_margin(lp["probs"][j], k)}
+                print(f"routing split: {split}")
+                splits.append(split)
+                if not (x_rel <= LOGITS_RTOL and gap < LOGITS_RTOL * top):
+                    bad.append(f"a split that is no tie at LOGITS_RTOL: "
+                               f"{split}")
+            for sp in splits:
+                if sp["call"] == c and sp["layer"] == layer:
+                    first[sp["row"]] = min(first[sp["row"]], sp["position"])
+    return first, splits, bad, counts
+
+
+def _stage_ms(fn) -> float:
+    return _time_ms(fn, iters=5, warmup=2)
+
+
+def moe_prefill_stages(model, rec: list, prefill_s: float) -> dict:
+    """ms of each stage of the kernel route's prefill, summed over the
+    layers, by CUDA events on each layer's own recorded MoE input: the
+    routing and dispatch (``moe.route``, ``dispatch``, ``scatter`` into
+    the (E, C, D) buffer), the expert products, the combine, the
+    attention block (projections, qk-norm, RoPE, K3) and K3 alone, and the
+    head."""
+    cfg = model.cfg
+    e = cfg.num_experts
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    stages = {"routing and dispatch": 0.0, "expert products": 0.0,
+              "combine": 0.0, "attention block (K3 inside)": 0.0,
+              "K3 alone": 0.0}
+    h = _randn((MOE_B, MOE_S, cfg.d_model), gen)
+    positions = torch.arange(MOE_S, device=DEV)[None].expand(MOE_B, MOE_S)
+    with torch.inference_mode():
+        for lp, lrec in zip(model.net.layers, rec):
+            xt, cap = lrec["x"], lrec["cap"]
+
+            def dispatch(xt=xt, lp=lp, cap=cap):
+                top_p, top_i, _, _ = moe_mod.route(cfg, lp.moe.router.w, xt)
+                row, kept = moe_mod.dispatch(cfg, top_i, cap)
+                return top_p, row, kept, moe_mod.scatter(xt, row, e, cap)
+
+            top_p, row, kept, buf = dispatch()
+            y = moe_mod.experts(lp.moe, buf)
+            stages["routing and dispatch"] += _stage_ms(dispatch)
+            stages["expert products"] += _stage_ms(
+                lambda lp=lp, buf=buf: moe_mod.experts(lp.moe, buf))
+            stages["combine"] += _stage_ms(
+                lambda: moe_mod.combine(y, row, kept, top_p))
+            stages["attention block (K3 inside)"] += _stage_ms(
+                lambda lp=lp: attn_mod.self_attention(
+                    cfg, lp.attn, h, positions=positions, kernels="cuda"))
+            del y, buf, row, kept, top_p
+        q = _randn((MOE_B, MOE_S, cfg.num_heads, cfg.head_dim), gen)
+        kv = _randn((MOE_B, MOE_S, cfg.num_kv_heads, cfg.head_dim), gen)
+        stages["K3 alone"] = MOE_LAYERS * _stage_ms(
+            lambda: flash_attention(q, kv, kv, causal=True))
+        stages["head"] = _stage_ms(lambda: model.net.tok.logits(h))
+    whole = prefill_s * 1e3
+    print(f"prefill stages, ms summed over {MOE_LAYERS} layers (CUDA "
+          f"events, each stage alone, warm), against the warm prefill's "
+          f"{whole:.1f} ms:")
+    for name, ms in stages.items():
+        print(f"  {ms:10.3f} ms  {ms / whole:6.3f}  {name}")
+    rest = whole - sum(v for n, v in stages.items() if n != "K3 alone")
+    print(f"  {rest:10.3f} ms  {rest / whole:6.3f}  the rest: the warm "
+          f"prefill less the stages but K3 alone (embedding, norms, "
+          f"residual adds, the host between them)")
+    return stages
+
+
+def time_moe_kernels() -> dict:
+    """K3 and K4 at qwen3-moe-235b-a22b's serve shapes, float32, in turns
+    with their plain versions and SDPA (``enable_gqa``): name -> (ms per
+    call, plain ms, library ms, bound ms, bound_by, kernel ms, shape)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    cfg = _moe_config()
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    kw = dict(iters=20, warmup=3)
+    b, s, h, kh, d = MOE_B, MOE_S, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    t = MOE_S + MOE_GEN
+    out = {}
+
+    q = _randn((b, s, h, d), gen)
+    k, v = (_randn((b, s, kh, d), gen) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    call = lambda: flash_attention(q, k, v, causal=True)
+    ms = _time_turns({
+        "kernel": call,
+        "plain": lambda: ref.mha_reference(q, k, v, causal=True),
+        "library": lambda: sdpa(qt, kt, vt, is_causal=True,
+                                enable_gqa=True)}, **kw)
+    dev_ms = _device_ms(call, ("flash_fwd",), iters=10)
+    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * 4
+    flops = 2 * b * h * d * s * (s + 1)
+    out["flash_attention"] = (ms["kernel"], ms["plain"], ms["library"],
+                              *_bound_ms(nbytes, 3 * flops,
+                                         TF32_FLOP_PER_S), dev_ms,
+                              (b, s, h, kh, d))
+    del q, k, v, qt, kt, vt
+
+    q = _randn((b, 1, h, d), gen)
+    kc, vc = (_randn((b, t, kh, d), gen) for _ in range(2))
+    tags, idx = _tags(b, t, t - 1)
+    mask = ((tags >= 0) & (tags <= idx[:, None]))[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    call = lambda: decode_attention(q, kc, vc, tags, idx)
+    ms = _time_turns({
+        "kernel": call,
+        "plain": lambda: ref.mha_reference(q, kc, vc, causal=True,
+                                           q_offset=idx[:, None],
+                                           kv_positions=tags),
+        "library": lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                enable_gqa=True)}, **kw)
+    dev_ms = _device_ms(call, ("decode_kernel",), iters=10)
+    seen = int(mask.sum()) // b
+    cache_bytes = 2 * b * seen * kh * d * 4
+    out["decode_attention"] = (ms["kernel"], ms["plain"], ms["library"],
+                               *_bound_ms(
+        cache_bytes + (2 * b * h * d + b * t + b) * 4,
+        4 * b * h * seen * d), dev_ms, (b, t, h, kh, d))
+    reads = -(-(h // kh) // HEADS_PER_BLOCK)
+    print(f"K4 at ({b}, {t}, {h} over {kh}, {d}): g = {h // kh} is served "
+          f"by {reads} blocks a KV head, each reading its cache: "
+          f"{reads * cache_bytes / 1e6:.1f} MB read against the "
+          f"single-read {cache_bytes / 1e6:.1f} MB "
+          f"({reads * cache_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms against "
+          f"{cache_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s); "
+          f"grid {kh * reads} x {b} = {kh * reads * b} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs")
+    del q, kc, vc, qt, kt, vt
+    for name, (ms, plain_ms, lib_ms, bound, by, dev, shape) in out.items():
+        print(f"{name} {shape}: {ms:.5f} ms per call (kernel alone "
+              f"{dev:.5f} ms), plain {plain_ms:.5f} ms, library "
+              f"{lib_ms:.5f} ms (in turns), bound {bound:.5f} ms ({by})")
+    return out
+
+
+def moe_serve_path() -> dict:
+    """Phase 17: qwen3-moe-235b-a22b at its published widths, MOE_LAYERS
+    layers, through the port's entry points on the kernel route, then
+    replayed on the plain route on the same weights."""
+    cfg = _moe_config()
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    print(f"device memory allocated before the phase: {_gib(before)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV, kernels="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    print(f"{cfg.name} at {cfg.num_layers} of 94 layers: {n_params} params "
+          f"({_gib(n_params * 4)} float32), random init on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {MOE_PARAMS}")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_S)), device=DEV)
+    cache_len = MOE_S + MOE_GEN
+
+    recorder = RoutingRecorder(model)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_logits, cache = model.prefill({"tokens": prompts},
+                                          cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = prefill_logits[:, -1:].argmax(-1)
+    tokens, step_logits = [tok], []
+    for _ in range(MOE_GEN - 1):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits[:, -1:].argmax(-1)
+        step_logits.append(logits)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expect = {name: 0 for name in WRAPPERS}
+    expect["flash_attention"] = MOE_LAYERS
+    expect["decode_attention"] = MOE_LAYERS * (MOE_GEN - 1)
+    print(f"launches in one request batch: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"moe serve launches {launches} != {expect}")
+    gen_tokens = torch.cat(tokens, dim=1)
+    if prefill_logits.shape != (MOE_B, MOE_S, cfg.padded_vocab) or \
+            gen_tokens.shape != (MOE_B, MOE_GEN):
+        raise AssertionError("moe serve output shapes are wrong")
+    if not (bool(torch.isfinite(prefill_logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError("non-finite moe serve logits")
+    rec_k = recorder.host()
+    drops = [sum(int((r["pos"] >= r["cap"]).sum()) for r in call)
+             for call in rec_k]
+    print(f"prefill {MOE_B}x{MOE_S} (first call, routing hooks on): "
+          f"{prefill_s:.4f} s; capacity {rec_k[0][0]['cap']} a prefill "
+          f"expert ({rec_k[1][0]['cap']} a decode step); assignments "
+          f"dropped: {drops[0]} of {MOE_LAYERS * MOE_B * MOE_S * 8} in the "
+          f"prefill, {sum(drops[1:])} in the decode steps")
+    print(f"  seq0: {gen_tokens[0].tolist()}")
+
+    # the plain route on the same module, teacher-forced
+    recorder = RoutingRecorder(model)
+    model.net.kernels = "torch"
+    try:
+        lg, pcache = model.prefill({"tokens": prompts}, cache_len=cache_len)
+        plain_logits = [lg]
+        for i in range(MOE_GEN - 1):
+            lg, pcache = model.decode_step(pcache, tokens[i])
+            plain_logits.append(lg)
+    finally:
+        model.net.kernels = "cuda"
+    rec_p = recorder.host()
+    first, splits, bad, counts = routing_splits(model, rec_k, rec_p, MOE_B,
+                                                MOE_S)
+    print(f"routing integers compared over {counts['pairs']} (call, "
+          f"layer) pairs: top-k sets of {counts['tokens']} tokens, "
+          f"positions in expert of {counts['assignments']} assignments, "
+          f"dropped counts of {counts['experts_dropped']} experts; "
+          f"{len(splits)} splits; {counts['order']} tokens with the same "
+          f"set in another order (information)")
+    # max |logit| over the real vocabulary: the padded slots hold -1e9
+    v = cfg.vocab_size
+    pos = torch.arange(MOE_S, device=DEV)
+    keep = pos[None, :] < torch.as_tensor(first, device=DEV)[:, None]
+    diff = (plain_logits[0] - prefill_logits)[..., :v].abs().amax(-1)
+    scale = float(prefill_logits[..., :v].abs().max())
+    rel = [float((diff * keep).max()) / scale]
+    below = float((diff * ~keep).max()) / scale
+    for i in range(MOE_GEN - 1):
+        rows = torch.as_tensor(MOE_S + i < first, device=DEV)
+        d = (plain_logits[i + 1] - step_logits[i])[..., :v].abs().amax(
+            (1, 2))
+        scale = float(step_logits[i][..., :v].abs().max())
+        rel.append(float((d * rows).max()) / scale)
+        below = max(below, float((d * ~rows).max()) / scale)
+    left_out = int((~keep).sum())
+    print(f"kernel route vs plain route (teacher-forced): max |diff| / max "
+          f"|logit| = {rel[0]:.3e} on the prefill, {max(rel[1:]):.3e} over "
+          f"the decode steps (tolerance {LOGITS_RTOL}); left out downstream "
+          f"of a split: {left_out} of {MOE_B * MOE_S} prefill positions and "
+          f"{int((MOE_S + MOE_GEN - 2 >= first).sum())} of {MOE_B} rows "
+          f"from the last decode step, where the two routes part by "
+          f"{below:.3e} (information)")
+    del plain_logits, pcache, lg
+    if bad:
+        raise AssertionError("routing parts between the routes: " +
+                             "; ".join(bad))
+    if not max(rel) <= LOGITS_RTOL:
+        raise AssertionError(f"kernel and plain route logits differ: "
+                             f"{max(rel)} > {LOGITS_RTOL}")
+
+    # warm timings on the kernel route, no hooks
+    del step_logits, cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = model.prefill({"tokens": prompts}, cache_len=cache_len)
+    torch.cuda.synchronize()
+    warm_prefill_s = time.perf_counter() - t0
+    if not torch.equal(lg, prefill_logits):
+        raise AssertionError("a second prefill gives other bits")
+    del lg
+    step_ms = []
+    for i in range(MOE_GEN - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tokens[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"prefill {MOE_B}x{MOE_S} (warm): {warm_prefill_s:.4f} s; decode "
+          f"median {statistics.median(step_ms):.3f} ms/step over "
+          f"{MOE_GEN - 1} steps (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f})")
+    prof_prefill = _profiled(
+        lambda: model.prefill({"tokens": prompts}, cache_len=cache_len))
+    _print_profile("prefill", *prof_prefill, top=12)
+    prof_step = _profiled(lambda: model.decode_step(cache, tokens[-1]))
+    _print_profile("decode step", *prof_step)
+    del cache, logits, prefill_logits
+    stages = moe_prefill_stages(model, rec_k[0], warm_prefill_s)
+    del rec_k, rec_p
+    peak = torch.cuda.max_memory_allocated()
+    print(f"device memory: {_gib(before)} before the phase, peak "
+          f"{_gib(peak)} ({_gib(peak - before)} above it)")
+    del model
+    gc_collect()
+    return {"launches": launches, "prefill_s": prefill_s,
+            "warm_prefill_s": warm_prefill_s,
+            "decode_ms": statistics.median(step_ms), "rel": max(rel),
+            "splits": len(splits), "stages": stages, "peak_bytes": peak}
+
+
 def gc_collect() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3613,6 +4080,14 @@ def main() -> int:
     t16 = time.perf_counter()
     trained = lm_training_path()
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    _phase(f"17. serve {MOE_ARCH} at its published widths, {MOE_LAYERS} of "
+           f"94 layers: {MOE_B} prompts of {MOE_S} tokens, {MOE_GEN} greedy "
+           f"tokens, sort-based capacity dispatch over 128 experts; K3 and "
+           f"K4 at g = 16")
+    t17 = time.perf_counter()
+    moe_served = moe_serve_path()
+    moe_times = time_moe_kernels()
+    print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3653,6 +4128,15 @@ def main() -> int:
         if name == "flash_attention":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
+        if name in moe_times:
+            row["launches_by_path"] = {
+                "zamba2 serve": count,
+                "qwen3-moe serve": moe_served["launches"][name]}
+            t = moe_times[name]
+            row["lm_shapes"] = {"qwen3-moe serve": {
+                "shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
+                "library_ms": t[2], "bound_ms": t[3], "bound_by": t[4],
+                _kernel_ms_key(t[5]): t[5]}}
         if name in ("entropy_judge_loop", "masked_weighted_sum"):
             row["launches_by_path"] = {"fedentropy": count, **{
                 comp: o["launches"][name] for comp, o in others.items()}, **{

@@ -1,0 +1,13 @@
+"""qwen3-moe-235b-a22b — 128 experts, top-8, GQA kv=4
+[hf:Qwen/Qwen3-30B-A3B family]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-235b-a22b", family="moe",
+    num_layers=94, d_model=4096, num_heads=64, num_kv_heads=4,
+    head_dim=128, d_ff=1536, vocab_size=151936,
+    num_experts=128, experts_per_token=8,
+    activation="silu", qk_norm=True, rope_theta=1e6,
+    norm="rmsnorm", tie_embeddings=False,
+    source="Qwen3-MoE [hf:Qwen/Qwen3-30B-A3B], 235B-A22B table entry",
+)

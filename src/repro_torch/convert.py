@@ -4,7 +4,8 @@ The LM: the JAX package stacks the layers of a model on a leading axis
 (``layers``: (L, ...); the hybrid ``ssm_layers``: (groups, per, ...));
 the port keeps one module per layer under the same names, so
 :func:`lm_params_from_numpy` unstacks each leaf into ``layers.<i>.<path>``
-or ``ssm_layers.<g>.<j>.<path>``, a state dict for the port's
+(the moe family's ``layers.<i>.moe.{router.w, w_in, w_gate, w_out}``
+among them) or ``ssm_layers.<g>.<j>.<path>``, a state dict for the port's
 ``Transformer``; :func:`lm_params_to_numpy` restacks the port's weights
 into the reference's tree.
 

@@ -16,12 +16,18 @@
 // What bounds it on an H100: every cache element is read once and used in
 // two multiply-adds, so it is bound by reading 2 * B * T * KH * D elements
 // (86.5 MB at the serve path's B=4, T=1056, KH=32, D=80 in float32, about
-// 0.026 ms at 3.35 TB/s).
+// 0.026 ms at 3.35 TB/s; 17.3 MB, 0.00516 ms, at qwen3-moe-235b-a22b's
+// B=4, T=1056, KH=4, D=128, where the split reads the cache twice).
 //
 // Design. The TPU kernel streams cache blocks through VMEM along a
 // sequential grid axis, one query head per grid row, and so reads the
 // cache once per query head. Here one block owns one (b, kv head) and
-// serves all of its g = H / KH query heads, so the cache is read once.
+// serves up to kHeadsPerBlock = 8 of its g = H / KH query heads, keeping
+// their q and accumulators in registers; a group of more than 8 heads is
+// split over ceil(g / 8) blocks, each reading its kv head's cache, so
+// the cache is read once up to g = 8 and ceil(g / 8) times above (twice
+// at g = 16: qwen3-moe-235b-a22b's 64 heads over 4, chatglm3-6b's 32 over
+// 2). The grid is (KH * ceil(g / 8), B).
 // Its eight warps split the slots: each warp walks every eighth group of
 // four slots, loading the four keys and values (lane c owns columns
 // c + 32 j of D, so a row is read in full coalesced lines) before any
@@ -41,6 +47,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;                // slots per warp step
+constexpr int kHeadsPerBlock = 8;         // query heads a block serves
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -59,7 +66,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// G >= g query heads per kv head; DCH 32-wide column chunks (D <= 32 DCH).
+// G >= the query heads a block serves: min(g, G), fewer in a split
+// group's last block; DCH 32-wide column chunks (D <= 32 DCH).
 template <typename T, int G, int DCH>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -72,9 +80,12 @@ __global__ void __launch_bounds__(kThreads)
   float* l_s = m_s + kWarps * G;              // [kWarps][G]
   float* a_s = l_s + kWarps * G;              // [kWarps][G][d]
 
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
   const int g = heads / kv_heads;
+  const int splits = (g + G - 1) / G;         // blocks a group spans
+  const int kh = blockIdx.x / splits;
+  const int h0 = (blockIdx.x - kh * splits) * G;   // first head in group
+  const int gb = min(G, g - h0);              // heads this block serves
+  const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int idx = index[b];
@@ -85,7 +96,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + static_cast<size_t>(b) * t_len * k_stride +
                 static_cast<size_t>(kh) * d;
   const int* tb = tags + static_cast<size_t>(b) * t_len;
-  const size_t q_off = (static_cast<size_t>(b) * heads + kh * g) * d;
+  const size_t q_off =
+      (static_cast<size_t>(b) * heads + kh * g + h0) * d;
 
   float qv[G][DCH], acc[G][DCH], m[G], l[G];
 #pragma unroll
@@ -95,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int col = lane + 32 * c;
-      qv[hh][c] = hh < g && col < d
+      qv[hh][c] = hh < gb && col < d
                       ? to_f32(q[q_off + hh * d + col]) * scale
                       : 0.f;
       acc[hh][c] = 0.f;
@@ -121,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int hh = 0; hh < G; ++hh) {
-      if (hh >= g) break;
+      if (hh >= gb) break;
       float s[kUnroll];
       float mx = m[hh];
 #pragma unroll
@@ -154,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
   // merge the warps' states
 #pragma unroll
   for (int hh = 0; hh < G; ++hh) {
-    if (hh >= g) break;
+    if (hh >= gb) break;
     if (lane == 0) {
       m_s[warp * G + hh] = m[hh];
       l_s[warp * G + hh] = l[hh];
@@ -166,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < g * d; i += kThreads) {
+  for (int i = threadIdx.x; i < gb * d; i += kThreads) {
     const int hh = i / d;
     const int col = i - hh * d;
     float mx = kNegInf;
@@ -191,7 +203,7 @@ int launch(const void* q, const void* k, const void* v, const void* tags,
   static std::atomic<unsigned long long> ready{0};
   const cudaError_t err = allow_smem_once(kernel, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(kh, b);
+  const dim3 grid(kh * ((h / kh + G - 1) / G), b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(tags),
@@ -236,10 +248,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* tags,
   if (g <= 4)
     return by_width<T, 4>(q, k, v, tags, index, o, b, t, h, kh, d, window,
                           scale, stream);
-  if (g <= 8)
-    return by_width<T, 8>(q, k, v, tags, index, o, b, t, h, kh, d, window,
-                          scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  // eight heads a block; a larger group is split over several blocks
+  return by_width<T, kHeadsPerBlock>(q, k, v, tags, index, o, b, t, h, kh,
+                                     d, window, scale, stream);
 }
 
 }  // namespace

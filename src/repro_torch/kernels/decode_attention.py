@@ -23,7 +23,9 @@ from ._build import bind, counted, launch, refuse_autograd
 _KERNELS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
 MAX_HEAD_DIM = 256
-MAX_GROUP = 8          # query heads per kv head
+# query heads one block serves; a larger group H / KH is split over
+# ceil(g / HEADS_PER_BLOCK) blocks, each reading its kv head's cache
+HEADS_PER_BLOCK = 8
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_void_p)
@@ -56,10 +58,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or kh < 1 or h % kh:
         raise ValueError(f"decode_attention: cache {tuple(k.shape)} does "
                          f"not fit q {tuple(q.shape)}")
-    if min(b, t, d) < 1 or d > MAX_HEAD_DIM or h // kh > MAX_GROUP:
-        raise ValueError(f"decode_attention: needs non-empty shapes, "
-                         f"D <= {MAX_HEAD_DIM} and H / KH <= {MAX_GROUP}, "
-                         f"got q {tuple(q.shape)}, cache {tuple(k.shape)}")
+    if min(b, t, d) < 1 or d > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: needs non-empty shapes and "
+                         f"D <= {MAX_HEAD_DIM}, got q {tuple(q.shape)}, "
+                         f"cache {tuple(k.shape)}")
     if kv_positions.shape != (b, t) or kv_positions.dtype != torch.int32:
         raise ValueError(f"decode_attention: kv_positions must be int32 "
                          f"({b}, {t}), got {kv_positions.dtype} "

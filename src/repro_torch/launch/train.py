@@ -15,10 +15,8 @@ Two execution paths, one composition API:
   ``pipelined`` with ``--speculate`` speculates each verdict on the card
   (``--judge-backend cuda``: K1's loop), ``async`` streams updates under
   a simulated arrival clock, ``scan`` runs blocks of rounds as one CUDA
-  graph. With ``--judge-backend cuda`` these engines aggregate through K2
-  (``FusedAverageAggregator("cuda")``) where the composition's own
-  aggregator is the weighted mean; ``torch`` keeps the reference's
-  leaf-wise mean.
+  graph. ``--judge-backend`` picks the device judge only, as the
+  reference's flag does; the aggregator is the composition's.
 
 The model trains on the ``"torch"`` kernel route (the reference trains on
 its default ``"xla"`` route): the hand-written attention and SSD kernels
@@ -228,17 +226,13 @@ def run_server_engine(args, cfg, model, corpus, client_idx) -> list:
             "--num-clusters > 1 runs the plain vmapped ClientUpdate "
             "(per-client bank centers); --lm-objective window swaps in "
             "the lmstep strategy's own client fn — drop one of the two")
-    aggregator = None
-    if args.judge_backend == "cuda" and not args.method \
-            and args.num_clusters == 1:
-        aggregator = fl.FusedAverageAggregator(backend="cuda")
     apply_fn = (lm_window_apply if window else lm_client_apply)(model, cfg)
     server = fl.build(
         composition, apply_fn, _init_params(model), data, config,
         fl.LocalSpec(epochs=args.local_epochs, lr=args.lr,
                      batch_size=args.per_client_batch),
         selector=selector, strategy="lmstep" if window else None,
-        judge=judge, aggregator=aggregator,
+        judge=judge,
         cluster=args.cluster_assign if args.num_clusters > 1 else None,
         drift=drift, engine=args.engine, runtime=runtime,
         data_plane=args.data_plane, device=model.device)
@@ -415,11 +409,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--judge-backend", default="torch",
                     choices=["torch", "cuda"],
                     help="device judge (mesh step, speculation): torch = "
-                         "the plain float32 loop, cuda = K1's loop. On the "
-                         "server engines it also picks the aggregator "
-                         "(the reference's has no such coupling): cuda = "
-                         "K2 where the composition's aggregator is the "
-                         "weighted mean, torch = the leaf-wise mean")
+                         "the plain float32 loop, cuda = K1's loop")
     ap.add_argument("--speculate", action="store_true",
                     help="pipelined engine: overlap oracle judgment with "
                          "the next round's client compute")

@@ -1,7 +1,8 @@
 """Decoder-only LM assembled from blocks — the port of
-``repro.models.transformer`` for three families:
+``repro.models.transformer`` for four families:
 
   dense  — [norm->attn, norm->mlp] x L
+  moe    — [norm->attn, norm->moe] x L
   ssm    — [norm->mamba2] x L
   hybrid — groups of (attn_every - 1) ssm blocks + one SHARED attention
            block (zamba2): the shared block's weights live once, its KV
@@ -9,7 +10,7 @@
 
 One submodule per layer (``nn.ModuleList``) in place of the JAX package's
 stacked layer axis under ``lax.scan``; a Python loop walks them. The
-``moe`` and ``vlm`` families wait for a later slice. The kernel route
+``vlm`` and ``encdec`` families wait for a later slice. The kernel route
 ("torch" or "cuda") is fixed when the model is built and handed to every
 attention and SSD call.
 """
@@ -22,18 +23,20 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import MLP, Embed, Norm, dtype_of
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _block_kind(cfg: ModelConfig) -> str:
+    """The family's block stack: dense and moe share the attention one."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs "
             f"{FAMILIES}")
-    return cfg.family
+    return "dense" if cfg.family == "moe" else cfg.family
 
 
 def _hybrid_shape(cfg: ModelConfig) -> tuple[int, int]:
@@ -43,12 +46,24 @@ def _hybrid_shape(cfg: ModelConfig) -> tuple[int, int]:
 
 
 class AttnBlock(nn.Module):
+    """Attention, then the MLP, or for the moe family the MoE block."""
+
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         self.ln1 = Norm(cfg, cfg.d_model, gen.device)
         self.attn = attn.Attention(cfg, gen)
         self.ln2 = Norm(cfg, cfg.d_model, gen.device)
-        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, gen)
+        if cfg.family == "moe":
+            self.moe = moe_mod.MoE(cfg, gen)
+        else:
+            self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, gen)
+
+    def ffn(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x + the MLP or MoE of ln2(x), the MoE's aux loss or 0)."""
+        if hasattr(self, "moe"):
+            h, aux = self.moe(self.ln2(x))
+            return x + h, aux
+        return x + self.mlp(self.ln2(x)), 0.0
 
 
 class SSMBlock(nn.Module):
@@ -100,12 +115,13 @@ def init(cfg: ModelConfig, gen: torch.Generator,
 # --------------------------------------------------------------- full pass
 
 def _attn_block(model, p: AttnBlock, x, *, window, positions=None):
+    """(x after the block, its KV, its aux loss)."""
     cfg = model.cfg
     h, kv = attn.self_attention(cfg, p.attn, p.ln1(x), causal=True,
                                 window=window, positions=positions,
                                 kernels=model.kernels)
-    x = x + h
-    return x + p.mlp(p.ln2(x)), kv
+    x, aux = p.ffn(x + h)
+    return x, kv, aux
 
 
 def _ssm_block(model, p: SSMBlock, x):
@@ -127,9 +143,11 @@ def backbone(model: Transformer, x: torch.Tensor, *,
     cfg = model.cfg
     window = cfg.sliding_window if window is None else window
     kind = _block_kind(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "dense":
         for lp in model.layers:
-            x, _ = _attn_block(model, lp, x, window=window)
+            x, _, a = _attn_block(model, lp, x, window=window)
+            aux = aux + a                      # the layers' sum (moe)
     elif kind == "ssm":
         for lp in model.layers:
             x = _ssm_block(model, lp, x)
@@ -137,8 +155,8 @@ def backbone(model: Transformer, x: torch.Tensor, *,
         for group in model.ssm_layers:
             for lp in group:
                 x = _ssm_block(model, lp, x)
-            x, _ = _attn_block(model, model.shared_attn, x, window=window)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, _, _ = _attn_block(model, model.shared_attn, x,
+                                  window=window)
     return model.final_norm(x), aux
 
 
@@ -224,8 +242,7 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor, *,
         a = attn.decode_self_attention(
             cfg, p.attn, p.ln1(x), kv_cache, index, cache["pos"],
             window=window, kernels=model.kernels)
-        x = x + a
-        return x + p.mlp(p.ln2(x))
+        return p.ffn(x + a)[0]
 
     def ssm_step(p: SSMBlock, x, state):
         o, new = ssm_mod.ssm_decode_step(cfg, p.ssm, p.ln1(x), state)
@@ -283,8 +300,8 @@ def prefill(model: Transformer, batch: dict, *, window: int | None = None,
     if kind == "dense":
         kvs = []
         for lp in model.layers:
-            x, kv = _attn_block(model, lp, x, window=window,
-                                positions=positions)
+            x, kv, _ = _attn_block(model, lp, x, window=window,
+                                   positions=positions)
             kvs.append({n: _place(t, cache_len) for n, t in kv.items()})
         cache["layers"] = kvs
         cache["pos"] = _pos_tags(s, cache_len, x.device)
@@ -302,8 +319,8 @@ def prefill(model: Transformer, batch: dict, *, window: int | None = None,
                 x, st = _ssm_block_with_state(model, lp, x)
                 sts.append(st)
             ssm_states.append(sts)
-            x, kv = _attn_block(model, model.shared_attn, x, window=window,
-                                positions=positions)
+            x, kv, _ = _attn_block(model, model.shared_attn, x,
+                                   window=window, positions=positions)
             kvs.append({n: _place(t, cache_len) for n, t in kv.items()})
         cache["ssm"] = ssm_states
         cache["attn"] = kvs

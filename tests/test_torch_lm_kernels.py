@@ -120,6 +120,7 @@ def _decode_case(rng, b, t, h, kh, d):
 @pytest.mark.parametrize("t,h,kh,d,win", [
     (64, 4, 2, 32, 0), (40, 8, 8, 16, 12), (100, 4, 1, 32, 16),
     (72, 4, 4, 80, 0), (72, 4, 4, 80, 20),      # Zamba2's head width
+    (48, 16, 1, 32, 0), (48, 32, 2, 16, 12),    # g = 16 (qwen3-moe, chatglm3)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas(pallas, t, h, kh, d, win, dtype):
@@ -576,6 +577,7 @@ def _randn(shape, gen, dev, dtype=torch.float32):
     (1, 90, 90, 4, 4, 17, True, 0, torch.bfloat16),
     (2, 300, 300, 4, 4, 80, True, 24, torch.float32),   # masked leading tiles
     (4, 1024, 1024, 32, 32, 80, True, 0, torch.float32),  # the serve shape
+    (2, 200, 200, 16, 16, 256, True, 0, torch.float32),   # gemma-7b's D
 ])
 def test_card_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal,
                                          window, dtype):
@@ -598,6 +600,11 @@ def test_card_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal,
     (4, 1056, 32, 32, 80, 0, False, torch.float32),
     (4, 300, 16, 8, 128, 64, True, torch.float32),
     (3, 100, 4, 1, 32, 16, True, torch.bfloat16),
+    # g = 16, two blocks a KV head: qwen3-moe-235b-a22b, chatglm3-6b
+    (4, 1056, 64, 4, 128, 0, True, torch.float32),
+    (4, 1056, 64, 4, 128, 256, True, torch.bfloat16),
+    (2, 300, 32, 2, 128, 0, True, torch.bfloat16),
+    (2, 200, 48, 4, 64, 32, True, torch.float32),       # g = 12
 ])
 def test_card_decode_kernel_matches_plain(cuda, b, t, h, kh, d, window,
                                           ragged, dtype):

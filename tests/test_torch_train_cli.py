@@ -79,6 +79,30 @@ def test_every_engine_runs_on_the_cpu(engine):
                    for r in records)
 
 
+@pytest.mark.parametrize("engine", ["sequential", "pipelined"])
+def test_judge_backend_leaves_the_composition_aggregator(monkeypatch,
+                                                         engine):
+    """``--judge-backend`` picks the device judge only, as the
+    reference's flag does: the server engines build with no aggregator of
+    the CLI's, so each takes its composition's, on either backend."""
+    built = []
+    build = train.fl.build
+
+    def recording(*args, **kw):
+        server = build(*args, **kw)
+        built.append((kw.get("aggregator"), server.aggregator))
+        return server
+    monkeypatch.setattr(train.fl, "build", recording)
+    extra = ["--speculate"] if engine == "pipelined" else []
+    for backend in ("torch", "cuda"):
+        train.main(_BASE + ["--engine", engine, "--judge-backend", backend,
+                            "--device", "cpu"] + extra)
+    (given_t, agg_t), (given_c, agg_c) = built
+    assert given_t is None and given_c is None
+    assert type(agg_c) is type(agg_t)
+    assert not isinstance(agg_c, train.fl.FusedAverageAggregator)
+
+
 def test_cli_module_runs_and_the_default_device_is_the_card():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", *_BASE,
