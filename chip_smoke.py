@@ -7,9 +7,9 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
    one process per source, all at once; count the tensor-core (HMMA) and
-   cp.async (LDGSTS) instructions in the flash-attention and SSD-scan
-   libraries where cuobjdump exists, and print the SSD scan's ptxas
-   register and spill lines;
+   cp.async (LDGSTS) instructions in the flash-attention, SSD-scan and
+   decode-attention libraries where cuobjdump exists, and print the SSD
+   scan's and decode attention's ptxas register and spill lines;
 2. hold the entropy-judge kernels (K1) against their plain PyTorch
    versions: the sweep, with its emptying conventions, and the greedy
    loop of Alg. 1 in one launch, on random active, protected and cap
@@ -38,11 +38,13 @@ Phases, each of which raises on failure (exit code non-zero):
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
    the JAX kernel tests' shapes and at the serve paths' (Zamba2-2.7B's;
-   qwen3-moe-235b-a22b's 64 query heads over 4 KV heads, where K4 splits
-   each group of 16 over two blocks, and chatglm3-6b's 32 over 2;
-   gemma-7b's head width of 256; K5 also with strong decay over 16
-   chunks, and twice on the same inputs, which must give the same
-   bits);
+   qwen3-moe-235b-a22b's 64 query heads over 4 KV heads, 16 on one staged
+   tile, and chatglm3-6b's 32 over 2; gemma-7b's head width of 256; K4
+   also at T not a multiple of its split and below one tile, a window
+   shorter than a split, every valid slot in the first split, a row with
+   no valid slot, one split, and groups of 128 heads at D = 128 and 48
+   and 64 at D = 256 in one block, 272 over two; K5 with strong decay over 16 chunks; K4 and K5 twice on the same
+   inputs, which must give the same bits);
 7. serve Zamba2-2.7B at full width (random weights, float32): 4 prompts
    of 1024 tokens, then 32 greedy tokens, through ``build_model(...,
    kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
@@ -51,8 +53,10 @@ Phases, each of which raises on failure (exit code non-zero):
 8. time K3, K4 and K5 at the serve path's shapes in turns with their
    plain versions and the PyTorch library call where one exists (SDPA for
    K3 and K4), and print K3's and K5's two bounds: on the CUDA cores and
-   on the tensor cores in 3xTF32; time K5 once more at L = 8192 (32
-   chunks);
+   on the tensor cores in 3xTF32; print K4's plan (splits, grid, heads
+   a block, shared memory, bytes moved, single-read bound) and the
+   kernels its profile shows a call run, also at qwen3-moe-235b-a22b's
+   decode shape; time K5 once more at L = 8192 (32 chunks);
 9. drive the paper's other compositions at the same width: moon (K1's
    loop and K2) and scaffold (K1's loop), three captured rounds each with
    launch counts, then on the plain route, which must give equal integer
@@ -198,7 +202,8 @@ Phases, each of which raises on failure (exit code non-zero):
    warm, decode ms per step, a profile of the prefill and its stages
    (routing and dispatch, expert products, combine, attention, head) by
    CUDA events, the memory before the phase and its peak, and K3 and K4
-   at this model's shapes in turns with their plain versions and SDPA.
+   at this model's shapes in turns with their plain versions and SDPA
+   (K4 also its plan and the kernels its profile shows a call run).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -224,8 +229,18 @@ pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, and ``qwen3-moe
 serve``, phase 17) and ``lm_shapes``, phase 17's times at that model's
-shapes.
+shapes; K4 also ``profiled_launches`` and ``kernels_per_call`` at both
+serve decode shapes, from phase 8's kernel-alone profiles: the launches
+of its split pass and of its merge that each kept over the calls
+profiled, and the kernels a call ran by them (``launches`` counts
+calls).
 Exits non-zero, printing no result, when no CUDA device is present.
+
+``python3 chip_smoke.py --k4-turns DIR`` times K4 and Zamba2-2.7B's
+decode step of this checkout's package against DIR's (another checkout,
+for example the parent commit unpacked by ``git archive``) on one card,
+in turns (this, DIR, DIR, this), each in a process of its own
+(``--k4-time --src``), and prints one JSON line of both.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -244,7 +259,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the package: this checkout's, or with --src another's (--k4-time)
+sys.path.insert(0, sys.argv[sys.argv.index("--src") + 1]
+                if "--src" in sys.argv[:-1] else
+                str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import fl  # noqa: E402
 from repro_torch.fl import graph_cache  # noqa: E402
@@ -261,8 +279,8 @@ from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, entropy_judge, fused_aggregate, ref)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
-from repro_torch.kernels.decode_attention import (  # noqa: E402
-    HEADS_PER_BLOCK, decode_attention)
+from repro_torch.kernels import decode_attention as k4  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.entropy_judge import (  # noqa: E402
     entropy_judge_loop, entropy_judge_sweep)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -294,6 +312,8 @@ K5_TOL = {torch.float32: (2e-4, 5e-2), torch.bfloat16: (5e-1, 5e-2)}
 # the kernels of K5's three passes, by name
 K5_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
               "ssd_chunk_out_kernel")
+# K4's split pass and, when a call has more than one split, its merge
+K4_KERNELS = ("decode_split", "decode_merge")
 # serve path: Zamba2-2.7B, B prompts of S tokens, then GEN greedy tokens
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_GEN = "zamba2-2.7b", 4, 1024, 32
 LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
@@ -409,7 +429,7 @@ def _queued_ms(fn, iters: int = 50) -> float:
 
 # the port's kernels by name (the launches the wrappers' counters count)
 PORT_KERNELS = ("judge_sweep", "judge_loop", "masked_weighted_sum",
-                "flash_fwd", "decode_kernel", *K5_KERNELS, "empty_kernel")
+                "flash_fwd", *K4_KERNELS, *K5_KERNELS, "empty_kernel")
 
 
 class DeviceMs(float):
@@ -428,10 +448,14 @@ def _kernel_ms_key(dev: DeviceMs) -> str:
     return "kernel_ms" if dev.by == "profiler" else "kernel_ms_events"
 
 
-def _device_ms(fn, names, iters: int = 50, tries: int = 3) -> DeviceMs:
+def _device_ms(fn, names, iters: int = 50, tries: int = 3,
+               per_count: int = 1, kept: dict | None = None) -> DeviceMs:
     """Device time per call, in ms, of the kernels ``fn`` launches whose
     names contain one of ``names`` (every kernel when empty;
-    torch.profiler, warm caches).
+    torch.profiler, warm caches). ``per_count``: the kernels a counted
+    launch runs (K4 counts a call of two kernels as one launch).
+    ``kept``, when given, receives the launches of the port's kernels, by
+    kernel name, that the last profile taken kept.
 
     The profiler can keep fewer kernels than were launched: kineto counts
     the rest out of its window. Late in a long run it kept 8 of 10 of
@@ -457,15 +481,19 @@ def _device_ms(fn, names, iters: int = 50, tries: int = 3) -> DeviceMs:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        made = sum(_read_counts().values()) or iters * max(1, len(names))
+        made = (sum(_read_counts().values()) * per_count or
+                iters * max(1, len(names)))
         counts = {}
         _kernel_us(prof, names or PORT_KERNELS, counts)
-        kept = sum(counts.values())
-        if kept < made:
-            print(f"(torch.profiler kept {kept} of {made} launches of "
+        if kept is not None:
+            kept.clear()
+            _kernel_us(prof, PORT_KERNELS, kept)
+        n_kept = sum(counts.values())
+        if n_kept < made:
+            print(f"(torch.profiler kept {n_kept} of {made} launches of "
                   f"{names or 'the port kernels'}; attempt {attempt + 1} "
                   f"of {tries})")
-        if kept >= 0.9 * made:
+        if n_kept >= 0.9 * made:
             break
     else:
         ms = _queued_ms(fn, iters)
@@ -479,7 +507,7 @@ def _device_ms(fn, names, iters: int = 50, tries: int = 3) -> DeviceMs:
         raise AssertionError(f"no kernel named {missing or names} in the "
                              f"profile; kernels seen: "
                              f"{sorted(_kernel_us(prof))}")
-    return DeviceMs(sum(by_kernel.values()) * made / kept / iters / 1e3,
+    return DeviceMs(sum(by_kernel.values()) * made / n_kept / iters / 1e3,
                     "profiler")
 
 
@@ -2798,25 +2826,51 @@ def check_k3() -> float:
 
 def check_k4() -> float:
     """K4 against mha_reference with per-row q_offset; returns the largest
-    float32 error."""
+    float32 error. The cases take one split (T = 7: the split kernel
+    writes o) and many, and groups of up to 128 heads in one block and of
+    272 over two. Then, at the two serve shapes in both dtypes, two calls
+    give the same bits."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     t_serve = SERVE_S + SERVE_GEN
+    ragged = [1055, 900, 700, 1030]
     cases = [  # (b, t, h, kh, d, window, index per row)
         (2, 64, 4, 2, 32, 0, 54), (2, 40, 8, 8, 16, 12, 30),
         (2, 100, 4, 1, 32, 16, 90),                         # JAX tests
         (SERVE_B, t_serve, 32, 32, 80, 0, 1040),            # Zamba2 decode
         (SERVE_B, t_serve, 32, 32, 80, 256, 1040),          # ... windowed
-        (SERVE_B, t_serve, 32, 32, 80, 0, [1055, 900, 700, 1030]),  # ragged
+        (SERVE_B, t_serve, 32, 32, 80, 0, ragged),          # ragged
         (SERVE_B, t_serve, 16, 8, 128, 0, 1040),            # Qwen3 GQA
-        # qwen3-moe-235b-a22b: g = 16, a group split over two blocks
+        # qwen3-moe-235b-a22b: g = 16, 16 query heads on one staged tile
         (MOE_B, t_serve, 64, 4, 128, 0, 1040),
         (MOE_B, t_serve, 64, 4, 128, 256, 1040),
-        (MOE_B, t_serve, 64, 4, 128, 0, [1055, 900, 700, 1030]),
-        (MOE_B, t_serve, 64, 4, 128, 256, [1055, 900, 700, 1030]),
+        (MOE_B, t_serve, 64, 4, 128, 0, ragged),
+        (MOE_B, t_serve, 64, 4, 128, 256, ragged),
         (MOE_B, t_serve, 32, 2, 128, 0, 1040),              # chatglm3-6b
         (MOE_B, t_serve, 16, 16, 256, 0, 1040),             # gemma-7b
+        # T not a multiple of the split; T shorter than one tile
+        (MOE_B, 1000, 64, 4, 128, 0, [999, 900, 700, 1]),
+        (SERVE_B, 1057, 32, 32, 80, 0, [1056, 900, 700, 1030]),
+        (MOE_B, 1057, 64, 4, 128, 0, 1056),
+        (2, 7, 64, 4, 128, 0, [6, 3]), (2, 7, 32, 32, 80, 0, 6),
+        (MOE_B, t_serve, 64, 4, 128, 20, 1040),     # window < one split
+        # every valid slot in the first split
+        (MOE_B, t_serve, 64, 4, 128, 0, 10),
+        (SERVE_B, t_serve, 32, 32, 80, 0, 10),
+        # a row with no valid slot (it averages all T slots)
+        (MOE_B, t_serve, 64, 4, 128, 0, [-1, 900, 700, 1030]),
+        (SERVE_B, t_serve, 32, 32, 80, 16, [-1, 900, 700, 1030]),
+        # D not a multiple of 16 bytes (element copies, odd columns), and
+        # K's pad columns on the tensor cores
+        (2, 300, 16, 4, 17, 0, [299, 200]),
+        (2, 200, 32, 2, 20, 16, [199, 150]),
+        # teams of several warps (g > 16); a group of 128 or 64 wide heads
+        # in one block of fewer teams; a group over two blocks (g > 256)
+        (2, 300, 32, 1, 64, 16, [299, 200]), (1, 64, 128, 1, 128, 0, 63),
+        (1, 64, 64, 1, 256, 0, 63), (2, 300, 48, 1, 256, 24, [299, 200]),
+        (1, 64, 272, 1, 16, 0, 63),
     ]
     worst = 0.0
+    plans = set()
     for dtype in (torch.float32, torch.bfloat16):
         for b, t, h, kh, d, window, index in cases:
             q = _randn((b, 1, h, d), gen, dtype)
@@ -2828,11 +2882,34 @@ def check_k4() -> float:
                                      q_offset=idx[:, None],
                                      kv_positions=tags)
             torch.cuda.synchronize()
+            p = _k4_plan(q, k)
+            plans.add((p.splits > 1, p.hgroups > 1))
             err = _check_close(
                 "K4", f"b={b} t={t} h={h} kh={kh} d={d} window={window} "
-                f"index={index} {str(dtype)[6:]}", got, want, K4_TOL[dtype])
+                f"index={index} {str(dtype)[6:]} ({p.splits} splits of "
+                f"{p.split_len}, tiles of {p.tile}, "
+                f"{'tensor' if p.tensor_cores else 'CUDA'} cores, "
+                f"{p.heads} heads in {p.teams} teams of {p.team_warps} "
+                f"warps and {p.smem} bytes a block, {p.hgroups} block(s) "
+                f"a KV head)", got, want, K4_TOL[dtype])
             if dtype == torch.float32:
                 worst = max(worst, err)
+        for b, h, kh, d in [(MOE_B, 64, 4, 128), (SERVE_B, 32, 32, 80)]:
+            q = _randn((b, 1, h, d), gen, dtype)
+            k = _randn((b, t_serve, kh, d), gen, dtype)
+            v = _randn((b, t_serve, kh, d), gen, dtype)
+            tags, idx = _tags(b, t_serve, ragged)
+            one = decode_attention(q, k, v, tags, idx)
+            two = decode_attention(q, k, v, tags, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(one, two):
+                raise AssertionError(f"K4 at ({b}, {t_serve}, {h} over "
+                                     f"{kh}, {d}) {dtype} gives other bits "
+                                     f"on a second call")
+    if plans != {(False, False), (True, False), (True, True)}:
+        raise AssertionError(f"K4's cases missed a kind of plan: {plans}")
+    print("K4 at both serve shapes, float32 and bfloat16: two calls equal "
+          "bit for bit")
     return worst
 
 
@@ -3057,13 +3134,25 @@ def time_lm_kernels() -> dict:
                                            q_offset=idx[:, None],
                                            kv_positions=tags),
         "library": lambda: sdpa(qt, kt, vt, attn_mask=mask)}, **kw)
-    dev_ms = _device_ms(call, ("decode_kernel",), iters=10)
+    dev_ms, *zamba2 = _k4_device_ms(call, _k4_plan(q, kc), require=True)
     seen = int(mask.sum()) // b        # valid slots per row in this run
     out["decode_attention"] = (ms["kernel"], ms["plain"], ms["library"],
                                *_bound_ms(
         (2 * b * seen * h * d + 2 * b * h * d + b * t + b) * 4,
         4 * b * h * seen * d), dev_ms)
+    k4_layout(q, kc, seen)
     del q, kc, vc, qt, kt, vt
+    # the kernels a call runs at qwen3-moe-235b-a22b's decode shape too,
+    # read here: late in the run (phase 17) the profiler keeps too few
+    cfg = _moe_config()
+    q = _randn((MOE_B, 1, cfg.num_heads, cfg.head_dim), gen)
+    kc, vc = (_randn((MOE_B, MOE_S + MOE_GEN, cfg.num_kv_heads,
+                      cfg.head_dim), gen) for _ in range(2))
+    tags, idx = _tags(MOE_B, MOE_S + MOE_GEN, MOE_S + MOE_GEN - 1)
+    _, *moe = _k4_device_ms(lambda: decode_attention(q, kc, vc, tags, idx),
+                            _k4_plan(q, kc), require=True)
+    out["k4_profile"] = {"zamba2 serve": zamba2, "qwen3-moe serve": moe}
+    del q, kc, vc
 
     hs, p, g, n, chunk = 80, 64, 1, 64, 256
     x, dt, a, bm, cm = _ssd_inputs(gen, b, s, hs, p, g, n)
@@ -3108,6 +3197,70 @@ def time_lm_kernels() -> dict:
               f"ms), plain {plain_ms:.5f} ms, library {lib} (in turns), "
               f"bound {bound:.5f} ms ({by})")
     return out
+
+
+def _k4_plan(q, k) -> k4.Plan:
+    """K4's plan for these q and cache tensors on this card."""
+    b, _, h, d = q.shape
+    return k4.plan(b, k.shape[1], h, k.shape[2], d, q.element_size(),
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _k4_device_ms(call, p: k4.Plan, iters: int = 10,
+                  require: bool = False) -> tuple:
+    """K4's kernel-alone time (every kernel a call runs: the split pass,
+    and the merge when there is more than one split) and, from the same
+    profile, the launches of each that it kept over the ``iters`` calls
+    and the kernels a call ran by them (kept launches over kept split
+    passes; None when it kept none). Raises where a profile that kept a
+    split pass shows the merge and the plan has one split, or no merge
+    and the plan has more; with ``require``, also where it kept none."""
+    names = K4_KERNELS[:1 + (p.splits > 1)]
+    kept = {}
+    dev = _device_ms(call, names, iters=iters, per_count=len(names),
+                     kept=kept)
+    launches = {"calls": iters, **{
+        n: sum(c for key, c in kept.items() if n in key)
+        for n in K4_KERNELS}}
+    split, merge = (launches[n] for n in K4_KERNELS)
+    if (split and (merge > 0) != (p.splits > 1)) or (require and not split):
+        raise AssertionError(f"K4's profile shows {split} split passes and "
+                             f"{merge} merges in {iters} calls; its plan "
+                             f"has {p.splits} splits")
+    per_call = (split + merge) / split if split else None
+    print(f"K4's profile: {split} split passes and {merge} merges kept of "
+          f"{iters} calls ({per_call} kernels a call)")
+    return dev, launches, per_call
+
+
+def k4_layout(q, k, seen: int) -> None:
+    """Prints K4's plan at q's and k's shapes: splits, grid, route, heads
+    a block, shared memory, the bytes a call moves and the single-read
+    bound over ``seen`` valid slots a row."""
+    b, _, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    p = _k4_plan(q, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sz = q.element_size()
+    cache = 2 * b * t * kh * d * sz
+    single = 2 * b * seen * kh * d * sz
+    scratch = p.splits * b * h * (d + 2) * 4 if p.splits > 1 else 0
+    blocks = p.splits * kh * p.hgroups * b
+    print(f"K4 at ({b}, {t}, {h} over {kh}, {d}): {p.splits} splits of "
+          f"{p.split_len} slots, tiles of {p.tile} in rings of "
+          f"{p.stages}, on the "
+          f"{'tensor' if p.tensor_cores else 'CUDA'} cores; grid "
+          f"{p.splits} x {kh * p.hgroups} x {b} = {blocks} blocks on "
+          f"{sms} SMs ({blocks / sms:.2f} an SM), {p.heads} query heads, "
+          f"{p.teams} teams of {p.team_warps} warps and {p.smem} bytes of "
+          f"shared memory a block; the split pass "
+          f"{'and the merge' if p.splits > 1 else 'alone'} a call; each KV "
+          f"head's cache read {p.hgroups} time(s): {cache / 1e6:.2f} MB "
+          f"({cache / HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s), the "
+          f"single-read bound over the {seen} valid slots a row "
+          f"{single / 1e6:.2f} MB ({single / HBM_BYTES_PER_S * 1e3:.5f} "
+          f"ms); split states {scratch / 1e6:.2f} MB written and read back "
+          f"by the merge (L2)")
 
 
 def _k5_flops(b, l, h, p, g, n, chunk, per_head_scores=False) -> int:
@@ -3809,25 +3962,17 @@ def time_moe_kernels() -> dict:
                                            kv_positions=tags),
         "library": lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                 enable_gqa=True)}, **kw)
-    dev_ms = _device_ms(call, ("decode_kernel",), iters=10)
+    dev_ms, *_ = _k4_device_ms(call, _k4_plan(q, kc))
     seen = int(mask.sum()) // b
     cache_bytes = 2 * b * seen * kh * d * 4
+    k4_layout(q, kc, seen)
     out["decode_attention"] = (ms["kernel"], ms["plain"], ms["library"],
                                *_bound_ms(
         cache_bytes + (2 * b * h * d + b * t + b) * 4,
         4 * b * h * seen * d), dev_ms, (b, t, h, kh, d))
-    reads = -(-(h // kh) // HEADS_PER_BLOCK)
-    print(f"K4 at ({b}, {t}, {h} over {kh}, {d}): g = {h // kh} is served "
-          f"by {reads} blocks a KV head, each reading its cache: "
-          f"{reads * cache_bytes / 1e6:.1f} MB read against the "
-          f"single-read {cache_bytes / 1e6:.1f} MB "
-          f"({reads * cache_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms against "
-          f"{cache_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s); "
-          f"grid {kh * reads} x {b} = {kh * reads * b} blocks on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
-          f"SMs")
     del q, kc, vc, qt, kt, vt
-    for name, (ms, plain_ms, lib_ms, bound, by, dev, shape) in out.items():
+    for name, (ms, plain_ms, lib_ms, bound, by, dev, shape,
+               *_) in out.items():
         print(f"{name} {shape}: {ms:.5f} ms per call (kernel alone "
               f"{dev:.5f} ms), plain {plain_ms:.5f} ms, library "
               f"{lib_ms:.5f} ms (in turns), bound {bound:.5f} ms ({by})")
@@ -4016,9 +4161,11 @@ def main() -> int:
               f"{info['log'].strip()}")
     print(count_hmma())
     print(count_hmma("ssd_scan"))
-    if "ssd_scan" in built:
-        print("ssd_scan ptxas:\n  " + "\n  ".join(
-            ptxas_lines(built["ssd_scan"]["log"])))
+    print(count_hmma("decode_attention"))
+    for name in ("ssd_scan", "decode_attention"):
+        if name in built:
+            print(f"{name} ptxas:\n  " + "\n  ".join(
+                ptxas_lines(built[name]["log"])))
 
     _phase("2. K1 entropy_judge_sweep and entropy_judge_loop vs plain")
     k1_err = check_k1_sweep()
@@ -4128,6 +4275,12 @@ def main() -> int:
         if name == "flash_attention":
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["cuda_core_bound_ms"]
+        if name == "decode_attention":
+            profiled = lm_times["k4_profile"]
+            row["profiled_launches"] = {path: x[0]
+                                        for path, x in profiled.items()}
+            row["kernels_per_call"] = {path: x[1]
+                                       for path, x in profiled.items()}
         if name in moe_times:
             row["launches_by_path"] = {
                 "zamba2 serve": count,
@@ -4164,5 +4317,117 @@ def main() -> int:
     return 0
 
 
+def k4_time() -> int:
+    """``--k4-time [--src DIR]``: K4 and Zamba2-2.7B's decode step through
+    the ``repro_torch`` that ``--src`` names (this checkout's by default).
+    At each serve decode shape in float32 and bfloat16, every slot valid
+    at the last position: a call's host microseconds (:func:`_host_us`:
+    100 calls issued without a wait, well inside the launch queue),
+    its ms by CUDA events around calls issued back to back (phase 8's "ms
+    per call": the host's time where that is the longer), the device ms
+    of everything it launches queued behind a sleeping kernel, and its
+    largest error against the plain version; in float32 also two
+    yardsticks, queued the same way: the call at a cache of T / 32 and T
+    / 4 slots (what does not scale with the cache), and ``k.clone();
+    v.clone()``, which reads the cache once and writes it once (the
+    card's rate for plain copies of those bytes). Then Zamba2-2.7B at full
+    width (random weights, seed 0), 4 prompts of 1024 tokens, prefilled
+    twice and each time followed by 31 greedy decode steps timed as phase
+    7 times them (the step, its argmax and a wait for the card). Prints
+    one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch
+    _build.build()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    out = {"package": str(Path(repro_torch.__file__).resolve().parent)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, t, h, kh, d in (
+                (SERVE_ARCH, SERVE_B, SERVE_S + SERVE_GEN, 32, 32, 80),
+                (MOE_ARCH, MOE_B, MOE_S + MOE_GEN, 64, 4, 128)):
+            q = _randn((b, 1, h, d), gen, dtype)
+            k, v = (_randn((b, t, kh, d), gen, dtype) for _ in range(2))
+            tags, idx = _tags(b, t, t - 1)
+            call = lambda: decode_attention(q, k, v, tags, idx)
+            want = ref.mha_reference(q, k, v, causal=True,
+                                     q_offset=idx[:, None],
+                                     kv_positions=tags)
+            err = float((call().float() - want.float()).abs().max())
+            row = out[f"K4 {label} {str(dtype)[6:]}"] = {
+                "host_us": _host_us({"call": call}, 100)["call"],
+                "ms": _time_ms(call, 100, 10),
+                "queued_ms": _queued_ms(call, 100), "max_abs_err": err}
+            if dtype == torch.float32:
+                row["clone_kv_queued_ms"] = _queued_ms(
+                    lambda: (k.clone(), v.clone()), 100)
+                for cut in (32, 4):
+                    ts, ix = _tags(b, t // cut, t // cut - 1)
+                    ks, vs = k[:, :t // cut].contiguous(), \
+                        v[:, :t // cut].contiguous()
+                    row[f"queued_ms_at_t_{t // cut}"] = _queued_ms(
+                        lambda: decode_attention(q, ks, vs, ts, ix), 100)
+            del q, k, v, want
+    cfg = ARCHS[SERVE_ARCH].replace(remat="none", param_dtype="float32",
+                                    dtype="float32")
+    model = build_model(cfg, device=DEV, kernels="cuda", seed=0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)), device=DEV)
+    steps = []
+    for _ in range(2):
+        logits, cache = model.prefill({"tokens": prompts},
+                                      cache_len=SERVE_S + SERVE_GEN)
+        tok = logits[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        for _ in range(SERVE_GEN - 1):
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t1) * 1e3)
+    out[f"{SERVE_ARCH} decode step"] = {
+        "median_ms": statistics.median(steps),
+        "mean_ms": statistics.fmean(steps), "min_ms": min(steps),
+        "steps": len(steps)}
+    print(json.dumps(out))
+    return 0
+
+
+def k4_turns(other: str) -> int:
+    """``--k4-turns DIR``: :func:`k4_time` for this checkout's package and
+    DIR's, in turns (this, DIR, DIR, this), each in a process of its own;
+    prints each run's line as it comes and then one JSON line of all four
+    with the card's name and power limit."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    me = Path(__file__).resolve()
+    srcs = {"this": str(me.parent / "src"),
+            "other": str(Path(other).resolve() / "src")}
+    runs = []
+    for which in ("this", "other", "other", "this"):
+        res = subprocess.run([sys.executable, str(me), "--k4-time", "--src",
+                              srcs[which]], capture_output=True, text=True,
+                             timeout=900)
+        print(f"-- {which} ({srcs[which]}), exit {res.returncode}:\n"
+              f"{res.stdout.strip()}", flush=True)
+        if res.returncode:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append({"which": which,
+                     **json.loads(res.stdout.strip().splitlines()[-1])})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"card": smi, "turns": runs}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if "--k4-turns" in sys.argv[:-1]:
+        sys.exit(k4_turns(sys.argv[sys.argv.index("--k4-turns") + 1]))
+    sys.exit(k4_time() if "--k4-time" in sys.argv else main())

@@ -26,16 +26,17 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or one per row ((B,) or (B, 1)); ``kv_positions`` (B, T) tags each kv
     slot with its global position, -1 for an empty slot. Masked scores are
     -1e30, as in the JAX package, so a row without any valid key averages
-    all values uniformly. Accumulates in float32; returns q's dtype.
+    all values uniformly. Accumulates in float32 (float64 for float64
+    inputs); returns q's dtype.
     """
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = d ** -0.5 if scale is None else scale
     dev = q.device
-    qq = q.reshape(b, s, kh, g, d).to(torch.float32)
-    logits = torch.einsum("bskgd,btkd->bkgst", qq,
-                          k.to(torch.float32)) * scale
+    f = _acc_dtype(q)
+    qq = q.reshape(b, s, kh, g, d).to(f)
+    logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(f)) * scale
     # a Python offset stays on the host: no copy, so a CUDA graph can
     # capture the plain version
     off = (q_offset if isinstance(q_offset, int) else
@@ -55,8 +56,68 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), NEG_INF, device=dev))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(f))
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def decode_split_reference(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, kv_positions: torch.Tensor,
+                           index: torch.Tensor | int, *, split_len: int,
+                           window: int = 0, scale: float | None = None
+                           ) -> tuple[torch.Tensor, ...]:
+    """The split pass of the decode-attention kernel (K4): each split of
+    ``split_len`` cache slots (the last may be shorter) gives, per row and
+    query head, its max score m, its sum l = sum exp(s - m) and its
+    accumulator acc = sum exp(s - m) v over its own slots. Masked scores
+    are -1e30, so a split with no valid slot has m = -1e30 and weighs
+    nothing beside one that has. The tests compose it with
+    :func:`decode_merge_reference`; the main path does not use it.
+
+    q (B, 1, H, D), k, v (B, T, KH, D), ``kv_positions`` (B, T), ``index``
+    a scalar or (B,). Returns m, l (S, B, H) and acc (S, B, H, D) in
+    float32 (float64 for float64 inputs).
+    """
+    b, _, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    f = _acc_dtype(q)
+    scale = d ** -0.5 if scale is None else scale
+    idx = torch.as_tensor(index, device=q.device).reshape(-1, 1)
+    ok = (kv_positions >= 0) & (kv_positions <= idx)
+    if window:
+        ok = ok & (kv_positions > idx - window)
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(b, kh, g, d).to(f),
+                     k.to(f)) * scale
+    s = torch.where(ok[:, None, None, :], s,
+                    torch.full((), NEG_INF, dtype=f, device=q.device))
+    ms, ls, accs = [], [], []
+    for t0 in range(0, t, split_len):
+        part = s[..., t0:t0 + split_len]
+        m = part.amax(-1)
+        p = torch.exp(part - m[..., None])
+        ms.append(m.reshape(b, h))
+        ls.append(p.sum(-1).reshape(b, h))
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p,
+                                 v[:, t0:t0 + split_len].to(f))
+                    .reshape(b, h, d))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def decode_merge_reference(m: torch.Tensor, l: torch.Tensor,
+                           acc: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel of K4: o = sum_s w_s acc_s / max(sum_s w_s l_s,
+    1e-30) with w_s = exp(m_s - max_s m_s), from
+    :func:`decode_split_reference`'s states. Returns (B, 1, H, D) in
+    ``dtype``."""
+    w = torch.exp(m - m.amax(0))
+    num = (w[..., None] * acc).sum(0)
+    den = (w * l).sum(0).clamp_min(1e-30)
+    return (num / den[..., None])[:, None].to(dtype)
 
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -13,6 +13,7 @@ import nothing of JAX::
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -191,6 +192,151 @@ def test_decode_ragged_index_equals_reference(pallas, win):
     got = decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(tags),
                            torch.from_numpy(index), window=win)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# K4's split pass and merge (the kernel's two CUDA kernels), composed:
+# (b, t, h, kh, d, splits, window, rows); rows "shared" puts every row at
+# index t - 6, "first" at 10 (every later split has no valid slot),
+# "empty" leaves row 1 with no valid slot, "ring" tags the slots with
+# positions 69..100 in a permuted order at index 100
+SPLIT_CASES = {
+    "one split": (2, 48, 4, 2, 16, 1, 0, "shared"),
+    "two splits": (2, 48, 4, 2, 16, 2, 0, "shared"),
+    "17 splits, ragged last": (2, 50, 4, 2, 16, 17, 0, "shared"),
+    "a slot a split": (1, 24, 4, 2, 16, 24, 0, "shared"),
+    "splits with no valid slot": (2, 48, 4, 2, 16, 4, 0, "first"),
+    "a row with no valid slot": (2, 48, 4, 2, 16, 3, 0, "empty"),
+    "window shorter than a split": (2, 64, 4, 2, 16, 2, 5, "shared"),
+    "ring of tags": (1, 32, 2, 2, 16, 3, 24, "ring"),
+    "g = 1": (2, 48, 4, 4, 32, 3, 12, "shared"),
+    "g = 16": (2, 48, 16, 1, 32, 5, 12, "shared"),
+}
+
+
+def _split_case(b, t, h, kh, d, rows, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = _decode_case(rng, b, t, h, kh, d)
+    slots = np.arange(t)
+    if rows == "ring":
+        idx = np.full(b, 100)
+        tags = np.broadcast_to(idx[0] - t + 1 + rng.permutation(t), (b, t))
+    else:
+        idx = np.full(b, {"shared": t - 6, "first": 10, "empty": 30}[rows])
+        if rows == "empty":
+            idx[1] = -1
+        tags = np.where(slots[None] <= idx[:, None], slots, -1)
+    return q, k, v, tags.astype(np.int32), idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_split_merge_plain_matches_reference(pallas, case):
+    """ref.decode_split_reference then ref.decode_merge_reference (the
+    plain counterpart of K4's split and merge kernels) against
+    ref.mha_reference in float64 (atol 1e-12) and, where every row shares
+    its index, against the Pallas kernel in interpret mode in float32
+    (K4's 2e-5; elsewhere against mha_reference in float32)."""
+    b, t, h, kh, d, splits, win, rows = SPLIT_CASES[case]
+    q, k, v, tags, idx = _split_case(b, t, h, kh, d, rows,
+                                     len(case) + splits)
+    split_len = -(-t // splits)
+    assert -(-t // split_len) == splits
+    tg, ix = torch.from_numpy(tags), torch.from_numpy(idx)
+
+    def composed(dtype):
+        m, l, acc = ref.decode_split_reference(
+            *(torch.tensor(x, dtype=dtype) for x in (q, k, v)), tg, ix,
+            split_len=split_len, window=win)
+        return m, ref.decode_merge_reference(m, l, acc, dtype)
+
+    m, got = composed(torch.float64)
+    want = ref.mha_reference(*(torch.tensor(x) for x in (q, k, v)),
+                             causal=True, window=win, q_offset=ix[:, None],
+                             kv_positions=tg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12)
+    if rows == "first":     # later splits see no slot and weigh nothing
+        assert (m[1:] == ref.NEG_INF).all() and (m[0] > ref.NEG_INF).all()
+    _, got32 = composed(torch.float32)
+    if rows == "empty":
+        want32 = ref.mha_reference(_t(q), _t(k), _t(v), causal=True,
+                                   window=win, q_offset=ix[:, None],
+                                   kv_positions=tg)
+        np.testing.assert_allclose(got.numpy()[1], np.broadcast_to(
+            v.mean(1)[1][:, None], (kh, h // kh, d)).reshape(1, h, d),
+            atol=1e-12)
+    else:
+        want32 = pallas.decode(_j(pallas, q), _j(pallas, k), _j(pallas, v),
+                               pallas.jnp.asarray(tags), int(idx[0]),
+                               window=win, block_k=16)
+    np.testing.assert_allclose(got32.numpy(), _f32(want32), rtol=0,
+                               atol=_ATOL["float32"])
+
+
+def test_decode_plan_depends_on_shapes_only():
+    """K4's host plan takes only shapes and the SM count (no tensor, so
+    two calls on the same shapes run the same grid) and keeps its
+    invariants: S splits of split_len slots cover T with no empty split;
+    a tile of 8 slots on the tensor cores, 8, 16 or 32 on the CUDA cores;
+    a ring of one tile only where each of a block's teams has one; the
+    tensor cores from g = 8; no more blocks than four an SM; and a layout
+    that fits a block's 232,448 bytes of shared memory at every g and D,
+    with all of a KV head's query heads in one block (its cache read once)
+    up to g = 64."""
+    from repro_torch.kernels.decode_attention import plan
+    import inspect
+    assert list(inspect.signature(plan).parameters) == [
+        "b", "t", "h", "kh", "d", "itemsize", "sms"]
+    # qwen3-moe-235b-a22b's and Zamba2-2.7B's decode on 132 SMs
+    assert plan(4, 1056, 64, 4, 128, 4, 132)[5:12] == (33, 32, 8, 1, 1,
+                                                        16, 1)
+    assert plan(4, 1056, 32, 32, 80, 4, 132)[5:12] == (3, 352, 8, 2, 0,
+                                                        1, 1)
+    # T shorter than a tile: one split, the split kernel writes o
+    assert plan(2, 7, 64, 4, 128, 4, 132).splits == 1
+    assert plan(2, 7, 4, 4, 80, 2, 132).splits == 1
+    for b in (1, 4, 16):
+        for t in (1, 7, 1000, 1056, 1057, 4096):
+            for h, kh, d in [(64, 4, 128), (32, 32, 80), (16, 16, 256),
+                             (16, 8, 128), (4, 1, 17), (32, 1, 64),
+                             (128, 1, 128), (64, 1, 256), (48, 1, 256),
+                             (128, 1, 80), (272, 1, 16), (512, 2, 256)]:
+                for itemsize in (2, 4):
+                    p = plan(b, t, h, kh, d, itemsize, 132)
+                    g = h // kh
+                    assert p == plan(b, t, h, kh, d, itemsize, 132)
+                    assert p[:5] == (b, t, h, kh, d)
+                    assert (p.splits - 1) * p.split_len < t
+                    assert t <= p.splits * p.split_len
+                    assert p.tile in ((8,) if p.tensor_cores else
+                                      (8, 16, 32))
+                    per_team = -(-(-(-p.split_len // p.tile)) // p.teams)
+                    assert p.stages == min(2, per_team)
+                    assert b * kh * p.hgroups * p.splits <= max(
+                        b * kh * p.hgroups, 4 * 132)
+                    assert p.tensor_cores == (g >= 8)
+                    assert p.smem <= 232448
+                    assert (p.hgroups - 1) * p.heads < g <= (
+                        p.hgroups * p.heads)
+                    assert p.heads <= p.rows and 1 <= p.teams <= 4
+                    assert p.teams * p.team_warps <= 16
+                    assert p.hgroups == 1 or g > 64
+
+
+def test_decode_plan_matches_the_kernels_struct():
+    """The wrapper's Plan is packed as the kernel's ``struct Plan``: the
+    same fields in the same order, every one an int32."""
+    import re
+    from repro_torch.kernels.decode_attention import Plan
+    src = (Path(ref.__file__).parent / "csrc" /
+           "decode_attention.cu").read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    decls = [re.sub(r"//.*", "", line).strip()
+             for line in body.splitlines()]
+    fields = []
+    for decl in filter(None, decls):
+        assert decl.startswith("int ") and decl.endswith(";"), decl
+        fields += [f.strip() for f in decl[4:-1].split(",")]
+    assert tuple(fields) == Plan._fields
 
 
 # ------------------------------------------------------------ K5 ssd
@@ -595,26 +741,64 @@ def test_card_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal,
                                rtol=1e-2)
 
 
-@pytest.mark.parametrize("b,t,h,kh,d,window,ragged,dtype", [
-    (2, 64, 4, 2, 32, 0, False, torch.float32),
-    (4, 1056, 32, 32, 80, 0, False, torch.float32),
-    (4, 300, 16, 8, 128, 64, True, torch.float32),
-    (3, 100, 4, 1, 32, 16, True, torch.bfloat16),
-    # g = 16, two blocks a KV head: qwen3-moe-235b-a22b, chatglm3-6b
-    (4, 1056, 64, 4, 128, 0, True, torch.float32),
-    (4, 1056, 64, 4, 128, 256, True, torch.bfloat16),
-    (2, 300, 32, 2, 128, 0, True, torch.bfloat16),
-    (2, 200, 48, 4, 64, 32, True, torch.float32),       # g = 12
+def _card_index(b, t, rows, dev):
+    """Each row's index: t - 5 ("shared"), t - 5 - 7 b ("ragged"), 10
+    ("first": every valid slot in the first split) or t - 5 with row 0
+    left with no valid slot ("empty")."""
+    index = torch.full((b,), 10 if rows == "first" else t - 5,
+                       dtype=torch.int32, device=dev)
+    if rows == "ragged":
+        index -= torch.arange(b, dtype=torch.int32, device=dev) * 7
+    if rows == "empty":
+        index[0] = -1
+    return index
+
+
+@pytest.mark.parametrize("b,t,h,kh,d,window,rows,dtype", [
+    (2, 64, 4, 2, 32, 0, "shared", torch.float32),
+    (4, 1056, 32, 32, 80, 0, "shared", torch.float32),
+    (4, 300, 16, 8, 128, 64, "ragged", torch.float32),
+    (3, 100, 4, 1, 32, 16, "ragged", torch.bfloat16),
+    # g = 16: qwen3-moe-235b-a22b, chatglm3-6b
+    (4, 1056, 64, 4, 128, 0, "ragged", torch.float32),
+    (4, 1056, 64, 4, 128, 256, "ragged", torch.bfloat16),
+    (2, 300, 32, 2, 128, 0, "ragged", torch.bfloat16),
+    (2, 200, 48, 4, 64, 32, "ragged", torch.float32),       # g = 12
+    # T not a multiple of the split, and shorter than one tile
+    (4, 1000, 64, 4, 128, 0, "ragged", torch.float32),
+    (4, 1057, 32, 32, 80, 0, "ragged", torch.float32),
+    (4, 1057, 64, 4, 128, 0, "shared", torch.bfloat16),
+    (2, 7, 64, 4, 128, 0, "ragged", torch.float32),
+    (2, 7, 4, 4, 80, 0, "shared", torch.bfloat16),
+    (4, 1056, 16, 16, 256, 0, "shared", torch.float32),    # gemma-7b
+    (4, 1056, 16, 16, 256, 0, "ragged", torch.bfloat16),
+    (4, 1056, 64, 4, 128, 20, "ragged", torch.float32),    # window < split
+    (4, 1056, 64, 4, 128, 0, "first", torch.float32),
+    (4, 1056, 32, 32, 80, 0, "first", torch.bfloat16),
+    (4, 1056, 64, 4, 128, 0, "empty", torch.float32),      # no valid slot
+    (4, 1056, 32, 32, 80, 16, "empty", torch.float32),
+    # D not a multiple of 16 bytes: element copies, odd columns
+    (2, 300, 16, 4, 17, 0, "ragged", torch.float32),
+    (2, 300, 16, 4, 17, 24, "ragged", torch.bfloat16),
+    (2, 200, 32, 2, 20, 16, "ragged", torch.float32),      # K's pad columns
+    # teams of several warps (g > 16); a group of 128 or 64 wide heads in
+    # one block of fewer teams; a group over two blocks (g > 256)
+    (2, 300, 32, 1, 64, 16, "ragged", torch.float32),
+    (2, 100, 128, 1, 32, 0, "ragged", torch.bfloat16),
+    (1, 64, 128, 1, 128, 0, "shared", torch.float32),
+    (1, 64, 128, 1, 128, 0, "shared", torch.bfloat16),
+    (1, 64, 64, 1, 256, 0, "shared", torch.float32),
+    (1, 64, 64, 1, 256, 0, "shared", torch.bfloat16),
+    (2, 300, 48, 1, 256, 24, "ragged", torch.float32),
+    (1, 64, 272, 1, 16, 0, "shared", torch.float32),
 ])
 def test_card_decode_kernel_matches_plain(cuda, b, t, h, kh, d, window,
-                                          ragged, dtype):
+                                          rows, dtype):
     gen = torch.Generator(device=cuda).manual_seed(t)
     q = _randn((b, 1, h, d), gen, cuda, dtype)
     k = _randn((b, t, kh, d), gen, cuda, dtype)
     v = _randn((b, t, kh, d), gen, cuda, dtype)
-    index = torch.full((b,), t - 5, dtype=torch.int32, device=cuda)
-    if ragged:
-        index -= torch.arange(b, dtype=torch.int32, device=cuda) * 7
+    index = _card_index(b, t, rows, cuda)
     slots = torch.arange(t, dtype=torch.int32, device=cuda)[None]
     tags = torch.where(slots <= index[:, None], slots, -1).contiguous()
     before = decode_attention.launches
@@ -626,6 +810,46 @@ def test_card_decode_kernel_matches_plain(cuda, b, t, h, kh, d, window,
     atol = 2e-5 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=0)
+
+
+def test_card_decode_kernel_takes_unaligned_rows(cuda):
+    """K and V whose rows start 4 bytes past a 16-byte boundary (a
+    contiguous view one element into a buffer) take the element copies
+    and still match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, t, h, kh, d = 2, 200, 32, 2, 128
+    q = _randn((b, 1, h, d), gen, cuda)
+    kbuf = _randn((b * t * kh * d + 1,), gen, cuda)
+    vbuf = _randn((b * t * kh * d + 1,), gen, cuda)
+    k = kbuf[1:].view(b, t, kh, d)
+    v = vbuf[1:].view(b, t, kh, d)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    index = _card_index(b, t, "ragged", cuda)
+    slots = torch.arange(t, dtype=torch.int32, device=cuda)[None]
+    tags = torch.where(slots <= index[:, None], slots, -1).contiguous()
+    got = decode_attention(q, k, v, tags, index)
+    want = ref.mha_reference(q, k, v, causal=True, q_offset=index[:, None],
+                             kv_positions=tags)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_card_decode_kernel_repeats_bit_for_bit(cuda):
+    """The splits are merged in a fixed order with no atomics: two calls
+    on the same inputs give the same bits, at qwen3-moe-235b-a22b's and
+    Zamba2-2.7B's decode shapes."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    for b, t, h, kh, d in [(4, 1056, 64, 4, 128), (4, 1056, 32, 32, 80)]:
+        q = _randn((b, 1, h, d), gen, cuda)
+        k = _randn((b, t, kh, d), gen, cuda)
+        v = _randn((b, t, kh, d), gen, cuda)
+        index = _card_index(b, t, "ragged", cuda)
+        slots = torch.arange(t, dtype=torch.int32, device=cuda)[None]
+        tags = torch.where(slots <= index[:, None], slots, -1).contiguous()
+        one = decode_attention(q, k, v, tags, index)
+        two = decode_attention(q, k, v, tags, index)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two)
 
 
 @pytest.mark.parametrize("b,l,h,p,g,n,q,dtype,strong", [
