@@ -13,8 +13,9 @@ Phases, each of which raises on failure (exit code non-zero):
 2. hold the entropy-judge kernels (K1) against their plain PyTorch
    versions: the sweep, with its emptying conventions, and the greedy
    loop of Alg. 1 in one launch, on random active, protected and cap
-   settings with tied duplicate rows, at every cluster size (1-16 CTAs)
-   at 151,936 classes, and twice on the same inputs (same bits);
+   settings with tied duplicate rows, streamed at (64, 151,936), at
+   forced grid sizes of 1-132 CTAs at 151,936 classes (streamed up to
+   16, resident from 33), and twice on the same inputs (same bits);
 3. hold the fused-aggregation kernel (K2) against its plain version, bit
    for bit;
 4. drive the paper's FedEntropy round at full width — the CIFAR-shaped
@@ -32,8 +33,9 @@ Phases, each of which raises on failure (exit code non-zero):
    their plain versions and, for K2, the PyTorch library call
    ``w @ flat``; time one whole judgment by route in turns (plain, kernel,
    kernel, plain); print K1's and K2's host microseconds per call by piece
-   of the wrapper, the loop at 151,936 classes per iteration beside its
-   bytes bound and the sweep per iteration, and the launch floor (an
+   of the wrapper, the loop's plan at 151,936 classes and its time per
+   iteration beside the bytes bound and the floor of its logarithms, the
+   forced grid sizes, the sweep per iteration, and the launch floor (an
    empty kernel launched the same way);
 6. hold flash attention (K3), decode attention (K4) and the SSD chunk
    scan (K5) against their plain versions, in float32 and bfloat16, at
@@ -241,6 +243,11 @@ decode step of this checkout's package against DIR's (another checkout,
 for example the parent commit unpacked by ``git archive``) on one card,
 in turns (this, DIR, DIR, this), each in a process of its own
 (``--k4-time --src``), and prints one JSON line of both.
+``python3 chip_smoke.py --k1-turns DIR`` does the same for K1 (``--k1-time
+--src``): the loop at the warp route's shapes (K1_WARP_SHAPES), at (8,
+152,064), (4, 152,064) and (10, 151,936), and the sweep at (10, 10), µs
+a call queued on the device and host µs; it fails unless the warp
+route's packed output equals DIR's bit for bit at each of its shapes.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -428,7 +435,7 @@ def _queued_ms(fn, iters: int = 50) -> float:
 
 
 # the port's kernels by name (the launches the wrappers' counters count)
-PORT_KERNELS = ("judge_sweep", "judge_loop", "masked_weighted_sum",
+PORT_KERNELS = ("judge_loop", "masked_weighted_sum",
                 "flash_fwd", *K4_KERNELS, *K5_KERNELS, "empty_kernel")
 
 
@@ -542,6 +549,7 @@ def check_k1_sweep() -> float:
              ((32, 4096), torch.float32, None),
              ((10, 151936), torch.float32, None),
              ((16, 1000), torch.bfloat16, None),
+             ((8, 152064), torch.bfloat16, None),
              ((10, 10), torch.float32, "single"),
              ((10, 10), torch.float32, "empty"),
              ((10, 4096), torch.float32, "single"),
@@ -629,11 +637,15 @@ def _split_margin(args, order_k, order_p) -> tuple[int, float]:
     return step, abs(without(k) - group_entropy_np(p64, s64, mask) - TOL)
 
 
-def _loop_kernel_of(m: int, c: int, cluster: int | None = None) -> str:
-    """Which kernel the loop runs at this shape, cluster size forced or
-    not: "one warp" or "cluster of G"."""
-    kernel, ctas = entropy_judge.loop_kernel(m, c, cluster)
-    return "one warp" if kernel == "warp" else f"cluster of {ctas}"
+def _loop_kernel_of(m: int, c: int, ctas: int | None = None) -> str:
+    """Which kernel the loop runs at this shape, the CTA count forced or
+    not: "four warps" or "grid of G CTAs of S classes, resident" (or
+    "streamed")."""
+    pl = entropy_judge.plan(m, c, ctas)
+    if pl.kernel == "warp":
+        return "four warps"
+    return (f"grid of {pl.ctas} CTAs of {pl.slice} classes, "
+            f"{'resident' if pl.resident else 'streamed'}")
 
 
 def _loop_err(label, got, want, args) -> float:
@@ -669,11 +681,12 @@ def _loop_err(label, got, want, args) -> float:
 
 def check_k1_loop() -> float:
     """The loop kernel against its plain version: every shape with three
-    settings each, one active row and an empty active set, each cluster
-    size at 151,936 classes, and two calls on the same inputs."""
+    settings each (the last streamed), one active row and an empty active
+    set, forced grid sizes at 151,936 and 10 classes, and two calls on
+    the same inputs."""
     worst = 0.0
     shapes = [(10, 10), (8, 10), (100, 10), (16, 1000), (10, 517),
-              (32, 4096), (10, 151936)]
+              (32, 4096), (10, 151936), (64, 151936)]
     for i, (m, c) in enumerate(shapes):
         for seed in range(3):
             args = _loop_inputs(m, c, 3 * i + seed)
@@ -697,16 +710,16 @@ def check_k1_loop() -> float:
             raise AssertionError(f"K1 loop {label}: removed a device")
         if label == "empty" and abs(float(init) - math.log(10)) > 1e-6:
             raise AssertionError("K1 loop empty set: entropy is not ln C")
-    for m, c, clusters in ((10, 151936, (1, 2, 4, 8, 16)),
-                           (10, 10, (1, 2))):
+    for m, c, sizes in ((10, 151936, (1, 2, 4, 8, 16, 33, 66, 132)),
+                        (10, 10, (1, 2, 3))):
         args = _loop_inputs(m, c, 0)
         want = ref.entropy_judge_loop_reference(*args)
-        for cluster in clusters:
-            got = entropy_judge_loop(*args, _cluster=cluster)
+        for ctas in sizes:
+            got = entropy_judge_loop(*args, _ctas=ctas)
             worst = max(worst, _loop_err(
-                f"({m}, {c}) forced {_loop_kernel_of(m, c, cluster)}", got,
+                f"({m}, {c}) forced {_loop_kernel_of(m, c, ctas)}", got,
                 want, args))
-    for m, c in ((10, 10), (100, 10), (10, 151936)):
+    for m, c in ((10, 10), (100, 10), (10, 151936), (64, 151936)):
         args = _loop_inputs(m, c, 1)
         first = entropy_judge_loop(*args)
         second = entropy_judge_loop(*args)
@@ -714,7 +727,7 @@ def check_k1_loop() -> float:
             raise AssertionError(f"K1 loop ({m}, {c}): a second call gives "
                                  f"other bits")
     print("K1 loop: two calls on the same inputs equal bit for bit at "
-          "(10, 10), (100, 10) and (10, 151936)")
+          "(10, 10), (100, 10), (10, 151936) and (64, 151936)")
     return worst
 
 
@@ -1895,7 +1908,7 @@ SCAN_ROUNDS = 8          # two blocks in (a) and (b); (a)'s servers run
                          # 4 x SCAN_R more rounds in the timing
 SCAN_SHORT = 4           # one block in (c) and (d)
 # the kernels' names in a profile
-K1_KERNELS = ("judge_loop_warp", "judge_loop_kernel")
+K1_KERNELS = ("judge_loop_warp", "judge_loop_grid")
 K2_KERNELS = ("masked_weighted_sum_kernel",)
 
 
@@ -2501,9 +2514,9 @@ def capture_checks() -> None:
     launch: the pool draw and the device selection's permutation (stable
     argsorts whose scratch comes from the graph's pool) against the CPU's
     integers, at N = 100 and N = 2000 (two sort rounds); K1's loop as the
-    warp kernel at (10, 10) and as a cluster (a launch with a cluster
-    attribute) at (10, 4096) and forced to 2 CTAs at (10, 10), bit for
-    bit, one launch a replay."""
+    warp kernel at (10, 10) and as the grid kernel (a cooperative launch)
+    at (10, 4096), at (10, 151936) on 132 CTAs and forced to 2 CTAs at
+    (10, 10), bit for bit, one launch a replay."""
     from repro_torch.core import threefry
     from repro_torch.core.pools import pools_draw
     for n, num in ((100, 10), (2000, 200)):
@@ -2524,20 +2537,20 @@ def capture_checks() -> None:
                                  "the CPU's")
     print("captured pool draw and permutation equal the CPU's at N = 100 "
           "and N = 2000")
-    for c, cluster in ((10, None), (4096, None), (10, 2)):
+    for c, ctas in ((10, None), (4096, None), (151936, None), (10, 2)):
         soft, sizes, _ = _k1_inputs(10, c, seed=c)
-        fn = (lambda s, z, cluster=cluster:
-              entropy_judge_loop(s, z, _cluster=cluster))
+        fn = (lambda s, z, ctas=ctas:
+              entropy_judge_loop(s, z, _ctas=ctas))
         eager = fn(soft, sizes).clone()
         prog = graph_cache.CapturedProgram(fn, (soft, sizes))
         got = prog(soft, sizes)
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), eager.view(torch.int32)) \
                 or prog.launches != {"entropy_judge_loop": 1}:
-            raise AssertionError(f"K1 loop captured at (10, {c}) cluster "
-                                 f"{cluster}: differs or {prog.launches}")
+            raise AssertionError(f"K1 loop captured at (10, {c}) CTAs "
+                                 f"{ctas}: differs or {prog.launches}")
         print(f"K1 loop captured at (10, {c}) "
-              f"({_loop_kernel_of(10, c, cluster)}): equal to its eager "
+              f"({_loop_kernel_of(10, c, ctas)}): equal to its eager "
               f"launch bit for bit, {prog.launches} a replay")
 
 def profile_round(server, label: str) -> tuple[float, float]:
@@ -2603,25 +2616,32 @@ def k2_host_us(flat, w, calls: int = 10000) -> dict:
 
 
 def k1_host_us(soft, sizes, mask, calls: int = 10000) -> dict:
-    """Host microseconds per call of each piece of K1's sweep wrapper at a
-    shape of one launch (C <= 1024), over ``calls`` calls each: its
-    checks, the output's allocation, the stream lookup, the ctypes call
-    that launches the kernel, and the whole wrapper."""
+    """Host microseconds per call of each piece of K1's sweep wrapper,
+    over ``calls`` calls each: its checks, the plan (a cached lookup),
+    the buffer's allocation, the stream lookup, the ctypes call that
+    launches the kernel, and the whole wrapper."""
     m, c = soft.shape
-    assert c <= entropy_judge._BLOCK_C
     index = soft.get_device()
-    fn = entropy_judge._sweep_fn(soft.dtype)
-    out = torch.empty(m + 1, dtype=torch.float32, device=soft.device)
+    pl = entropy_judge.plan(m, c, sweep=True)
+    fn = entropy_judge._grid_fn()
+    n = (2 * pl.ctas + 1) * (m + 1)
+    buf = torch.empty(n, dtype=torch.float32, device=soft.device)
     stream = _build.current_stream(index)
     ptrs = (soft.data_ptr(), sizes.data_ptr(), mask.data_ptr(), None,
-            out.data_ptr())
+            buf.data_ptr(), buf.data_ptr() + 4 * (m + 1))
+    args = (m, c, 0, *entropy_judge._grid_args(pl, True, soft.dtype))
+
+    def checks():
+        entropy_judge._check_labels(soft, entropy_judge._SWEEP_DTYPES)
+        entropy_judge._vector(sizes, soft, m, "sizes")
+        entropy_judge._vector(mask, soft, m, "mask")
     return _host_us({
-        "checks": lambda: entropy_judge._checked(soft, sizes, mask),
-        "empty": lambda: torch.empty(m + 1, dtype=torch.float32,
+        "checks": checks,
+        "plan": lambda: entropy_judge.plan(m, c, sweep=True),
+        "empty": lambda: torch.empty(n, dtype=torch.float32,
                                      device=soft.device),
         "stream": lambda: _build.current_stream(index),
-        "ctypes call": lambda: fn(*ptrs, m, c, entropy_judge._BLOCK_C,
-                                  stream),
+        "ctypes call": lambda: fn(*ptrs, *args, stream),
         "whole wrapper": lambda: entropy_judge_sweep(soft, sizes, mask),
     }, calls)
 
@@ -2657,6 +2677,21 @@ def _k1_loop_work(m: int, c: int, packed) -> tuple[int, int, int]:
     return m * c * 4 + m * 4 + (2 * m + 3) * 4, ops, iters
 
 
+# FP32-pipe instructions of one accurate logf, an estimate (its range
+# reduction, polynomial and selects without fast math), and the FP32
+# pipe's instructions a clock on an H100 SM at its 1.98 GHz boost
+LOGF_INSTRUCTIONS = 20
+SM_FP32_PER_S = 128 * 1.98e9
+
+
+def _k1_log_floor_ms(m: int, c: int) -> float:
+    """The least time of one loop iteration's (M + 1) C accurate
+    logarithms spread evenly over the card's 132 SMs: a floor beside the
+    bytes bound, which the arithmetic of the logarithms, not the read,
+    sets at these shapes."""
+    return (m + 1) * c * LOGF_INSTRUCTIONS / (132 * SM_FP32_PER_S) * 1e3
+
+
 def time_kernels(judge_inputs, p: int) -> dict:
     """K1's sweep and loop on the first round's soft labels and sizes with
     every device active, and the whole judgment by route; K2 on a (M, P)
@@ -2685,7 +2720,7 @@ def time_kernels(judge_inputs, p: int) -> dict:
                       "library": lambda: w @ flat}, iters=2000, warmup=200)
     k2_bytes = (m * p + m + p) * 4
     k2_flops = 2 * m * p
-    sweep_dev = _device_ms(sweep_call, ("judge_sweep",))
+    sweep_dev = _device_ms(sweep_call, ("judge_loop_grid",))
     loop_dev = _device_ms(loop_call, ("judge_loop",))
     k2_dev = _device_ms(k2_call, ("masked_weighted_sum",))
     print(f"device time per call (torch.profiler): K1 sweep "
@@ -2695,11 +2730,12 @@ def time_kernels(judge_inputs, p: int) -> dict:
           f"{_loop_kernel_of(m, c)}), every "
           f"kernel of the loop wrapper {_device_ms(loop_call, ()):.5f} ms, "
           f"K2 kernel {k2_dev:.5f} ms")
-    cluster_dev = _device_ms(lambda: entropy_judge_loop(
-        soft, sizes, _cluster=1), ("judge_loop",))
+    grid_dev = _device_ms(lambda: entropy_judge_loop(
+        soft, sizes, _ctas=1), ("judge_loop_grid",))
     print(f"K1 loop at ({m}, {c}), kernel alone: {_loop_kernel_of(m, c)} "
-          f"{loop_dev:.5f} ms, the cluster kernel on one CTA "
-          f"{cluster_dev:.5f} ms")
+          f"{loop_dev:.5f} ms, the grid kernel on one CTA "
+          f"{grid_dev:.5f} ms; floor of the logarithms "
+          f"{_k1_log_floor_ms(m, c):.3e} ms an iteration on 132 SMs")
     whole, verdict = judgment_ms(soft, sizes)
     print(f"whole judgment at ({m}, {c}), MaxEntropyJudge, host clock to "
           f"the verdict on the host, in turns (plain, kernel, kernel, "
@@ -2723,37 +2759,41 @@ def time_kernels(judge_inputs, p: int) -> dict:
 
 
 def time_k1_wide(m: int = 10, c: int = 151936) -> None:
-    """K1 at Qwen's vocabulary: the loop per iteration against the bytes
-    bound of one read of P, each cluster size forced, and the sweep per
-    call (what each iteration of the loop cost before it was one
-    launch)."""
+    """K1 at Qwen's vocabulary: the plan, the loop per iteration against
+    the bytes bound of one read of P and against the floor of its
+    accurate logarithms on 132 SMs, forced grid sizes, and the sweep per
+    call (one iteration of the loop as a launch of its own)."""
     soft, sizes, _, _, _ = _loop_inputs(m, c, 0)
-    cluster = entropy_judge.cluster_size(c)
+    pl = entropy_judge.plan(m, c)
     call = lambda: entropy_judge_loop(soft, sizes)
-    _, _, iters = _k1_loop_work(m, c, call())
+    nbytes, ops, iters = _k1_loop_work(m, c, call())
     ms = _time_ms(call, iters=50, warmup=5)
     dev = _device_ms(call, ("judge_loop",), iters=20)
     mask = torch.ones(m, device="cuda")
     sweep_call = lambda: entropy_judge_sweep(soft, sizes, mask)
     sweep_ms = _time_ms(sweep_call, iters=50, warmup=5)
-    sweep_dev = _device_ms(sweep_call, ("judge_sweep",), iters=20)
+    sweep_dev = _device_ms(sweep_call, ("judge_loop_grid",), iters=20)
     plain_ms = _time_ms(lambda: ref.entropy_judge_loop_reference(soft, sizes),
                         iters=5, warmup=1)
     per_iter_bound = m * c * 4 / HBM_BYTES_PER_S * 1e3
-    bound, by = _bound_ms(*_k1_loop_work(m, c, call())[:2])
-    print(f"K1 loop at ({m}, {c}), cluster {cluster}: {iters} iterations, "
-          f"{ms:.5f} ms per call, kernel alone {dev:.5f} ms, "
+    bound, by = _bound_ms(nbytes, ops)
+    print(f"K1 loop plan at ({m}, {c}): {pl}")
+    print(f"K1 loop at ({m}, {c}), {_loop_kernel_of(m, c)}: {iters} "
+          f"iterations, {ms:.5f} ms per call, kernel alone {dev:.5f} ms, "
           f"{dev / iters:.5f} ms per iteration = "
           f"{per_iter_bound / (dev / iters):.3f} of the "
           f"{per_iter_bound:.5f} ms bytes bound of one read of P; call "
-          f"bound {bound:.5f} ms ({by}); plain loop {plain_ms:.5f} ms")
+          f"bound {bound:.3e} ms ({by}: {nbytes} bytes, {ops} operations); "
+          f"floor of the logarithms {_k1_log_floor_ms(m, c):.3e} ms an "
+          f"iteration on 132 SMs; plain loop {plain_ms:.5f} ms")
     print(f"K1 sweep at ({m}, {c}): {sweep_ms:.5f} ms per call, kernel "
           f"alone {sweep_dev:.5f} ms; {iters} sweeps: {iters * sweep_ms:.5f} "
           f"ms of calls, {iters * sweep_dev:.5f} ms of kernels")
     forced = {g: _time_ms(lambda: entropy_judge_loop(
-        soft, sizes, _cluster=g), iters=10, warmup=2)
-        for g in (1, 2, 4, 8, 16)}
-    print("K1 loop ms per call by forced cluster size (CUDA events): " +
+        soft, sizes, _ctas=g), iters=10, warmup=2)
+        for g in (1, 2, 4, 16, 33, 66, 132)}
+    print("K1 loop ms per call by forced grid size (CUDA events; streamed "
+          "up to 16 CTAs): " +
           ", ".join(f"{g}: {t:.5f}" for g, t in forced.items()))
     floor_ms, floor_dev = launch_floor()
     print(f"launch floor: an empty kernel through _build.launch "
@@ -3478,7 +3518,9 @@ def _time_lm_kernels(soft8, sizes8, soft4, sizes4, p: int) -> dict:
         print(f"{label} at {tuple(soft.shape)}: {t['kernel']:.5f} ms per "
               f"call (kernel alone {dev:.5f} ms; {iters} iterations, "
               f"{_loop_kernel_of(*soft.shape)}), plain {t['plain']:.5f} ms,"
-              f" bound {bound:.5f} ms ({by})")
+              f" bound {bound:.5f} ms ({by}); floor of the logarithms "
+              f"{_k1_log_floor_ms(*soft.shape):.3e} ms an iteration on 132 "
+              f"SMs")
         times[label] = (t["kernel"], t["plain"], None, bound, by, dev,
                         tuple(soft.shape))
     m = soft4.shape[0]
@@ -4395,11 +4437,68 @@ def k4_time() -> int:
     return 0
 
 
-def k4_turns(other: str) -> int:
-    """``--k4-turns DIR``: :func:`k4_time` for this checkout's package and
-    DIR's, in turns (this, DIR, DIR, this), each in a process of its own;
-    prints each run's line as it comes and then one JSON line of all four
-    with the card's name and power limit."""
+def _near_uniform(m: int, c: int, seed: int):
+    """Soft labels of a model at random init: each row the softmax of
+    logits N(0, 0.1^2), so the loop stops after its first sweep."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    soft = torch.softmax(0.1 * torch.randn((m, c), generator=gen,
+                                           device="cuda"), dim=1)
+    return soft, torch.full((m,), 64.0, device="cuda")
+
+
+# the shapes of --k1-time below the paper's bound: K1's warp route
+K1_WARP_SHAPES = ((10, 10), (4, 10), (3, 7), (16, 16), (32, 32))
+
+
+def k1_time() -> int:
+    """``--k1-time [--src DIR]``: K1 through the ``repro_torch`` that
+    ``--src`` names (this checkout's by default). The loop at the paper's
+    (10, 10) (phase 2's first inputs) and at the other K1_WARP_SHAPES
+    (phase 2's inputs at those shapes), at (8, 152064) and (4, 152064)
+    (soft labels of a model at random init: one iteration) and at (10,
+    151936) (phase 5's inputs), and the sweep at (10, 10): a call's host
+    microseconds (100 calls issued without a wait), its ms by CUDA events
+    around calls back to back, the device ms of everything it launches
+    queued behind a sleeping kernel, its iterations and its packed output
+    as int32 bits. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    import repro_torch
+    _build.build(("entropy_judge",))
+    out = {"package": str(Path(repro_torch.__file__).resolve().parent)}
+    cases = {f"loop {shape}": _loop_inputs(*shape, i)[:2]
+             for i, shape in enumerate(K1_WARP_SHAPES)}
+    cases.update({"loop (8, 152064)": _near_uniform(8, 152064, 1),
+             "loop (4, 152064)": _near_uniform(4, 152064, 2),
+             "loop (10, 151936)": _loop_inputs(10, 151936, 0)[:2]})
+    for label, (soft, sizes) in cases.items():
+        call = lambda: entropy_judge_loop(soft, sizes)
+        packed = call()
+        out[label] = {
+            "host_us": _host_us({"call": call}, 100)["call"],
+            "ms": _time_ms(call, 100, 10), "queued_ms": _queued_ms(call, 100),
+            "iterations": _k1_loop_work(*soft.shape, packed)[2],
+            "bits": packed.view(torch.int32).tolist()}
+    soft, sizes, mask = _k1_inputs(10, 10, seed=0)
+    call = lambda: entropy_judge_sweep(soft, sizes, mask)
+    ent, loo = call()
+    out["sweep (10, 10)"] = {
+        "host_us": _host_us({"call": call}, 100)["call"],
+        "ms": _time_ms(call, 100, 10), "queued_ms": _queued_ms(call, 100),
+        "bits": torch.cat([ent[None], loo]).view(torch.int32).tolist()}
+    print(json.dumps(out))
+    return 0
+
+
+def turns(other: str, mode: str) -> int:
+    """``--k4-turns DIR`` (``mode`` "--k4-time", :func:`k4_time`) and
+    ``--k1-turns DIR`` ("--k1-time", :func:`k1_time`): the timing run of
+    this checkout's package and DIR's, in turns (this, DIR, DIR, this),
+    each in a process of its own; prints each run's line as it comes and
+    then one JSON line of all four with the card's name and power limit.
+    For K1 it fails unless the warp route (K1_WARP_SHAPES) gives the same
+    bits in all four runs."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -4408,7 +4507,7 @@ def k4_turns(other: str) -> int:
             "other": str(Path(other).resolve() / "src")}
     runs = []
     for which in ("this", "other", "other", "this"):
-        res = subprocess.run([sys.executable, str(me), "--k4-time", "--src",
+        res = subprocess.run([sys.executable, str(me), mode, "--src",
                               srcs[which]], capture_output=True, text=True,
                              timeout=900)
         print(f"-- {which} ({srcs[which]}), exit {res.returncode}:\n"
@@ -4424,10 +4523,22 @@ def k4_turns(other: str) -> int:
         timeout=60, check=True).stdout.strip()
     print(smi)
     print(json.dumps({"card": smi, "turns": runs}))
+    if mode == "--k1-time":
+        for label in (k for k in runs[0] if k.startswith(("loop", "sweep"))):
+            same = len({str(r[label]["bits"]) for r in runs}) == 1
+            print(f"K1 {label}: packed output equal in all four runs: "
+                  f"{same}")
+            if label in {f"loop {s}" for s in K1_WARP_SHAPES} and not same:
+                print(f"K1's warp route at {label} differs from DIR's bits",
+                      file=sys.stderr)
+                return 1
     return 0
 
 
 if __name__ == "__main__":
-    if "--k4-turns" in sys.argv[:-1]:
-        sys.exit(k4_turns(sys.argv[sys.argv.index("--k4-turns") + 1]))
-    sys.exit(k4_time() if "--k4-time" in sys.argv else main())
+    for flag, mode in (("--k4-turns", "--k4-time"),
+                       ("--k1-turns", "--k1-time")):
+        if flag in sys.argv[:-1]:
+            sys.exit(turns(sys.argv[sys.argv.index(flag) + 1], mode))
+    sys.exit(k4_time() if "--k4-time" in sys.argv else
+             k1_time() if "--k1-time" in sys.argv else main())

@@ -1,5 +1,5 @@
-// Maximum-entropy judgment (the paper's Alg. 1) on an H100: one greedy
-// sweep, and the whole greedy loop in one launch.
+// Maximum-entropy judgment (the paper's Alg. 1) on an H100: the whole
+// greedy loop in one launch, and one greedy sweep.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/entropy_judge.py
 // (entropy_judge_sweep, kernel body _judge_kernel) and, for the loop, the
@@ -14,48 +14,32 @@
 //                                          (-1 if tot - w_k <= eps: a removal
 //                                           that empties the set)
 //
-// Part A, entropy_judge_sweep: one sweep. Every block forms w, tot and den
-// itself from sizes and mask, in a fixed order, so every block gets the
-// same bits. One block owns one tile of block_c classes. When C fits in
-// one tile (the paper's (10, 10)) that block writes the final values,
-// conventions included, in one launch; above that each block writes its
-// M + 1 partial sums and a one-block finalize adds them in block order.
+// judge_loop_warp runs the loop at the paper's shape (C and M at most 32)
+// in one CTA of four warps, each holding P's columns in registers (lane j
+// column j), loaded once.
 //
-// Part B, entropy_judge_loop: Alg. 1 in one launch, as the reference's
-// jitted while_loop runs it.
-//
-// At the paper's shape (C and M at most 32) one warp runs the whole loop
-// (judge_loop_warp): lanes hold classes and rows, every sum is a shuffle
-// butterfly, and an iteration has no barrier at all.
-//
-// Above it the launch is one thread-block cluster of G CTAs
-// (judge_loop_kernel; G = 1 up to 1024 classes, 16 at 151,936). Each CTA
-// owns a contiguous slice of the class axis and, every iteration,
-// recomputes s_c over its slice from the current mask and forms its
-// partial group term and the candidates' partial leave-one-out terms in
-// its own shared memory. After cluster.sync() every CTA reads all the
-// CTAs' partials through distributed shared memory in rank order, adds
-// them, and takes the argmax and the stop decision itself: all CTAs agree
-// bit for bit without exchanging the decision. The partials are
-// double-buffered by iteration parity, so the next iteration never
-// overwrites what a neighbour still reads. No atomics, no tickets, no
-// spinning on global memory: the cluster is scheduled together or refused
-// at launch. The device code for a block's partial sums (add_terms) is
-// shared with the sweep. The sweep's blocks have 256 threads; the loop's
-// CTAs enough that every row has a warp of its own or a lane of a full
-// tile's row takes about eight classes (1024 threads at (100, 10) and at
-// 151,936 classes). An iteration takes two barriers and one
-// cluster.sync() beside the three of each tile; warp 0 of every CTA makes
-// the decision.
+// judge_loop_grid runs the loop above that shape, and every sweep, in one
+// cooperative launch over the class axis: one CTA a slice, by the wrapper's
+// plan, a function of (M, C) alone (1,152 classes a CTA up to 132 CTAs, one
+// an SM; wider slices past 152,064 classes). A CTA whose (M, slice) block
+// of P fits in shared memory ("resident") loads it once and never reads P
+// from device memory again; else it streams the block in tiles every
+// iteration. An iteration forms s_c and the partial sums of the CTA's
+// slice, writes them to a global exchange buffer double-buffered by
+// iteration parity and meets the other CTAs at one grid barrier; then
+// every CTA adds all the partials in the same fixed order and takes the
+// argmax (the first index among ties) and the stop decision itself, so all
+// agree bit for bit with no second barrier and no atomics. A sweep is the
+// first iteration with every row swept and no decision.
 //
 // What bounds it on an H100: one sweep reads P once, M*C elements, and
-// does about 2*M*C multiply-adds and (M+1)*C logarithms; a large C is
-// bound by that read at 3.35 TB/s (1.81 us at (10, 151936) in float32).
-// A cluster holds at most 16 of the card's 132 SMs, so the loop is bound
-// there by the instructions of its accurate logarithms and the latency of
-// its reads of P from L2 on those 16 SMs, not by the card's memory rate.
-// At the main path's (10, 10) the input is 400 bytes: the floor is one
-// launch, and the loop's latency chain of shuffles per iteration.
+// does about 2*M*C multiply-adds and (M+1)*C accurate logarithms (about 40
+// instructions a term); at (10, 151936) the read takes 1.81 us at 3.35
+// TB/s. Resident, an iteration is bound by its logarithms on 132 SMs, the
+// grid barrier (about 1 us) and the read of the partials from L2. At the
+// main path's (10, 10) the input is 400 bytes: the floor is one launch and
+// the chain of shuffles an iteration. Every sum has a fixed order, so a
+// call repeats its bits.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +47,7 @@
 #include <atomic>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 #include "smem_limit.cuh"
 
@@ -70,16 +55,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSweepThreads = 256;
-constexpr int kMaxCluster = 16;  // H100's largest (non-portable) cluster
-constexpr int kTile = 2048;      // classes a block holds s_c for at once
+constexpr int kWarp = 32;        // C and M up to this: the warp kernel
+constexpr int kTeams = 4;        // its warps, each a quarter of the rows
+constexpr int kThreads = 1024;   // threads a CTA of the grid kernel
+constexpr int kTile = 2048;      // classes a streamed CTA holds s_c for
 constexpr float kEps = 1e-12f;
 constexpr float kTol = 1e-6f;    // strict-improvement margin of Alg. 1
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // q log q, 0 for q <= 0. The logarithm is taken of max(q, eps) whatever
 // q is and the result selected after, so the code has no branch and the
@@ -89,371 +70,6 @@ __device__ __forceinline__ float plogp(float q) {
   return q > 0.f ? t : 0.f;
 }
 
-// Every thread forms tot = sum_k w_k itself, w_k = sizes_k * mask_k
-// rounded, k in order: the same bits in every thread of every block.
-// Threads k < m write w_k and inv_k = 1 / max(tot - w_k, eps); the caller
-// syncs before reading them. A term divides by multiplying with inv_k,
-// within an ulp of the quotient.
-__device__ float form_weights(const float* sizes, const float* mask, int m,
-                              float* w, float* inv) {
-  float tot = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < m; ++k) tot += __fmul_rn(sizes[k], mask[k]);
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    const float wk = __fmul_rn(sizes[k], mask[k]);
-    w[k] = wk;
-    inv[k] = 1.f / fmaxf(tot - wk, kEps);
-  }
-  return tot;
-}
-
-// Row r of a sweep: r = 0 is the group term, r = 1 + k the leave-one-out
-// term of row k.
-__device__ __forceinline__ bool row_wanted(int r, bool group,
-                                           const unsigned char* row_on) {
-  return r == 0 ? group : (row_on == nullptr || row_on[r - 1] != 0);
-}
-
-// Adds the terms of classes lo .. hi - 1 to acc (m + 1 floats):
-// acc[0] += sum_c plogp(s_c / max(tot, eps)) when `group`, and
-// acc[1 + k] += sum_c plogp((s_c - w_k p_kc) / den_k) for every row k
-// that row_on marks (every row when row_on is null), tile by tile: s_c of
-// kTile classes into s_tile, then each row to a group of warps sized so
-// that a lane takes about eight classes (one warp per row at (10, 10) and
-// (100, 10), every warp of the block on each row of a full tile), the
-// group's lanes and warps added into acc. part (warps * (m + 1)) is shared
-// scratch. Every sum has a fixed order, so a call repeats its bits: s_c
-// over k in order, a lane's classes in order, lanes in a fixed shuffle
-// tree, a row's warps in order, tiles in order. The loops are unrolled so
-// that a thread keeps several loads and logarithms in flight.
-template <typename T>
-__device__ void add_terms(const T* __restrict__ p, int m, int c, int lo,
-                          int hi, const float* w, const float* inv,
-                          float tot, const unsigned char* row_on, bool group,
-                          float* s_tile, float* part, float* acc) {
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float inv_tot = 1.f / fmaxf(tot, kEps);
-  for (int c0 = lo; c0 < hi; c0 += kTile) {
-    const int width = min(kTile, hi - c0);
-    for (int j = threadIdx.x; j < width; j += blockDim.x) {
-      const T* col = p + c0 + j;
-      float s = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < m; ++k) {
-        s += to_f32(col[static_cast<size_t>(k) * c]) * w[k];
-      }
-      s_tile[j] = s;
-    }
-    __syncthreads();
-
-    int wpr = 1;                 // warps per row: ~8 classes a lane
-    while (wpr < warps && wpr * 256 < width) wpr <<= 1;
-    const int groups = warps / wpr;
-    const int sub = warp % wpr;
-    for (int r = warp / wpr; r <= m; r += groups) {
-      if (!row_wanted(r, group, row_on)) continue;   // uniform in the warp
-      float v = 0.f;
-      if (r == 0) {
-#pragma unroll 4
-        for (int j = sub * 32 + lane; j < width; j += wpr * 32) {
-          v += plogp(s_tile[j] * inv_tot);
-        }
-      } else {
-        const int k = r - 1;
-        const float wk = w[k];
-        const float ik = inv[k];
-        const T* pk = p + static_cast<size_t>(k) * c + c0;
-#pragma unroll 4
-        for (int j = sub * 32 + lane; j < width; j += wpr * 32) {
-          v += plogp((s_tile[j] - to_f32(pk[j]) * wk) * ik);
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0) part[r * warps + sub] = v;
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r <= m; r += blockDim.x) {
-      if (!row_wanted(r, group, row_on)) continue;
-      float t = 0.f;
-      for (int i = 0; i < wpr; ++i) t += part[r * warps + i];
-      acc[r] += t;
-    }
-    __syncthreads();  // s_tile and part are reused by the next tile
-  }
-}
-
-// out[0] = the group entropy, out[1 + k] = row k's leave-one-out entropy,
-// from the summed terms `sum`, with the emptying conventions.
-__device__ void write_sweep(const float* sum, const float* w, float tot,
-                            int m, int c, float* out) {
-  for (int r = threadIdx.x; r <= m; r += blockDim.x) {
-    if (r == 0) {
-      out[0] = tot > 0.f ? -sum[0] : logf(static_cast<float>(c));
-    } else {
-      out[r] = tot - w[r - 1] > kEps ? -sum[r] : -1.f;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- Part A
-
-// Shared memory: s_tile[block_c] | part[warps (m+1)] | acc[m+1] | w[m] |
-// inv[m].
-template <typename T>
-__global__ void __launch_bounds__(kSweepThreads)
-judge_sweep_kernel(const T* __restrict__ p, const float* __restrict__ sizes,
-                   const float* __restrict__ mask, float* __restrict__ partial,
-                   float* __restrict__ out, int m, int c, int block_c) {
-  extern __shared__ float smem[];
-  float* s_tile = smem;
-  float* part = s_tile + block_c;
-  float* acc = part + (blockDim.x >> 5) * (m + 1);
-  float* w = acc + (m + 1);
-  float* inv = w + m;
-  const float tot = form_weights(sizes, mask, m, w, inv);
-  for (int r = threadIdx.x; r <= m; r += blockDim.x) acc[r] = 0.f;
-  __syncthreads();
-  const int c0 = blockIdx.x * block_c;
-  add_terms(p, m, c, c0, min(c, c0 + block_c), w, inv, tot, nullptr, true,
-            s_tile, part, acc);
-  if (gridDim.x == 1) {
-    write_sweep(acc, w, tot, m, c, out);
-  } else {
-    float* row = partial + static_cast<size_t>(blockIdx.x) * (m + 1);
-    for (int r = threadIdx.x; r <= m; r += blockDim.x) row[r] = acc[r];
-  }
-}
-
-// Adds the blocks' partial rows in block order. Shared memory: sum[m+1] |
-// w[m] | inv[m].
-__global__ void __launch_bounds__(kSweepThreads)
-judge_sweep_finalize(const float* __restrict__ sizes,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ partial,
-                     float* __restrict__ out, int m, int c, int nblocks) {
-  extern __shared__ float smem[];
-  float* sum = smem;
-  float* w = sum + (m + 1);
-  float* inv = w + m;
-  const float tot = form_weights(sizes, mask, m, w, inv);
-  for (int r = threadIdx.x; r <= m; r += blockDim.x) {
-    float acc = 0.f;
-    for (int b = 0; b < nblocks; ++b) {
-      acc += partial[static_cast<size_t>(b) * (m + 1) + r];
-    }
-    sum[r] = acc;
-  }
-  __syncthreads();
-  write_sweep(sum, w, tot, m, c, out);
-}
-
-template <typename T>
-int launch_sweep(const void* p, const void* sizes, const void* mask,
-                 void* partial, void* out, int m, int c, int block_c,
-                 void* stream) {
-  if (m < 1 || c < 1 || block_c < 1 || block_c > kTile) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nblocks = (c + block_c - 1) / block_c;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sz = static_cast<const float*>(sizes);
-  const float* mk = static_cast<const float*>(mask);
-  float* part = static_cast<float*>(partial);
-  float* o = static_cast<float*>(out);
-  const size_t smem =
-      (block_c + (kSweepThreads / 32 + 1) * (m + 1) + 2 * m) * sizeof(float);
-  static std::atomic<unsigned long long> ready_sweep{0};
-  cudaError_t err = allow_smem_once(judge_sweep_kernel<T>, ready_sweep);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  judge_sweep_kernel<T><<<nblocks, kSweepThreads, smem, s>>>(
-      static_cast<const T*>(p), sz, mk, part, o, m, c, block_c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nblocks == 1) return static_cast<int>(err);
-  static std::atomic<unsigned long long> ready{0};
-  err = allow_smem_once(judge_sweep_finalize, ready);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  judge_sweep_finalize<<<1, kSweepThreads, (3 * m + 1) * sizeof(float),
-                         s>>>(sz, mk, part, o, m, c, nblocks);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- Part B
-
-// The packed output: mask (m floats) | removal order (m int32, -1 padded) |
-// number removed (int32) | entropy | initial entropy.
-//
-// Shared memory, all of it dynamic (allow_smem_once raises the dynamic
-// limit to the whole opt-in size, which leaves no room for static shared
-// variables): kScalars words (entropy, initial entropy, removed, go) |
-// s_tile[kTile] | part[warps (m+1)] |
-// partials[2 (m+1)] | sizes[m] | mask[m] | w[m] | inv[m] | order[m]
-// int32 | row_on[m] bytes | keep[m] bytes. The loop writes nothing to
-// device memory until it ends, so the release at each cluster.sync()
-// orders shared-memory writes only.
-constexpr int kScalars = 4;
-
-// The barrier between the CTAs' partial sums and their readers: a block
-// barrier for a cluster of one, else cluster.sync() (release and acquire
-// at cluster scope, for the distributed shared-memory reads).
-__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster,
-                                                unsigned nranks) {
-  if (nranks == 1) {
-    __syncthreads();
-  } else {
-    cluster.sync();
-  }
-}
-
-// sum_q partials_q[r] over the cluster's CTAs in rank order, with every
-// CTA's value loaded before the first add (the distributed shared-memory
-// reads are in flight together).
-__device__ __forceinline__ float rank_sum(cg::cluster_group& cluster,
-                                         float* mine, int r, unsigned rank,
-                                         unsigned nranks) {
-  float v[kMaxCluster];
-#pragma unroll
-  for (unsigned q = 0; q < kMaxCluster; ++q) {
-    if (q < nranks) {
-      v[q] = (q == rank ? mine : cluster.map_shared_rank(mine, q))[r];
-    }
-  }
-  float t = 0.f;
-#pragma unroll
-  for (unsigned q = 0; q < kMaxCluster; ++q) {
-    if (q < nranks) t += v[q];
-  }
-  return t;
-}
-
-__global__ void __launch_bounds__(1024)
-judge_loop_kernel(const float* __restrict__ p,
-                  const float* __restrict__ sizes,
-                  const float* __restrict__ active,
-                  const float* __restrict__ prot, float* __restrict__ out,
-                  int m, int c, int cap, int slice) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
-  const unsigned nranks = cluster.num_blocks();
-  extern __shared__ float smem[];
-  float& s_ent = smem[0];
-  float& s_init = smem[1];
-  int& s_removed = reinterpret_cast<int*>(smem)[2];
-  int& s_go = reinterpret_cast<int*>(smem)[3];
-  float* s_tile = smem + kScalars;
-  float* part = s_tile + kTile;
-  float* partials = part + (blockDim.x >> 5) * (m + 1);
-  float* size = partials + 2 * (m + 1);
-  float* mask = size + m;
-  float* w = mask + m;
-  float* inv = w + m;
-  int* order = reinterpret_cast<int*>(inv + m);
-  unsigned char* row_on = reinterpret_cast<unsigned char*>(order + m);
-  unsigned char* keep = row_on + m;
-
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    size[k] = sizes[k];
-    mask[k] = active ? active[k] : 1.f;
-    keep[k] = prot ? prot[k] == 0.f : 1;
-    order[k] = -1;
-  }
-  if (threadIdx.x == 0) {
-    s_ent = 0.f;
-    s_removed = 0;
-  }
-  __syncthreads();
-
-  const int lo = min(c, static_cast<int>(rank) * slice);
-  const int hi = min(c, lo + slice);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int it = 0;; ++it) {
-    const bool group = it == 0;          // the initial entropy, once
-    const bool sweep = s_removed < cap;  // cap = 0: no candidate at all
-    const float tot = form_weights(size, mask, m, w, inv);
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      row_on[k] = sweep && mask[k] > 0.f && keep[k];
-    }
-    // partials[it & 1] was last read by the other CTAs before the
-    // previous iteration's cluster.sync(): it is free to overwrite.
-    float* mine = partials + (it & 1) * (m + 1);
-    for (int r = threadIdx.x; r <= m; r += blockDim.x) mine[r] = 0.f;
-    __syncthreads();
-    add_terms(p, m, c, lo, hi, w, inv, tot, row_on, group, s_tile, part,
-              mine);
-    cluster_barrier(cluster, nranks);   // every CTA's partials are written
-
-    // Warp 0 of every CTA adds the CTAs' partials in rank order and takes
-    // the argmax (the first index among ties) and the stop decision.
-    if (warp == 0) {
-      float best = -INFINITY;
-      int arg = m;
-      for (int k = lane; k < m; k += 32) {
-        if (!row_on[k]) continue;
-        const float t = rank_sum(cluster, mine, 1 + k, rank, nranks);
-        const float v = tot - w[k] > kEps ? -t : -1.f;
-        if (v > best) {
-          best = v;
-          arg = k;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_down_sync(0xffffffffu, best, off);
-        const int oa = __shfl_down_sync(0xffffffffu, arg, off);
-        if (ob > best || (ob == best && oa < arg)) {
-          best = ob;
-          arg = oa;
-        }
-      }
-      if (lane == 0) {
-        if (group) {
-          const float t = rank_sum(cluster, mine, 0, rank, nranks);
-          s_init = tot > 0.f ? -t : logf(static_cast<float>(c));
-          s_ent = s_init;
-        }
-        const bool improves = sweep && best > s_ent + kTol;
-        if (improves) {
-          mask[arg] = 0.f;
-          s_ent = best;
-          order[s_removed] = arg;
-          ++s_removed;
-        }
-        s_go = improves && s_removed < cap;
-      }
-    }
-    __syncthreads();
-    if (!s_go) break;
-  }
-  if (rank == 0) {
-    int* out_order = reinterpret_cast<int*>(out + m);
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      out[k] = mask[k];
-      out_order[k] = order[k];
-    }
-    if (threadIdx.x == 0) {
-      out_order[m] = s_removed;
-      out[2 * m + 1] = s_ent;
-      out[2 * m + 2] = s_init;
-    }
-  }
-  if (nranks > 1) cluster.sync();   // no CTA leaves while another reads it
-}
-
-// Part B at the paper's shape (C <= 32, M <= 32, one CTA): the whole loop
-// in one warp, with no shared memory and no barrier. Lane k holds row k's
-// size, mask and candidacy, lane j class j's s_j; w_k and 1 / den_k reach
-// the other lanes by shuffles. A lane forms the terms of its class for
-// every candidate row at once (independent logarithms), and one
-// reduce-scatter over the lanes (31 shuffles) leaves row k's sum in lane
-// k. Every sum is a butterfly over the same halvings of the warp, so it
-// takes the same association for every row and in every lane (IEEE
-// addition commutes): equal rows get equal sums, and every lane takes the
-// same decision. The argmax is a butterfly on (value, index) that keeps
-// the larger value and, on a tie, the smaller index: the first index among
-// ties, as the reference's argmax.
 __device__ __forceinline__ float warp_total(float v) {
   for (int off = 16; off > 0; off >>= 1) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -461,16 +77,45 @@ __device__ __forceinline__ float warp_total(float v) {
   return v;
 }
 
-constexpr int kWarpRows = 4;   // rows whose reduction trees run together
+// ------------------------------------------------------- the warp kernel
 
-__global__ void __launch_bounds__(32)
+// Four warps run the same loop. In each, lane k holds row k's size, mask
+// and candidacy and lane j column j of P and class j's s_j; w_k and
+// 1 / den_k reach the other lanes by shuffles. Warp q forms the terms of
+// rows q, q + 4, ... (of kRows, M rounded up to 8, 12, 16 or 32; a row
+// that is no candidate adds zeros), and their butterflies run in one
+// batch; the totals meet in shared memory (double-buffered by iteration
+// parity: one barrier an iteration), and every warp takes the decision
+// from them. Every sum is a butterfly over the same halvings of a warp, so
+// it takes the same association for every row, in every lane and warp
+// (IEEE addition commutes): equal rows get equal sums, and every warp takes
+// the same decision. The argmax is a butterfly on (value, index) that
+// keeps the larger value and, on a tie, the smaller index: the first index
+// among ties, as the reference's argmax.
+template <int kRows>
+__global__ void __launch_bounds__(32 * kTeams)
 judge_loop_warp(const float* __restrict__ p, const float* __restrict__ sizes,
                 const float* __restrict__ active,
                 const float* __restrict__ prot, float* __restrict__ out,
                 int m, int c, int cap) {
   constexpr unsigned kFull = 0xffffffffu;
-  const int lane = threadIdx.x;
+  constexpr int kMine = kRows / kTeams;
+  __shared__ float totals[2][kRows];
+  const int lane = threadIdx.x & 31;
+  const int team = threadIdx.x >> 5;
   const bool row = lane < m;
+  const bool col = lane < c;
+  float pc[kRows];     // pc[k] = p[k][lane], 0 past M or C
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    pc[k] = k < m && col ? p[k * c + lane] : 0.f;
+  }
+  float pm[kMine];     // this warp's rows: pm[i] = pc[team + 4 i]
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) {
+    const int k = team + kTeams * i;
+    pm[i] = k < m && col ? p[k * c + lane] : 0.f;
+  }
   const float size = row ? sizes[lane] : 0.f;
   float mask = row ? (active ? active[lane] : 1.f) : 0.f;
   const bool keep = row && (prot == nullptr || prot[lane] == 0.f);
@@ -480,46 +125,42 @@ judge_loop_warp(const float* __restrict__ p, const float* __restrict__ sizes,
   float init = 0.f;
   for (int it = 0;; ++it) {
     const bool sweep = removed < cap;
-    const float w = __fmul_rn(size, mask);
+    const float w = __fmul_rn(size, mask);   // 0 past M
     const float tot = warp_total(w);
     const float inv = 1.f / fmaxf(tot - w, kEps);
     const unsigned cand = __ballot_sync(kFull, sweep && mask > 0.f && keep);
-    float s = 0.f;
-    for (int k = 0; k < m; ++k) {
-      const float wk = __shfl_sync(kFull, w, k);
-      if (lane < c) s += p[k * c + lane] * wk;
-    }
+    float s = 0.f;     // rows past M add 0 * 0: s keeps its bits
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) s += pc[k] * __shfl_sync(kFull, w, k);
     if (it == 0) {
-      const float g = warp_total(
-          lane < c ? plogp(s * (1.f / fmaxf(tot, kEps))) : 0.f);
+      const float g = warp_total(col ? plogp(s * (1.f / fmaxf(tot, kEps)))
+                                     : 0.f);
       init = tot > 0.f ? -g : logf(static_cast<float>(c));
       ent = init;
     }
-    float total = 0.f;   // lane k: row k's summed term
-    for (int k0 = 0; k0 < m; k0 += kWarpRows) {
-      float t[kWarpRows];
+    float t[kMine];
 #pragma unroll
-      for (int i = 0; i < kWarpRows; ++i) {
-        const int k = k0 + i;
-        t[i] = 0.f;
-        if (k < m && ((cand >> k) & 1u)) {
-          const float wk = __shfl_sync(kFull, w, k);
-          const float ik = __shfl_sync(kFull, inv, k);
-          if (lane < c) t[i] = plogp((s - p[k * c + lane] * wk) * ik);
-        }
-      }
+    for (int i = 0; i < kMine; ++i) {
+      const int k = team + kTeams * i;
+      const float wk = __shfl_sync(kFull, w, k);
+      const float ik = __shfl_sync(kFull, inv, k);
+      t[i] = ((cand >> k) & 1u) && col ? plogp((s - pm[i] * wk) * ik) : 0.f;
+    }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
+    for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-        for (int i = 0; i < kWarpRows; ++i) {
-          t[i] += __shfl_xor_sync(kFull, t[i], off);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kWarpRows; ++i) {
-        if (lane == k0 + i) total = t[i];
+      for (int i = 0; i < kMine; ++i) {
+        t[i] += __shfl_xor_sync(kFull, t[i], off);
       }
     }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        totals[it & 1][team + kTeams * i] = t[i];
+      }
+    }
+    __syncthreads();
+    const float total = lane < kRows ? totals[it & 1][lane] : 0.f;
     float best = (cand >> lane) & 1u ? (tot - w > kEps ? -total : -1.f)
                                      : -INFINITY;
     int arg = lane;
@@ -540,6 +181,7 @@ judge_loop_warp(const float* __restrict__ p, const float* __restrict__ sizes,
     }
     if (!(improves && removed < cap)) break;
   }
+  if (team != 0) return;
   int* out_order = reinterpret_cast<int*>(out + m);
   if (row) {
     out[lane] = mask;
@@ -552,54 +194,406 @@ judge_loop_warp(const float* __restrict__ p, const float* __restrict__ sizes,
   }
 }
 
-// Threads per CTA: enough warps that a lane of a full tile's row takes
-// about eight classes, or that every row has a warp of its own; a power
-// of two from 32 to 1024.
-int loop_threads(int m, int slice) {
-  const int want = 32 * max((slice + 255) / 256, m + 1);
-  int threads = 32;
-  while (threads < 1024 && threads < want) threads <<= 1;
-  return threads;
+// ------------------------------------------------------- the grid kernel
+
+constexpr int kMaxCtas = 132;    // the plan's most CTAs: one an SM
+constexpr int kPerLane = (kMaxCtas + 31) / 32;
+
+// A grid CTA's shared memory, all of it dynamic (allow_smem_once raises
+// the dynamic limit to the whole opt-in size, which leaves no room for
+// static shared variables): Head in the first 48 bytes | P's block, M rows
+// of `slice` floats, when resident | s[tile] | part[warps (M+1)] |
+// acc[M+1] | sum[M+1], the rows' totals over every CTA | list[M+1] int32,
+// the rows swept | size, mask, w, inv [M] | order[M] int32 | row_on, keep
+// [M] bytes. The wrapper's plan adds the same sizes (entropy_judge._smem).
+struct Head {
+  unsigned long long bar;    // the mbarrier of the block's copy
+  float ent, init, tot;      // entropy, initial entropy, sum_k w_k
+  int removed, go, on, wpr;  // removals, another iteration, rows, warps a row
+};
+constexpr size_t kHead = 48;
+static_assert(sizeof(Head) <= kHead, "Head outgrew its bytes");
+
+struct Shared {
+  Head* h;
+  float *p, *s, *part, *acc, *sum;
+  int* list;
+  float *size, *mask, *w, *inv;
+  int* order;
+  unsigned char *row_on, *keep;
+  size_t end;  // bytes in all
+};
+
+// The next n T's of the region at `base`, from byte offset `at`.
+template <typename T>
+__host__ __device__ inline T* take(unsigned char* base, size_t& at,
+                                   size_t n) {
+  at += n * sizeof(T);
+  return reinterpret_cast<T*>(base + at - n * sizeof(T));
 }
 
-int launch_loop(const void* p, const void* sizes, const void* active,
-                const void* prot, void* out, int m, int c, int cap,
-                int cluster, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || m < 1 || c < 1) {
+__host__ __device__ inline Shared carve(unsigned char* base, int m,
+                                        int slice, int tile, int warps,
+                                        bool resident) {
+  Shared sh;
+  const size_t rows = static_cast<size_t>(m) + 1;
+  size_t at = kHead;
+  sh.h = reinterpret_cast<Head*>(base);
+  sh.p = take<float>(base, at, resident ? static_cast<size_t>(m) * slice : 0);
+  sh.s = take<float>(base, at, tile);
+  sh.part = take<float>(base, at, warps * rows);
+  sh.acc = take<float>(base, at, rows);
+  sh.sum = take<float>(base, at, rows);
+  sh.list = take<int>(base, at, rows);
+  sh.size = take<float>(base, at, m);
+  sh.mask = take<float>(base, at, m);
+  sh.w = take<float>(base, at, m);
+  sh.inv = take<float>(base, at, m);
+  sh.order = take<int>(base, at, m);
+  sh.row_on = take<unsigned char>(base, at, m);
+  sh.keep = take<unsigned char>(base, at, m);
+  sh.end = at;
+  return sh;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// Starts the copy of rows 0..m-1, classes lo..lo+width-1 of P into sh.p
+// (row pitch `slice` floats): when every row's start and length are
+// 16-byte multiples (`bulk`), warp 0 issues one cp.async.bulk a row on the
+// mbarrier; else every thread issues cp.async of 4 bytes a class.
+// finish_block waits for it; a __syncthreads() between the two publishes
+// the mbarrier's initialisation.
+__device__ void start_block(const float* p, const Shared& sh, int m, int c,
+                            int lo, int width, int slice, bool bulk) {
+  if (bulk) {
+    if (threadIdx.x >= 32) return;
+    const unsigned b = smem_addr(&sh.h->bar);
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+          "r"(4 * m * width)
+          : "memory");
+    }
+    __syncwarp();
+    for (int k = threadIdx.x; k < m; k += 32) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(sh.p + k * slice)),
+          "l"(p + static_cast<size_t>(k) * c + lo), "r"(4 * width), "r"(b)
+          : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < m * width; i += blockDim.x) {
+      const int k = i / width;
+      const int j = i - k * width;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                       smem_addr(sh.p + k * slice + j)),
+                   "l"(p + static_cast<size_t>(k) * c + lo + j)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+}
+
+__device__ void finish_block(const Shared& sh, bool bulk) {
+  for (unsigned done = !bulk; !done;) {
+    asm volatile(
+        "{ .reg .pred q; mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;"
+        " selp.u32 %0, 1, 0, q; }"
+        : "=r"(done)
+        : "r"(smem_addr(&sh.h->bar))
+        : "memory");
+  }
+  if (!bulk) asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// P[k][lo + j]: from the resident block, or from device memory.
+template <typename T, bool kResident>
+__device__ __forceinline__ float elem(const T* __restrict__ p,
+                                      const float* p_sh, int k, int j, int c,
+                                      int lo, int slice) {
+  if constexpr (kResident) {
+    return p_sh[k * slice + j];
+  } else {
+    return static_cast<float>(p[static_cast<size_t>(k) * c + lo + j]);
+  }
+}
+
+// Warp 0 sets up an iteration over the current mask: tot (lane 0 adds the
+// rows in order), w_k, 1 / den_k, the rows it sweeps (row 0, the group
+// term, when `group`; row 1 + k when row_on[k]) in order in list, acc
+// zeroed, and the warps a row takes: as many as give every row its own
+// warps in one round. The caller's __syncthreads() publishes them.
+__device__ void prepare(const Shared& sh, int m, bool group, bool any,
+                        bool sweep) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float tot = 0.f;
+  if (lane == 0) {
+#pragma unroll 8
+    for (int k = 0; k < m; ++k) tot += __fmul_rn(sh.size[k], sh.mask[k]);
+    sh.h->tot = tot;
+  }
+  tot = __shfl_sync(kFull, tot, 0);
+  for (int k = lane; k < m; k += 32) {
+    const float wk = __fmul_rn(sh.size[k], sh.mask[k]);
+    sh.w[k] = wk;
+    sh.inv[k] = 1.f / fmaxf(tot - wk, kEps);
+    sh.row_on[k] = sweep || (any && sh.mask[k] > 0.f && sh.keep[k]);
+  }
+  for (int r = lane; r <= m; r += 32) sh.acc[r] = 0.f;
+  __syncwarp();
+  int on = 0;
+  for (int r0 = 0; r0 <= m; r0 += 32) {
+    const int r = r0 + lane;
+    const bool want = r <= m && (r == 0 ? group : sh.row_on[r - 1] != 0);
+    const unsigned ballot = __ballot_sync(kFull, want);
+    if (want) sh.list[on + __popc(ballot & ((1u << lane) - 1))] = r;
+    on += __popc(ballot);
+  }
+  if (lane == 0) {
+    sh.h->on = on;
+    sh.h->wpr = max(1, static_cast<int>(blockDim.x >> 5) / max(on, 1));
+  }
+}
+
+// The packed output of a loop: mask (m floats) | removal order (m int32, -1
+// padded) | number removed (int32) | entropy | initial entropy. A sweep's:
+// the group entropy | m leave-one-out entropies. xchg: 2 * ctas * (m + 1)
+// floats of scratch.
+//
+// Over a tile of n classes, s_c comes first (k in order), then each row of
+// the list goes to a group of warps; a lane adds its classes in order, the
+// warp in a fixed shuffle tree, the row's warps in order, the tiles in
+// order. Across the CTAs, warp i adds row list[i]: lane l the CTAs l,
+// l + 32, ... in order, then the lanes in a fixed butterfly, so every CTA
+// forms every total in the same order.
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kThreads)
+judge_loop_grid(const T* __restrict__ p, const float* __restrict__ sizes,
+                const float* __restrict__ active,
+                const float* __restrict__ prot, float* __restrict__ out,
+                float* __restrict__ xchg, int m, int c, int cap, int slice,
+                int sweep) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ctas = gridDim.x;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * slice;
+  const int width = min(slice, c - lo);
+  const int tile = kResident ? slice : min(kTile, slice);
+  const Shared sh = carve(smem, m, slice, tile, warps, kResident);
+  const bool bulk = (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+                    (c & 3) == 0 && (lo & 3) == 0 && (width & 3) == 0;
+
+  for (int k = threadIdx.x; k < m; k += blockDim.x) {
+    sh.size[k] = sizes[k];
+    sh.mask[k] = active ? active[k] : 1.f;
+    sh.keep[k] = prot ? prot[k] == 0.f : 1;
+    sh.order[k] = -1;
+  }
+  if (threadIdx.x == 0) {
+    sh.h->ent = 0.f;
+    sh.h->removed = 0;
+  }
+  if constexpr (kResident) {
+    start_block(reinterpret_cast<const float*>(p), sh, m, c, lo, width,
+                slice, bulk);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    prepare(sh, m, true, sweep || cap > 0, sweep);
+  }
+  if constexpr (kResident) finish_block(sh, bulk);
+  __syncthreads();
+
+  const int rows = m + 1;
+  for (int it = 0;; ++it) {
+    const float tot = sh.h->tot;
+    const int on = sh.h->on;
+    const int wpr = sh.h->wpr;
+    const int groups = warps / wpr;
+    const int sub = warp % wpr;
+    // xchg[it & 1] holds row r's partial of CTA b at r * ctas + b. It was
+    // last read before the previous iteration's barrier, so one barrier an
+    // iteration suffices.
+    float* half = xchg + static_cast<size_t>(it & 1) * ctas * rows;
+    for (int c0 = 0; c0 < width; c0 += tile) {
+      const int n = min(tile, width - c0);
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        float s = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < m; ++k) {
+          s += elem<T, kResident>(p, sh.p, k, c0 + j, c, lo, slice) *
+               sh.w[k];
+        }
+        sh.s[j] = s;
+      }
+      __syncthreads();
+      for (int i = warp / wpr; warp < groups * wpr && i < on; i += groups) {
+        const int r = sh.list[i];
+        float v = 0.f;
+        if (r == 0) {
+          const float inv_tot = 1.f / fmaxf(tot, kEps);
+#pragma unroll 4
+          for (int j = sub * 32 + lane; j < n; j += wpr * 32) {
+            v += plogp(sh.s[j] * inv_tot);
+          }
+        } else {
+          const float wk = sh.w[r - 1];
+          const float ik = sh.inv[r - 1];
+#pragma unroll 4
+          for (int j = sub * 32 + lane; j < n; j += wpr * 32) {
+            const float pk = elem<T, kResident>(p, sh.p, r - 1, c0 + j, c,
+                                                lo, slice);
+            v += plogp((sh.s[j] - pk * wk) * ik);
+          }
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          v += __shfl_down_sync(0xffffffffu, v, off);
+        }
+        if (lane == 0) sh.part[i * wpr + sub] = v;
+      }
+      __syncthreads();
+      // Thread i owns row list[i]'s sum; after the last tile it publishes
+      // this CTA's partial.
+      const bool last = c0 + tile >= width;
+      for (int i = threadIdx.x; i < on; i += blockDim.x) {
+        const int r = sh.list[i];
+        float t = sh.acc[r];
+        for (int q = 0; q < wpr; ++q) t += sh.part[i * wpr + q];
+        sh.acc[r] = t;
+        if (last) __stcg(half + r * static_cast<size_t>(ctas) + blockIdx.x, t);
+      }
+      if (!last) __syncthreads();   // s and part reused
+    }
+
+    grid.sync();
+    if (sweep && blockIdx.x != 0) return;
+    for (int i = warp; i < on; i += warps) {
+      const int r = sh.list[i];
+      const float* row = half + static_cast<size_t>(r) * ctas;
+      float v[kPerLane];
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int b = lane + 32 * q;
+        v[q] = b < ctas ? __ldcg(row + b) : 0.f;
+      }
+      float t = 0.f;
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) t += v[q];
+      t = warp_total(t);
+      if (lane == 0) sh.sum[r] = t;
+    }
+    __syncthreads();
+
+    if (sweep) {
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        out[r] = r == 0 ? (tot > 0.f ? -sh.sum[0]
+                                     : logf(static_cast<float>(c)))
+                        : (tot - sh.w[r - 1] > kEps ? -sh.sum[r] : -1.f);
+      }
+      return;
+    }
+    // Warp 0 takes the argmax (the first index among ties) and the stop
+    // decision, then sets up the next iteration.
+    if (warp == 0) {
+      float best = -INFINITY;
+      int arg = m;
+      for (int k = lane; k < m; k += 32) {
+        const float v = tot - sh.w[k] > kEps ? -sh.sum[1 + k] : -1.f;
+        if (sh.row_on[k] && v > best) {
+          best = v;
+          arg = k;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_down_sync(0xffffffffu, best, off);
+        const int oa = __shfl_down_sync(0xffffffffu, arg, off);
+        if (ob > best || (ob == best && oa < arg)) {
+          best = ob;
+          arg = oa;
+        }
+      }
+      if (lane == 0) {
+        if (it == 0) {
+          sh.h->init = tot > 0.f ? -sh.sum[0] : logf(static_cast<float>(c));
+          sh.h->ent = sh.h->init;
+        }
+        const bool improves = sh.h->removed < cap && best > sh.h->ent + kTol;
+        if (improves) {
+          sh.mask[arg] = 0.f;
+          sh.h->ent = best;
+          sh.order[sh.h->removed] = arg;
+          ++sh.h->removed;
+        }
+        sh.h->go = improves && sh.h->removed < cap;
+      }
+      __syncwarp();
+      if (sh.h->go) prepare(sh, m, false, true, false);
+    }
+    __syncthreads();
+    if (!sh.h->go) break;
+  }
+  if (blockIdx.x == 0) {
+    int* out_order = reinterpret_cast<int*>(out + m);
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      out[k] = sh.mask[k];
+      out_order[k] = sh.order[k];
+    }
+    if (threadIdx.x == 0) {
+      out_order[m] = sh.h->removed;
+      out[2 * m + 1] = sh.h->ent;
+      out[2 * m + 2] = sh.h->init;
+    }
+  }
+}
+
+// One cooperative launch of `ctas` CTAs: all resident together or the
+// launch is refused (cudaErrorCooperativeLaunchTooLarge), never run on
+// fewer. The plan must cover C exactly and fit `smem`.
+template <typename T, bool kResident>
+int launch_grid(const void* p, const void* sizes, const void* active,
+                const void* prot, void* out, void* xchg, int m, int c,
+                int cap, int ctas, int slice, int smem, int sweep,
+                void* stream) {
+  const int tile = kResident ? slice : min(kTile, slice);
+  if (m < 1 || c < 1 || ctas < 1 || ctas > kMaxCtas || slice < 1 ||
+      (slice & 3) != 0 || static_cast<long long>(ctas - 1) * slice >= c ||
+      static_cast<long long>(ctas) * slice < c ||
+      carve(nullptr, m, slice, tile, kThreads / 32, kResident).end >
+          static_cast<size_t>(smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = allow_smem_once(judge_loop_kernel, ready);
+  cudaError_t err = allow_smem_once(judge_loop_grid<T, kResident>, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (cluster > 8) {  // 16 CTAs: H100's non-portable cluster size
-    err = cudaFuncSetAttribute(judge_loop_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int slice = (c + cluster - 1) / cluster;
-  const int threads = loop_threads(m, slice);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes =
-      (kScalars + kTile + (threads / 32 + 2) * (m + 1) + 5 * m) *
-          sizeof(float) + 2 * m;
-  cfg.stream = s;
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, judge_loop_kernel,
-                           static_cast<const float*>(p),
+  err = cudaLaunchKernelEx(&cfg, judge_loop_grid<T, kResident>,
+                           static_cast<const T*>(p),
                            static_cast<const float*>(sizes),
                            static_cast<const float*>(active),
                            static_cast<const float*>(prot),
-                           static_cast<float*>(out), m, c, cap, slice);
+                           static_cast<float*>(out),
+                           static_cast<float*>(xchg), m, c, cap, slice,
+                           sweep);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -608,45 +602,45 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// partial: (ceil(c / block_c), m + 1) float32 scratch, unused (may be
-// null) when c <= block_c; block_c <= 2048; out: (m + 1,) float32.
-extern "C" int entropy_judge_sweep_f32(const void* p, const void* sizes,
-                                       const void* mask, void* partial,
-                                       void* out, int m, int c, int block_c,
-                                       void* stream) {
-  return launch_sweep<float>(p, sizes, mask, partial, out, m, c, block_c,
-                             stream);
+// p: (m, c) float32, or bfloat16 (`bf16`, a sweep only, streamed); sizes,
+// active, prot: (m,) float32 (active null: all active; prot null: none
+// protected); out: the packed loop (2m + 3,) or, with `sweep`, the (m + 1,)
+// sweep (active is then the mask and every row is swept); xchg:
+// 2 * ctas * (m + 1) float32 scratch. ctas, slice, smem and resident are
+// the wrapper's plan (entropy_judge.plan).
+extern "C" int entropy_judge_grid(const void* p, const void* sizes,
+                                  const void* active, const void* prot,
+                                  void* out, void* xchg, int m, int c, int cap,
+                                  int ctas, int slice, int smem, int resident,
+                                  int sweep, int bf16, void* stream) {
+  if (bf16) {
+    if (resident || !sweep) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_grid<__nv_bfloat16, false>(p, sizes, active, prot, out,
+                                             xchg, m, c, cap, ctas, slice,
+                                             smem, sweep, stream);
+  }
+  return resident ? launch_grid<float, true>(p, sizes, active, prot, out,
+                                             xchg, m, c, cap, ctas, slice,
+                                             smem, sweep, stream)
+                  : launch_grid<float, false>(p, sizes, active, prot, out,
+                                              xchg, m, c, cap, ctas, slice,
+                                              smem, sweep, stream);
 }
 
-extern "C" int entropy_judge_sweep_bf16(const void* p, const void* sizes,
-                                        const void* mask, void* partial,
-                                        void* out, int m, int c, int block_c,
-                                        void* stream) {
-  return launch_sweep<__nv_bfloat16>(p, sizes, mask, partial, out, m, c,
-                                     block_c, stream);
-}
-
-// p: (m, c) float32; sizes, active, prot: (m,) float32 (active null: all
-// active; prot null: none protected); out: (2m + 3,) packed as above. One
-// launch of `cluster` CTAs (1-16); the wrapper picks this or the warp.
-extern "C" int entropy_judge_loop_f32(const void* p, const void* sizes,
-                                      const void* active, const void* prot,
-                                      void* out, int m, int c, int cap,
-                                      int cluster, void* stream) {
-  return launch_loop(p, sizes, active, prot, out, m, c, cap, cluster,
-                     stream);
-}
-
-// The same loop in one warp (judge_loop_warp): c and m at most 32.
+// The loop in one CTA of four warps (judge_loop_warp): c and m at most 32.
 extern "C" int entropy_judge_loop_warp_f32(const void* p, const void* sizes,
                                            const void* active,
                                            const void* prot, void* out,
                                            int m, int c, int cap,
                                            void* stream) {
-  if (m < 1 || c < 1 || m > 32 || c > 32) {
+  if (m < 1 || c < 1 || m > kWarp || c > kWarp) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  judge_loop_warp<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = m <= 8    ? judge_loop_warp<8>
+                      : m <= 12 ? judge_loop_warp<12>
+                      : m <= 16 ? judge_loop_warp<16>
+                                : judge_loop_warp<kWarp>;
+  kernel<<<1, 32 * kTeams, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p), static_cast<const float*>(sizes),
       static_cast<const float*>(active), static_cast<const float*>(prot),
       static_cast<float*>(out), m, c, cap);

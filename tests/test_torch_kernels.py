@@ -20,9 +20,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import SOURCES, library_path
 from repro_torch.core.judgment import judge, unpack
 from repro_torch.fl import MaxEntropyJudge
+from repro_torch.kernels import entropy_judge
 from repro_torch.kernels.entropy_judge import (entropy_judge_loop,
-                                               entropy_judge_sweep,
-                                               loop_kernel)
+                                               entropy_judge_sweep, plan)
 from repro_torch.kernels.fused_aggregate import masked_weighted_sum
 
 K1_ATOL = 1e-4        # tests/test_kernels.py's tolerance for this kernel
@@ -128,17 +128,79 @@ def test_entropy_judge_sweep_folded_conventions_plain(pallas, case):
 
 
 def test_entropy_judge_loop_kernel_choice():
-    """One warp at the paper's shape; a cluster above it, one CTA up to
-    1024 classes, 16 at Qwen's 151,936; a forced size takes the cluster
-    kernel."""
-    assert loop_kernel(10, 10) == ("warp", 1)
-    assert loop_kernel(32, 32) == ("warp", 1)
-    assert loop_kernel(100, 10) == ("cluster", 1)
-    assert loop_kernel(10, 1024) == ("cluster", 1)
-    assert loop_kernel(10, 1025) == ("cluster", 2)
-    assert loop_kernel(32, 4096) == ("cluster", 4)
-    assert loop_kernel(10, 151936) == ("cluster", 16)
-    assert loop_kernel(10, 10, 2) == ("cluster", 2)
+    """One warp at the paper's shape; above it the grid kernel, slices of
+    1,152 classes (a multiple of 4) on up to 132 CTAs, each CTA's block of
+    P resident in shared memory where it fits, streamed where it does not
+    (64 rows of 1,152 floats: 294,912 bytes)."""
+    assert plan(10, 10)[:2] == ("warp", 1)
+    assert plan(32, 32)[:2] == ("warp", 1)
+    for (m, c), (ctas, slc, resident) in {
+            (100, 10): (1, 12, True), (10, 1024): (1, 1024, True),
+            (10, 1025): (1, 1028, True), (32, 4096): (4, 1024, True),
+            (10, 151936): (132, 1152, True), (8, 152064): (132, 1152, True),
+            (64, 151936): (132, 1152, False)}.items():
+        pl = plan(m, c)
+        assert (pl.kernel, pl.ctas, pl.slice, pl.resident) == (
+            "grid", ctas, slc, resident), (m, c, pl)
+        assert pl.smem <= entropy_judge.SMEM_LIMIT
+    assert plan(10, 10, 2)[:3] == ("grid", 2, 8)      # forced: the grid
+    assert plan(10, 151936, sweep=True)[:4] == ("grid", 132, 1152, False)
+
+
+@pytest.mark.parametrize("m,c", [(10, 10), (100, 10), (10, 517), (32, 4096),
+                                 (10, 151936), (8, 152064), (64, 151936),
+                                 (4, 10 ** 6)])
+def test_entropy_judge_plan_depends_on_shape_alone(monkeypatch, m, c):
+    """The plan reads nothing of the card: the same plan with CUDA made
+    unreachable, and it covers C exactly (every CTA owns classes, the
+    slices 16-byte multiples, at most 132 CTAs, the shared memory within
+    a block's limit)."""
+    want = [plan(m, c), plan(m, c, sweep=True)]
+
+    def unreachable(*a, **k):
+        raise AssertionError("the plan asked the card")
+    plan.cache_clear()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", unreachable)
+    monkeypatch.setattr(torch.cuda, "device_count", unreachable)
+    assert [plan(m, c), plan(m, c, sweep=True)] == want
+    for pl in want[1:] + want[:1]:
+        if pl.kernel == "warp":
+            continue
+        assert pl.slice % 4 == 0 and 1 <= pl.ctas <= entropy_judge.MAX_CTAS
+        assert (pl.ctas - 1) * pl.slice < c <= pl.ctas * pl.slice
+        assert pl.smem <= entropy_judge.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,c,ctas", [(10, 151936, 0), (10, 151936, 133),
+                                      (10, 10, 4), (4, 6, 3)])
+def test_entropy_judge_loop_forced_ctas_outside_the_plan_raise(m, c, ctas):
+    """A forced CTA count the plan could not choose raises, on the CPU as
+    on the card, before anything runs."""
+    soft, sizes, _ = _judge_case(m, c, seed=1)
+    before = entropy_judge_loop.launches
+    with pytest.raises(ValueError, match="CTAs"):
+        entropy_judge_loop(torch.from_numpy(soft), torch.from_numpy(sizes),
+                           _ctas=ctas)
+    assert entropy_judge_loop.launches == before
+
+
+def test_entropy_judge_cpu_wrappers_launch_nothing():
+    """On the CPU both wrappers take their plain versions, a forced CTA
+    count and bfloat16 included, and count no launch."""
+    soft, sizes, mask = (torch.from_numpy(a)
+                         for a in _judge_case(8, 300, seed=4))
+    counts = entropy_judge_loop.launches, entropy_judge_sweep.launches
+    got = entropy_judge_loop(soft, sizes, _ctas=2)
+    assert torch.equal(got.view(torch.int32),
+                       ref.entropy_judge_loop_reference(soft, sizes)
+                       .view(torch.int32))
+    ent, loo = entropy_judge_sweep(soft.to(torch.bfloat16), sizes, mask)
+    want = ref.entropy_judge_sweep_reference(soft.to(torch.bfloat16), sizes,
+                                             mask)
+    assert torch.equal(ent, want[0]) and torch.equal(loo, want[1])
+    assert (entropy_judge_loop.launches,
+            entropy_judge_sweep.launches) == counts
 
 
 def test_entropy_judge_loop_plain_packs_the_kernel_layout():
@@ -206,7 +268,7 @@ def test_library_path_follows_source():
 @pytest.mark.parametrize("m,c,dtype", [
     (10, 10, torch.float32), (16, 1000, torch.float32),
     (32, 4096, torch.float32), (10, 151936, torch.float32),
-    (16, 1000, torch.bfloat16)])
+    (16, 1000, torch.bfloat16), (8, 152064, torch.bfloat16)])
 def test_card_entropy_judge_kernel_matches_plain(cuda, m, c, dtype):
     soft, sizes, mask = _judge_case(m, c, seed=m)
     args = (torch.tensor(soft, dtype=dtype, device=cuda),
@@ -285,7 +347,8 @@ def _assert_same_verdicts(got, want, msg=""):
 
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("m,c", [(10, 10), (8, 10), (100, 10), (16, 1000),
-                                 (10, 517), (32, 4096), (10, 151936)])
+                                 (10, 517), (32, 4096), (10, 151936),
+                                 (64, 151936)])
 def test_card_entropy_judge_loop_matches_plain(cuda, m, c, seed):
     args = _loop_case(m, c, seed, cuda)
     before = entropy_judge_loop.launches
@@ -296,34 +359,36 @@ def test_card_entropy_judge_loop_matches_plain(cuda, m, c, seed):
     _assert_same_verdicts(got, want, f"({m}, {c}) seed {seed}")
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
-def test_card_entropy_judge_loop_cluster_sizes(cuda, cluster):
-    """Each cluster size, forced, gives the plain version's verdicts at
-    151,936 classes."""
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16, 33, 66, 132])
+def test_card_entropy_judge_loop_grid_sizes(cuda, ctas):
+    """Each grid size, forced, gives the plain version's verdicts at
+    151,936 classes: 1-16 CTAs stream their slices, 33-132 hold them."""
     args = _loop_case(10, 151936, 0, cuda)
-    got = entropy_judge_loop(*args, _cluster=cluster)
+    assert plan(10, 151936, ctas).resident == (ctas >= 33)
+    got = entropy_judge_loop(*args, _ctas=ctas)
     want = ref.entropy_judge_loop_reference(*args)
     torch.cuda.synchronize()
     assert int(unpack(got).num_removed) >= 2
-    _assert_same_verdicts(got, want, f"cluster {cluster}")
+    _assert_same_verdicts(got, want, f"{ctas} CTAs")
 
 
 @pytest.mark.parametrize("cluster", [None, 1, 2])
 @pytest.mark.parametrize("seed", range(3))
 def test_card_entropy_judge_loop_paper_shape_both_kernels(cuda, seed,
                                                           cluster):
-    """At (10, 10) the loop runs in one warp; a forced cluster of 1 or 2
-    CTAs runs the cluster kernel. All give the plain version's verdicts."""
-    assert loop_kernel(10, 10, cluster)[0] == ("warp" if cluster is None
-                                              else "cluster")
+    """At (10, 10) the loop takes the warp route; a forced grid of 1 or 2
+    CTAs runs the grid kernel. All give the plain version's verdicts."""
+    assert plan(10, 10, cluster).kernel == ("warp" if cluster is None
+                                            else "grid")
     args = _loop_case(10, 10, seed, cuda)
-    got = entropy_judge_loop(*args, _cluster=cluster)
+    got = entropy_judge_loop(*args, _ctas=cluster)
     want = ref.entropy_judge_loop_reference(*args)
     torch.cuda.synchronize()
-    _assert_same_verdicts(got, want, f"seed {seed} cluster {cluster}")
+    _assert_same_verdicts(got, want, f"seed {seed} CTAs {cluster}")
 
 
-@pytest.mark.parametrize("m,c", [(10, 10), (100, 10), (10, 151936)])
+@pytest.mark.parametrize("m,c", [(10, 10), (100, 10), (10, 151936),
+                                 (64, 151936)])
 def test_card_entropy_judge_loop_same_bits(cuda, m, c):
     args = _loop_case(m, c, 1, cuda)
     first = entropy_judge_loop(*args)
@@ -369,8 +434,11 @@ def test_card_judge_is_one_launch_without_a_host_read(cuda):
     assert res.mask.is_cuda and res.num_removed.dtype == torch.int32
     kernels = _cuda_kernels(lambda: judge(soft, sizes, backend="cuda"))
     assert len(kernels) == 1 and "judge_loop" in kernels[0], kernels
+    # counted from here: _cuda_kernels judges again when the profiler drops
+    # a whole trace
+    loops = entropy_judge_loop.launches
     accepted, rejected, ent = MaxEntropyJudge("cuda")(soft, sizes)
-    assert entropy_judge_loop.launches == loops + 3
+    assert entropy_judge_loop.launches == loops + 1
     assert entropy_judge_sweep.launches == sweeps
     want = unpack(ref.entropy_judge_loop_reference(soft, sizes).cpu())
     assert rejected == [k for k in want.removal_order.tolist() if k >= 0]
@@ -382,8 +450,23 @@ def test_card_entropy_judge_sweep_is_one_launch_at_paper_shape(cuda):
                          for a in _judge_case(10, 10, seed=1))
     entropy_judge_sweep(soft, sizes, mask)
     kernels = _cuda_kernels(lambda: entropy_judge_sweep(soft, sizes, mask))
-    assert kernels == [k for k in kernels if "judge_sweep_kernel" in k]
+    assert kernels == [k for k in kernels if "judge_loop_grid" in k]
     assert len(kernels) == 1, kernels
+
+
+def test_card_entropy_judge_sweep_is_one_launch_at_qwen_vocabulary(cuda):
+    """At 152,064 classes in bfloat16 the sweep is one launch of the grid
+    kernel (132 CTAs), within K1_ATOL of its plain version."""
+    soft, sizes, mask = _judge_case(8, 152064, seed=8)
+    soft = torch.tensor(soft, dtype=torch.bfloat16, device=cuda)
+    sizes, mask = torch.tensor(sizes, device=cuda), torch.tensor(mask,
+                                                                 device=cuda)
+    ent, loo = entropy_judge_sweep(soft, sizes, mask)
+    ent_p, loo_p = ref.entropy_judge_sweep_reference(soft, sizes, mask)
+    torch.testing.assert_close(ent, ent_p, rtol=0, atol=K1_ATOL)
+    torch.testing.assert_close(loo, loo_p, rtol=0, atol=K1_ATOL)
+    kernels = _cuda_kernels(lambda: entropy_judge_sweep(soft, sizes, mask))
+    assert len(kernels) == 1 and "judge_loop_grid" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("case", ["single", "empty"])
@@ -391,7 +474,7 @@ def test_card_entropy_judge_sweep_conventions(cuda, case):
     mask = np.zeros(10, np.float32)
     if case == "single":
         mask[3] = 1.0
-    for c in (10, 4096):                 # one launch, and two
+    for c in (10, 4096):                 # one CTA, and four
         args = [torch.tensor(a, device=cuda)
                 for a in _judge_case(10, c, seed=2, mask=mask)]
         ent, loo = entropy_judge_sweep(*args)
@@ -411,7 +494,7 @@ def test_card_entropy_judge_loop_rejects_what_it_does_not_take(cuda):
         entropy_judge_loop(soft.to(torch.bfloat16), torch.ones(4))
     with pytest.raises(ValueError, match="contiguous"):
         entropy_judge_loop(torch.rand(10, 4, device=cuda).t(), torch.ones(4))
-    with pytest.raises(ValueError, match="cluster"):
-        entropy_judge_loop(soft, torch.ones(4), _cluster=17)
+    with pytest.raises(ValueError, match="CTAs"):
+        entropy_judge_loop(soft, torch.ones(4), _ctas=133)
     with pytest.raises(ValueError, match="active"):
         entropy_judge_loop(soft, torch.ones(4), torch.ones(3))

@@ -351,9 +351,9 @@ def test_card_threefry_draw_captured_equals_eager_and_cpu(cuda):
                          ids=["warp", "cluster-4", "forced-2"])
 def test_card_k1_loop_captures(cuda, c, cluster):
     """K1's loop inside a CUDA graph, as the scan block holds it: the
-    warp kernel at the paper's shape and the cluster kernel (launched
-    with a cluster attribute) give the eager launch's bits, one launch a
-    replay."""
+    warp kernel at the paper's shape and the grid kernel (a cooperative
+    launch: 4 CTAs at 4096 classes, 2 forced at 10) give the eager
+    launch's bits, one launch a replay."""
     from repro_torch.fl.graph_cache import CapturedProgram
     rng = np.random.default_rng(c)
     soft = rng.dirichlet(np.full(c, 0.3), size=10).astype(np.float32)
@@ -362,7 +362,7 @@ def test_card_k1_loop_captures(cuda, c, cluster):
         .cuda()
 
     def fn(s, z):
-        return entropy_judge_loop(s, z, _cluster=cluster)
+        return entropy_judge_loop(s, z, _ctas=cluster)
 
     eager = fn(soft, sizes).clone()
     program = CapturedProgram(fn, (soft, sizes))
