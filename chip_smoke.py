@@ -46,7 +46,11 @@ Phases, each of which raises on failure (exit code non-zero):
    shorter than a split, every valid slot in the first split, a row with
    no valid slot, one split, and groups of 128 heads at D = 128 and 48
    and 64 at D = 256 in one block, 272 over two; K5 with strong decay over 16 chunks; K4 and K5 twice on the same
-   inputs, which must give the same bits);
+   inputs, which must give the same bits); and at phase 18's shapes: K3
+   not causal over whisper's 1,500 frames (1,500 x 1,500, and 64 and 1
+   queries against 1,500 keys), its causal self prefill of 64, and
+   internvl2's prefill of 1,024 over 14 heads on 2; K4 at whisper's g = 1
+   and internvl2's g = 7, both at D = 64;
 7. serve Zamba2-2.7B at full width (random weights, float32): 4 prompts
    of 1024 tokens, then 32 greedy tokens, through ``build_model(...,
    kernels="cuda")``; show by launch counts that K3, K4 and K5 ran, and
@@ -206,6 +210,22 @@ Phases, each of which raises on failure (exit code non-zero):
    CUDA events, the memory before the phase and its peak, and K3 and K4
    at this model's shapes in turns with their plain versions and SDPA
    (K4 also its plan and the kernels its profile shows a call run).
+18. serve whisper-large-v3 (32 encoder and 32 decoder layers, d_model
+   1280, 20 heads of 64, 1,535,636,480 params) and internvl2-1b (24
+   layers, d_model 896, 14 heads over 2, 494,720,896 params) at their
+   published widths and full depth, float32, random weights from a seed,
+   through ``build_model(..., kernels="cuda")``: 4 utterances of 1,500
+   random frames with prompts of 64 tokens, and 4 x 256 random patches
+   with prompts of 768 tokens, each then 32 greedy tokens. The parameter
+   counts must equal the reference's; K3 runs the encoder, the self and
+   cross prefill and the cross attention of every decode step (whisper:
+   32 + 32 + 32 + 32 x 31 = 1,088 launches; internvl2: 24), K4 every
+   decoder layer's decode step (992 and 744), and nothing else launches.
+   The same module replays the requests on the plain route, logits within
+   LOGITS_RTOL; prefill cold and warm, decode ms per step, a profile of
+   the prefill and of a decode step, the memory before each model and
+   its peak, and K3 and K4 at these shapes in turns with their plain
+   versions and SDPA, beside their bounds.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -229,9 +249,10 @@ phase 15's ``streaming``, ``streaming pipelined`` and ``streaming
 pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 ``lmstep pipelined``, ``lmstep async`` and ``lmstep scan``; they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
-``launches_by_path`` (``zamba2 serve``, phase 7, and ``qwen3-moe
-serve``, phase 17) and ``lm_shapes``, phase 17's times at that model's
-shapes; K4 also ``profiled_launches`` and ``kernels_per_call`` at both
+``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
+phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18) and
+``lm_shapes``, the times of phases 17 and 18 at those models' shapes
+(``whisper cross decode`` among them: one query against 1,500 keys); K4 also ``profiled_launches`` and ``kernels_per_call`` at both
 serve decode shapes, from phase 8's kernel-alone profiles: the launches
 of its split pass and of its merge that each kept over the calls
 profiled, and the kernels a call ran by them (``launches`` counts
@@ -295,7 +316,7 @@ from repro_torch.kernels.fused_aggregate import (  # noqa: E402
     masked_weighted_sum)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.time_judge import judgment_ms  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
@@ -329,6 +350,18 @@ LOGITS_RTOL = 1e-4      # kernel vs plain route, of max |logit|
 # reference's init at that depth
 MOE_ARCH, MOE_LAYERS, MOE_PARAMS = "qwen3-moe-235b-a22b", 4, 11_196_732_416
 MOE_B, MOE_S, MOE_GEN = 4, 1024, 32
+# phase 18: whisper-large-v3 and internvl2-1b at full width and depth,
+# FAM_B requests of FAM_GEN greedy tokens each: whisper over WHISPER_T
+# frames with prompts of WHISPER_S tokens (inside its 448-token decoder
+# context), internvl2 over VLM_P patches with prompts of VLM_S tokens (a
+# cache of VLM_T slots); the parameter counts are jax.eval_shape's of the
+# reference's init
+FAM_B, FAM_GEN = 4, 32
+WHISPER_T, WHISPER_S = 1500, 64
+VLM_P, VLM_S = 256, 768
+VLM_T = VLM_P + VLM_S + FAM_GEN
+FAM_ARCHS = {"whisper-large-v3": 1_535_636_480,
+             "internvl2-1b": 494_720_896}
 
 WRAPPERS = {"entropy_judge_sweep": entropy_judge_sweep,
             "entropy_judge_loop": entropy_judge_loop,
@@ -2844,14 +2877,24 @@ def check_k3() -> float:
         (1, 16, 300, 4, 2, 80, 0),                          # S < T, T % 64
         (MOE_B, MOE_S, MOE_S, 64, 4, 128, 0),       # qwen3-moe prefill
         (MOE_B, MOE_S, MOE_S, 16, 16, 256, 0),      # gemma-7b's D = 256
+        # whisper-large-v3 (phase 18): the encoder over 1,500 frames, not
+        # causal; the decoder's causal self prefill; its cross attention
+        # at the prefill and at each decode step (S = 1), 1,500 keys, not
+        # a multiple of the tile
+        (FAM_B, WHISPER_T, WHISPER_T, 20, 20, 64, 0, False),
+        (FAM_B, WHISPER_S, WHISPER_S, 20, 20, 64, 0),
+        (FAM_B, WHISPER_S, WHISPER_T, 20, 20, 64, 0, False),
+        (FAM_B, 1, WHISPER_T, 20, 20, 64, 0, False),
+        # internvl2-1b's prefill: 256 patches and 768 tokens, 14 over 2
+        (FAM_B, VLM_P + VLM_S, VLM_P + VLM_S, 14, 2, 64, 0),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, t, h, kh, d, window in cases:
+        for b, s, t, h, kh, d, window, *how in cases:
             q = _randn((b, s, h, d), gen, dtype)
             k = _randn((b, t, kh, d), gen, dtype)
             v = _randn((b, t, kh, d), gen, dtype)
-            causal = s == t
+            causal = how[0] if how else s == t
             got = flash_attention(q, k, v, causal=causal, window=window)
             want = ref.mha_reference(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -2908,6 +2951,13 @@ def check_k4() -> float:
         (2, 300, 32, 1, 64, 16, [299, 200]), (1, 64, 128, 1, 128, 0, 63),
         (1, 64, 64, 1, 256, 0, 63), (2, 300, 48, 1, 256, 24, [299, 200]),
         (1, 64, 272, 1, 16, 0, 63),
+        # the decoders of phase 18: whisper-large-v3 (g = 1 at D = 64, 64
+        # prompt and 32 greedy tokens) and internvl2-1b (g = 7 at D = 64,
+        # on the CUDA cores, 256 patches, 768 tokens, 32 greedy tokens)
+        (FAM_B, WHISPER_S + FAM_GEN, 20, 20, 64, 0, WHISPER_S + FAM_GEN - 1),
+        (FAM_B, WHISPER_S + FAM_GEN, 20, 20, 64, 0, [95, 80, 64, 70]),
+        (FAM_B, VLM_T, 14, 2, 64, 0, VLM_T - 1),
+        (FAM_B, VLM_T, 14, 2, 64, 0, [1055, 900, 700, 1030]),
     ]
     worst = 0.0
     plans = set()
@@ -3960,37 +4010,35 @@ def moe_prefill_stages(model, rec: list, prefill_s: float) -> dict:
     return stages
 
 
-def time_moe_kernels() -> dict:
-    """K3 and K4 at qwen3-moe-235b-a22b's serve shapes, float32, in turns
-    with their plain versions and SDPA (``enable_gqa``): name -> (ms per
-    call, plain ms, library ms, bound ms, bound_by, kernel ms, shape)."""
+def _k3_times(gen, b, s, t, h, kh, d, causal) -> tuple:
+    """K3 at (b, s against t, h over kh, d), float32, in turns with its
+    plain version and SDPA: (ms per call, plain ms, library ms, bound ms,
+    bound_by, kernel ms, shape). The bound is that of 3xTF32 on the tensor
+    cores, as in phase 8."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
-    cfg = _moe_config()
-    gen = torch.Generator(device=DEV).manual_seed(9)
-    kw = dict(iters=20, warmup=3)
-    b, s, h, kh, d = MOE_B, MOE_S, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim
-    t = MOE_S + MOE_GEN
-    out = {}
-
     q = _randn((b, s, h, d), gen)
-    k, v = (_randn((b, s, kh, d), gen) for _ in range(2))
+    k, v = (_randn((b, t, kh, d), gen) for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    call = lambda: flash_attention(q, k, v, causal=True)
+    call = lambda: flash_attention(q, k, v, causal=causal)
     ms = _time_turns({
         "kernel": call,
-        "plain": lambda: ref.mha_reference(q, k, v, causal=True),
-        "library": lambda: sdpa(qt, kt, vt, is_causal=True,
-                                enable_gqa=True)}, **kw)
+        "plain": lambda: ref.mha_reference(q, k, v, causal=causal),
+        "library": lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                enable_gqa=h != kh)}, iters=20, warmup=3)
     dev_ms = _device_ms(call, ("flash_fwd",), iters=10)
-    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * 4
-    flops = 2 * b * h * d * s * (s + 1)
-    out["flash_attention"] = (ms["kernel"], ms["plain"], ms["library"],
-                              *_bound_ms(nbytes, 3 * flops,
-                                         TF32_FLOP_PER_S), dev_ms,
-                              (b, s, h, kh, d))
-    del q, k, v, qt, kt, vt
+    nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * 4
+    flops = (2 * b * h * d * s * (s + 1) if causal
+             else 4 * b * h * d * s * t)
+    return (ms["kernel"], ms["plain"], ms["library"],
+            *_bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S), dev_ms,
+            (b, s, t, h, kh, d) if s != t else (b, s, h, kh, d))
 
+
+def _k4_times(gen, b, t, h, kh, d) -> tuple:
+    """K4 at a full cache of t slots (b, h over kh, d), float32, in turns
+    with its plain version and SDPA (the tag mask); its plan printed; the
+    tuple of :func:`_k3_times`, bound by one read of the valid slots."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
     q = _randn((b, 1, h, d), gen)
     kc, vc = (_randn((b, t, kh, d), gen) for _ in range(2))
     tags, idx = _tags(b, t, t - 1)
@@ -4003,21 +4051,35 @@ def time_moe_kernels() -> dict:
                                            q_offset=idx[:, None],
                                            kv_positions=tags),
         "library": lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                enable_gqa=True)}, **kw)
+                                enable_gqa=h != kh)}, iters=20, warmup=3)
     dev_ms, *_ = _k4_device_ms(call, _k4_plan(q, kc))
     seen = int(mask.sum()) // b
-    cache_bytes = 2 * b * seen * kh * d * 4
     k4_layout(q, kc, seen)
-    out["decode_attention"] = (ms["kernel"], ms["plain"], ms["library"],
-                               *_bound_ms(
-        cache_bytes + (2 * b * h * d + b * t + b) * 4,
+    return (ms["kernel"], ms["plain"], ms["library"], *_bound_ms(
+        2 * b * seen * kh * d * 4 + (2 * b * h * d + b * t + b) * 4,
         4 * b * h * seen * d), dev_ms, (b, t, h, kh, d))
-    del q, kc, vc, qt, kt, vt
-    for name, (ms, plain_ms, lib_ms, bound, by, dev, shape,
-               *_) in out.items():
-        print(f"{name} {shape}: {ms:.5f} ms per call (kernel alone "
+
+
+def _print_lm_times(times: dict) -> None:
+    for label, (ms, plain_ms, lib_ms, bound, by, dev, shape) in \
+            times.items():
+        print(f"{label} {shape}: {ms:.5f} ms per call (kernel alone "
               f"{dev:.5f} ms), plain {plain_ms:.5f} ms, library "
               f"{lib_ms:.5f} ms (in turns), bound {bound:.5f} ms ({by})")
+
+
+def time_moe_kernels() -> dict:
+    """K3 and K4 at qwen3-moe-235b-a22b's serve shapes, float32, in turns
+    with their plain versions and SDPA (``enable_gqa``): name -> (ms per
+    call, plain ms, library ms, bound ms, bound_by, kernel ms, shape)."""
+    cfg = _moe_config()
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"flash_attention": _k3_times(gen, MOE_B, MOE_S, MOE_S, h, kh, d,
+                                        True),
+           "decode_attention": _k4_times(gen, MOE_B, MOE_S + MOE_GEN, h, kh,
+                                         d)}
+    _print_lm_times(out)
     return out
 
 
@@ -4175,6 +4237,172 @@ def moe_serve_path() -> dict:
             "splits": len(splits), "stages": stages, "peak_bytes": peak}
 
 
+# ------------------------- 18. whisper-large-v3 and internvl2-1b serve
+
+def _family_config(arch: str):
+    return ARCHS[arch].replace(remat="none", param_dtype="float32",
+                               dtype="float32")
+
+
+def _family_batch(cfg) -> tuple[dict, int]:
+    """Phase 18's requests, drawn by ``launch.serve`` from seed 0 (the
+    prompts, then the frames or patches), and the cache length."""
+    if cfg.family == "encdec":
+        return (serve.request_batch(cfg, FAM_B, WHISPER_S, 0, DEV),
+                WHISPER_S + FAM_GEN)
+    return (serve.request_batch(cfg, FAM_B, VLM_S, 0, DEV),
+            cfg.num_patches + VLM_S + FAM_GEN)
+
+
+def _family_launches(cfg) -> dict:
+    """The launches of one request batch: K3 in every encoder layer and,
+    in every decoder layer, the self prefill, the cross prefill and the
+    cross attention of each decode step (encdec), or once a layer (vlm);
+    K4 once a decoder layer a decode step; nothing else."""
+    layers, steps = cfg.num_layers, FAM_GEN - 1
+    k3 = (cfg.num_encoder_layers + layers * (2 + steps)
+          if cfg.family == "encdec" else layers)
+    return {**{name: 0 for name in WRAPPERS}, "flash_attention": k3,
+            "decode_attention": layers * steps}
+
+
+def family_serve_path(arch: str) -> dict:
+    """Phase 18, for one model: ``arch`` at its published widths and full
+    depth through the port's entry points on the kernel route, then
+    replayed on the plain route on the same module, teacher-forced."""
+    cfg = _family_config(arch)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    print(f"-- {arch}: device memory allocated before it: {_gib(before)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV, kernels="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    print(f"{cfg.name}: {n_params} params ({_gib(n_params * 4)} float32), "
+          f"random init on the card in {time.perf_counter() - t0:.2f} s")
+    if n_params != FAM_ARCHS[arch]:
+        raise AssertionError(f"{n_params} params, expected "
+                             f"{FAM_ARCHS[arch]}")
+    batch, cache_len = _family_batch(cfg)
+    b, s = batch["tokens"].shape
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_logits, cache = model.prefill(batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = prefill_logits[:, -1:].argmax(-1)
+    tokens, step_logits = [tok], []
+    for _ in range(FAM_GEN - 1):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits[:, -1:].argmax(-1)
+        step_logits.append(logits)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expect = _family_launches(cfg)
+    print(f"launches in one request batch: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"{arch} serve launches {launches} != "
+                             f"{expect}")
+    gen_tokens = torch.cat(tokens, dim=1)
+    if prefill_logits.shape != (b, s, cfg.padded_vocab) or \
+            gen_tokens.shape != (b, FAM_GEN) or \
+            cache["index"] != cache_len - 1:
+        raise AssertionError(f"{arch} serve output shapes are wrong")
+    if not (bool(torch.isfinite(prefill_logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError(f"non-finite {arch} serve logits")
+    print(f"prefill {b}x{s} (first call): {prefill_s:.4f} s; cache of "
+          f"{cache_len} slots at index {cache['index']}")
+    print(f"  seq0: {gen_tokens[0].tolist()}")
+
+    # the plain route on the same module, teacher-forced; max |logit|
+    # over the real vocabulary (the padded slots hold -1e9)
+    v = cfg.vocab_size
+    model.net.kernels = "torch"
+    try:
+        lg, pcache = model.prefill(batch, cache_len=cache_len)
+        rel = [float((lg - prefill_logits)[..., :v].abs().max()) /
+               float(prefill_logits[..., :v].abs().max())]
+        agree = int((lg[:, -1:].argmax(-1) == tokens[0]).sum())
+        for i in range(FAM_GEN - 1):
+            lg, pcache = model.decode_step(pcache, tokens[i])
+            rel.append(float((lg - step_logits[i])[..., :v].abs().max()) /
+                       float(step_logits[i][..., :v].abs().max()))
+            agree += int((lg[:, -1:].argmax(-1) == tokens[i + 1]).sum())
+    finally:
+        model.net.kernels = "cuda"
+    del pcache, lg
+    print(f"kernel route vs plain route (teacher-forced): max |diff| / max "
+          f"|logit| = {rel[0]:.3e} on the prefill, {max(rel[1:]):.3e} over "
+          f"the decode steps (tolerance {LOGITS_RTOL}); greedy tokens equal "
+          f"in {agree} of {b * FAM_GEN} (information)")
+    if not max(rel) <= LOGITS_RTOL:
+        raise AssertionError(f"{arch}: kernel and plain route logits "
+                             f"differ: {max(rel)} > {LOGITS_RTOL}")
+
+    # warm timings on the kernel route
+    del step_logits, cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    warm_prefill_s = time.perf_counter() - t0
+    if not torch.equal(lg, prefill_logits):
+        raise AssertionError(f"{arch}: a second prefill gives other bits")
+    del lg, prefill_logits
+    step_ms = []
+    for i in range(FAM_GEN - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tokens[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"prefill {b}x{s} (warm): {warm_prefill_s:.4f} s; decode median "
+          f"{statistics.median(step_ms):.3f} ms/step over {FAM_GEN - 1} "
+          f"steps (min {min(step_ms):.3f}, max {max(step_ms):.3f})")
+    _print_profile("prefill", *_profiled(
+        lambda: model.prefill(batch, cache_len=cache_len)), top=10)
+    _print_profile("decode step", *_profiled(
+        lambda: model.decode_step(cache, tokens[-1])))
+    del cache, logits
+    peak = torch.cuda.max_memory_allocated()
+    print(f"device memory: {_gib(before)} before {arch}, peak {_gib(peak)} "
+          f"({_gib(peak - before)} above it)")
+    del model, batch
+    gc_collect()
+    return {"launches": launches, "prefill_s": prefill_s,
+            "warm_prefill_s": warm_prefill_s,
+            "decode_ms": statistics.median(step_ms), "rel": max(rel),
+            "peak_bytes": peak}
+
+
+def time_family_kernels() -> dict:
+    """K3 and K4 at phase 18's shapes (:func:`_k3_times`,
+    :func:`_k4_times`): (kernel name, label) -> their tuple."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    out = {("flash_attention", label): _k3_times(gen, FAM_B, s, t, h, kh,
+                                                 64, causal)
+           for label, (s, t, h, kh, causal) in {
+               "whisper encoder": (WHISPER_T, WHISPER_T, 20, 20, False),
+               "whisper self prefill": (WHISPER_S, WHISPER_S, 20, 20, True),
+               "whisper cross prefill": (WHISPER_S, WHISPER_T, 20, 20,
+                                         False),
+               "whisper cross decode": (1, WHISPER_T, 20, 20, False),
+               "internvl2 prefill": (VLM_P + VLM_S, VLM_P + VLM_S, 14, 2,
+                                     True)}.items()}
+    out[("decode_attention", "whisper decode")] = _k4_times(
+        gen, FAM_B, WHISPER_S + FAM_GEN, 20, 20, 64)
+    out[("decode_attention", "internvl2 decode")] = _k4_times(
+        gen, FAM_B, VLM_T, 14, 2, 64)
+    _print_lm_times({" ".join(key): t for key, t in out.items()})
+    return out
+
+
 def gc_collect() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4277,6 +4505,16 @@ def main() -> int:
     moe_served = moe_serve_path()
     moe_times = time_moe_kernels()
     print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    _phase(f"18. serve whisper-large-v3 and internvl2-1b at full width and "
+           f"depth: {FAM_B} utterances of {WHISPER_T} frames with prompts "
+           f"of {WHISPER_S} tokens, {FAM_B} x {VLM_P} patches with prompts "
+           f"of {VLM_S} tokens, {FAM_GEN} greedy tokens each; cross "
+           f"attention on K3, the decoders' caches on K4")
+    t18 = time.perf_counter()
+    fam_served = {arch.split("-")[0]: family_serve_path(arch)
+                  for arch in FAM_ARCHS}
+    fam_times = time_family_kernels()
+    print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4326,12 +4564,16 @@ def main() -> int:
         if name in moe_times:
             row["launches_by_path"] = {
                 "zamba2 serve": count,
-                "qwen3-moe serve": moe_served["launches"][name]}
-            t = moe_times[name]
-            row["lm_shapes"] = {"qwen3-moe serve": {
+                "qwen3-moe serve": moe_served["launches"][name], **{
+                    f"{model} serve": o["launches"][name]
+                    for model, o in fam_served.items()}}
+            shapes = {"qwen3-moe serve": moe_times[name], **{
+                label: t for (kernel, label), t in fam_times.items()
+                if kernel == name}}
+            row["lm_shapes"] = {label: {
                 "shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                 "library_ms": t[2], "bound_ms": t[3], "bound_by": t[4],
-                _kernel_ms_key(t[5]): t[5]}}
+                _kernel_ms_key(t[5]): t[5]} for label, t in shapes.items()}
         if name in ("entropy_judge_loop", "masked_weighted_sum"):
             row["launches_by_path"] = {"fedentropy": count, **{
                 comp: o["launches"][name] for comp, o in others.items()}, **{

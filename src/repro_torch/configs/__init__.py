@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-Holds the configurations whose families the port runs (dense, moe,
-ssm, hybrid, and the paper's cnn): 9 of the reference's 11 configs;
-``internvl2-1b`` (vlm) and ``whisper-large-v3`` (encdec) come with their
-families.
+Holds all 11 of the reference's configs, one for each family the port
+runs: dense, moe, ssm, hybrid, vlm (``internvl2-1b``), encdec
+(``whisper-large-v3``) and the paper's cnn.
 """
 from .base import SHAPES, ModelConfig, ShapeConfig
 
@@ -12,18 +11,21 @@ from . import (
     fedentropy_cnn,
     gemma_7b,
     granite_8b,
+    internvl2_1b,
     kimi_k2_1t_a32b,
     mamba2_130m,
     qwen3_0_6b,
     qwen3_moe_235b_a22b,
+    whisper_large_v3,
     zamba2_2_7b,
 )
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (
-        mamba2_130m, qwen3_0_6b, granite_8b, gemma_7b, zamba2_2_7b,
-        qwen3_moe_235b_a22b, chatglm3_6b, kimi_k2_1t_a32b, fedentropy_cnn,
+        mamba2_130m, whisper_large_v3, qwen3_0_6b, granite_8b,
+        internvl2_1b, gemma_7b, zamba2_2_7b, qwen3_moe_235b_a22b,
+        chatglm3_6b, kimi_k2_1t_a32b, fedentropy_cnn,
     )
 }
 

@@ -1,13 +1,16 @@
 """Weights carried between the JAX package's models and the port's.
 
 The LM: the JAX package stacks the layers of a model on a leading axis
-(``layers``: (L, ...); the hybrid ``ssm_layers``: (groups, per, ...));
-the port keeps one module per layer under the same names, so
-:func:`lm_params_from_numpy` unstacks each leaf into ``layers.<i>.<path>``
-(the moe family's ``layers.<i>.moe.{router.w, w_in, w_gate, w_out}``
-among them) or ``ssm_layers.<g>.<j>.<path>``, a state dict for the port's
-``Transformer``; :func:`lm_params_to_numpy` restacks the port's weights
-into the reference's tree.
+(``layers``: (L, ...); the hybrid ``ssm_layers``: (groups, per, ...); the
+encdec family's ``enc_layers`` and ``dec_layers``); the port keeps one
+module per layer under the same names, so :func:`lm_params_from_numpy`
+unstacks each leaf into ``layers.<i>.<path>`` (the moe family's
+``layers.<i>.moe.{router.w, w_in, w_gate, w_out}`` among them),
+``ssm_layers.<g>.<j>.<path>`` or ``enc_layers.<i>.<path>`` and
+``dec_layers.<i>.<path>``, a state dict for the port's ``Transformer`` or
+``EncDec``; every other subtree (``tok``, the norms, the vlm family's
+``patch_proj``) is a plain leaf. :func:`lm_params_to_numpy` restacks the
+port's weights into the reference's tree.
 
 The CNN: ``repro.models.cnn`` keeps convolutions in HWIO and dense layers as
 (in, out); the port keeps convolutions in OIHW and dense layers as
@@ -50,10 +53,10 @@ def cnn_params_to_numpy(params: dict) -> dict:
 
 
 def lm_params_from_numpy(cfg, tree: dict) -> dict[str, torch.Tensor]:
-    """``repro.models.transformer`` params of ``cfg`` as numpy arrays -> a
-    state dict of the port's ``Transformer`` (float32 CPU tensors; loading
-    casts them to the model's parameter dtype and device). Raises if a
-    stacked subtree's leading axes are not ``cfg``'s layer counts."""
+    """``repro.models.transformer`` (or ``encdec``) params of ``cfg`` as
+    numpy arrays -> a state dict of the port's model (float32 CPU tensors;
+    loading casts them to the model's parameter dtype and device). Raises
+    if a stacked subtree's leading axes are not ``cfg``'s layer counts."""
     stacked = _stacked_axes(cfg)
     out: dict[str, torch.Tensor] = {}
 
@@ -80,9 +83,9 @@ def lm_params_from_numpy(cfg, tree: dict) -> dict[str, torch.Tensor]:
 
 def lm_params_to_numpy(cfg, state: dict) -> dict:
     """The inverse of :func:`lm_params_from_numpy`: a state dict (or
-    ``Model.params()``) of the port's ``Transformer`` -> the
-    ``repro.models.transformer`` tree of numpy float32 arrays, each
-    ``layers.<i>`` (``ssm_layers.<g>.<j>``) leaf restacked on the leading
+    ``Model.params()``) of the port's model -> the JAX package's tree of
+    numpy float32 arrays, each ``layers.<i>`` (``ssm_layers.<g>.<j>``,
+    ``enc_layers.<i>``, ``dec_layers.<i>``) leaf restacked on the leading
     layer axes. Raises unless every stacked leaf has all of ``cfg``'s
     layers. A round trip through both functions gives the same bits."""
     stacked = _stacked_axes(cfg)
@@ -113,7 +116,11 @@ def lm_params_to_numpy(cfg, state: dict) -> dict:
 
 
 def _stacked_axes(cfg) -> dict[str, tuple]:
-    """The reference tree's stacked subtrees and their leading axes."""
+    """The reference tree's stacked subtrees and their leading axes (the
+    encdec family's ``enc_layers`` and ``dec_layers``; no ``layers``)."""
+    if cfg.family == "encdec":
+        return {"enc_layers": (cfg.num_encoder_layers,),
+                "dec_layers": (cfg.num_layers,)}
     stacked = {"layers": (cfg.num_layers,)}
     if cfg.attn_every:
         stacked["ssm_layers"] = (cfg.num_layers // cfg.attn_every,

@@ -7,10 +7,14 @@ the latest checkpoint there (``repro_torch.checkpoint``: what
 ``Model.params()`` with every shape checked, in float32, on the card
 unless ``--device cpu``; ``--kernels cuda`` runs prefill attention,
 decode attention and the SSD scan on the hand-written kernels,
-``--kernels torch`` on their plain versions.
+``--kernels torch`` on their plain versions. ``--arch`` takes any of the
+ten LM configs; the vlm and encdec families get random patch or frame
+embeddings from ``--seed`` in place of their frontends.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --reduced --device cpu --temperature 0
 """
 from __future__ import annotations
 
@@ -29,6 +33,25 @@ from ..models.api import build_model
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def request_batch(cfg, b: int, s: int, seed: int, device) -> dict:
+    """``b`` random prompts of ``s`` tokens and, in place of the vlm and
+    encdec families' frontends, random patch or frame embeddings (float32),
+    drawn from ``seed`` in the reference's order: the prompts first."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (b, s)),
+                                       dtype=torch.int64, device=device)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(
+            rng.normal(size=(b, cfg.num_patches, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    return batch
 
 
 def main(argv=None) -> np.ndarray:
@@ -62,14 +85,13 @@ def main(argv=None) -> np.ndarray:
         print(f"restored step {step}: {meta}")
 
     b, s = args.batch, args.prompt_len
-    rng = np.random.default_rng(args.seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
-                              dtype=torch.int64, device=device)
+    batch = request_batch(cfg, b, s, args.seed, device)
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
     window = args.window or None
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompts}, window=window,
-                                  cache_len=s + args.gen)
+    logits, cache = model.prefill(batch, window=window,
+                                  cache_len=s + extra + args.gen)
     _sync(device)
     print(f"prefill {b}x{s}: {time.perf_counter() - t0:.2f}s")
 

@@ -101,16 +101,30 @@ def _components(args, *, host_oracle: bool):
     return config, selector, judge
 
 
+def batch_extras(cfg, b: int, device) -> dict:
+    """The zero inputs a family's stubbed frontend takes beside a batch of
+    ``b`` token rows: ``patches`` (b, num_patches, d_model) for vlm,
+    ``frames`` (b, encoder_seq, d_model) for encdec, none otherwise."""
+    if cfg.family == "vlm":
+        return {"patches": torch.zeros((b, cfg.num_patches, cfg.d_model),
+                                       device=device)}
+    if cfg.family == "encdec":
+        return {"frames": torch.zeros((b, cfg.encoder_seq, cfg.d_model),
+                                      device=device)}
+    return {}
+
+
 def lm_window_apply(model, cfg):
     """Adapter: (params, x (B, L+1) tokens) -> ((B, L, V) next-token
     logits for targets ``x[:, 1:]``, feats): the full-window LM contract
     :class:`repro_torch.fl.LMWindowStrategy` (``--lm-objective window``)
     consumes. Every position trains; the soft label is the weighted mean
-    next-token distribution over all positions."""
-    del cfg                      # the families the port runs need no extras
-
+    next-token distribution over all positions. The vlm and encdec
+    families see zero patches or frames."""
     def apply_fn(params, x):
-        logits, _ = model.apply(params, {"tokens": x[:, :-1]})
+        batch = {"tokens": x[:, :-1],
+                 **batch_extras(cfg, x.shape[0], x.device)}
+        logits, _ = model.apply(params, batch)
         logits = logits.to(torch.float32)
         return logits, logits[:, -1, :]
     return apply_fn
@@ -120,11 +134,12 @@ def lm_client_apply(model, cfg):
     """Adapter: (params, x (B, L+1) tokens) -> (next-token logits at the
     last position, feats), so the classification client rule drives an
     LM: each window is a sample, its final token the label, the soft label
-    the mean next-token distribution."""
-    del cfg
-
+    the mean next-token distribution. The vlm and encdec families see zero
+    patches or frames."""
     def apply_fn(params, x):
-        logits, _ = model.apply(params, {"tokens": x[:, :-1]})
+        batch = {"tokens": x[:, :-1],
+                 **batch_extras(cfg, x.shape[0], x.device)}
+        logits, _ = model.apply(params, batch)
         last = logits[:, -1, :].to(torch.float32)
         return last, last
     return apply_fn
@@ -313,8 +328,9 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
             take = rng.choice(client_idx[c], args.per_client_batch)
             rows.append(corpus[take, : args.seq_len + 1])
         tokens = torch.from_numpy(np.concatenate(rows)).to(model.device)
-        params, opt_state, metrics = step(params, opt_state,
-                                          {"tokens": tokens})
+        batch = {"tokens": tokens,
+                 **batch_extras(cfg, tokens.shape[0], model.device)}
+        params, opt_state, metrics = step(params, opt_state, batch)
         host = torch.cat([metrics["mask"].reshape(-1)] + [
             metrics[k].reshape(1).to(torch.float32) for k in (
                 "loss", "num_positive", "entropy", "grad_norm")]).cpu()

@@ -1,6 +1,8 @@
 """Uniform model API of the port: ``build_model(cfg)`` -> ``Model`` with
 forward / hidden / prefill / decode_step / init_cache, the port of
-``repro.models.api`` (``input_specs`` waits with the dry-run).
+``repro.models.api``. The encdec family runs on :mod:`.encdec`, every
+other LM family on :mod:`.transformer`. ``input_specs``, ``supported``,
+``decode_window`` and ``attn_cache_len`` wait with the dry-run.
 
 ``build_model`` draws random weights on the card unless the caller asks
 for the CPU, and fixes the kernel route: ``kernels="cuda"`` sends prefill
@@ -25,15 +27,28 @@ from torch.func import functional_call
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
-from . import transformer
+from . import encdec, transformer
+
+
+def _module(cfg: ModelConfig):
+    """The module of ``cfg``'s family: :mod:`.encdec` or
+    :mod:`.transformer`."""
+    if cfg.family == "cnn":
+        raise ValueError("use repro_torch.models.cnn directly for the "
+                         "paper CNN")
+    return encdec if cfg.family == "encdec" else transformer
 
 
 @dataclass
 class Model:
     cfg: ModelConfig
-    net: transformer.Transformer
+    net: transformer.Transformer | encdec.EncDec
     device: torch.device
     kernels: str
+
+    @property
+    def mod(self):
+        return _module(self.cfg)
 
     def _batch(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device)
@@ -41,12 +56,12 @@ class Model:
 
     def forward(self, batch: dict, *, window: int | None = None):
         """(logits (B, S, V), aux) of a full sequence."""
-        return transformer.forward(self.net, self._batch(batch),
-                                   window=window)
+        return self.mod.forward(self.net, self._batch(batch),
+                                window=window)
 
     def hidden(self, batch: dict, *, window: int | None = None):
-        return transformer.hidden(self.net, self._batch(batch),
-                                  window=window)
+        return self.mod.hidden(self.net, self._batch(batch),
+                               window=window)
 
     def params(self) -> dict[str, torch.Tensor]:
         """The weights by name (``named_parameters``): the tree
@@ -70,7 +85,8 @@ class Model:
     def loss(self, params: dict, batch: dict, *,
              window: int | None = None):
         """(next-token loss + router_aux_weight * aux, logits) of
-        ``batch`` (``tokens``, optional ``loss_weights``) under
+        ``batch`` (``tokens``, optional ``loss_weights``, and the
+        family's ``patches`` or ``frames``) under
         ``params``."""
         logits, aux = self.apply(params, batch, window=window)
         loss = transformer.lm_loss(self.cfg, logits, batch["tokens"],
@@ -81,21 +97,20 @@ class Model:
     def prefill(self, batch: dict, *, window: int | None = None,
                 cache_len: int | None = None):
         """(logits (B, S, V), cache) after a full-sequence prefill."""
-        return transformer.prefill(self.net, self._batch(batch),
-                                   window=window, cache_len=cache_len)
+        return self.mod.prefill(self.net, self._batch(batch),
+                                window=window, cache_len=cache_len)
 
     @torch.inference_mode()
     def decode_step(self, cache: dict, tokens: torch.Tensor, *,
                     window: int | None = None):
         """(logits (B, 1, V), cache); the cache is updated in place."""
-        return transformer.decode_step(self.net, cache,
-                                       tokens.to(self.device),
-                                       window=window)
+        return self.mod.decode_step(self.net, cache,
+                                    tokens.to(self.device), window=window)
 
     def init_cache(self, batch: int, cache_len: int,
                    dtype: torch.dtype | None = None) -> dict:
-        return transformer.init_cache(self.cfg, batch, cache_len, dtype,
-                                      device=self.device)
+        return self.mod.init_cache(self.cfg, batch, cache_len, dtype,
+                                   device=self.device)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
@@ -109,5 +124,5 @@ def build_model(cfg: ModelConfig, *, device="cuda", kernels: str = "cuda",
     ops._check(kernels)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    net = transformer.init(cfg, gen, kernels)
+    net = _module(cfg).init(cfg, gen, kernels)
     return Model(cfg=cfg, net=net, device=device, kernels=kernels)

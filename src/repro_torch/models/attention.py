@@ -1,7 +1,7 @@
-"""Grouped-query self attention with qk-norm, RoPE and a position-tagged
-KV cache (full-length or ring buffer) — the port of
-``repro.models.attention`` (cross attention waits with the encoder-decoder
-family).
+"""Grouped-query attention with qk-norm, RoPE and a position-tagged KV
+cache (full-length or ring buffer), and the encoder-decoder family's cross
+attention (no RoPE, no qk-norm, over the encoder's cached K and V) — the
+port of ``repro.models.attention``.
 
 Cache per layer: {"k": (B, L, KH, hd), "v": (B, L, KH, hd)}; the model
 cache also carries {"index": int, "pos": (L,) int32}, where ``pos[slot]``
@@ -21,7 +21,11 @@ from .layers import Dense, apply_rope, constant, pdtype_of, rms_norm
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+    """The q, k, v and output projections; with ``cross`` (an
+    encoder-decoder layer's cross attention) no qk-norm scales."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 cross: bool = False):
         super().__init__()
         d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
@@ -29,7 +33,7 @@ class Attention(nn.Module):
         self.w_k = Dense(cfg, d, kh * hd, gen, bias=cfg.attn_bias)
         self.w_v = Dense(cfg, d, kh * hd, gen, bias=cfg.attn_bias)
         self.w_o = Dense(cfg, h * hd, d, gen)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = constant(1.0, (hd,), pdtype_of(cfg), gen.device)
             self.k_norm = constant(1.0, (hd,), pdtype_of(cfg), gen.device)
         else:
@@ -107,3 +111,20 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         kv_positions=pos_tags[None].expand(b, cache_len).contiguous(),
         backend=kernels)
     return p.w_o(out.reshape(b, 1, -1))
+
+
+def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                    enc_kv: dict, *, kernels: str = "torch") -> torch.Tensor:
+    """Decoder states x (B, S, D) attend, without a mask, to the encoder's
+    cached {"k", "v"} (B, T, KH, hd); no RoPE (whisper)."""
+    b, s, _ = x.shape
+    q = _project_q(cfg, p, x)
+    out = ops.attention(q.contiguous(), enc_kv["k"], enc_kv["v"],
+                        causal=False, backend=kernels)
+    return p.w_o(out.reshape(b, s, -1))
+
+
+def cross_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor) -> dict:
+    """The cross attention's K and V of the encoder's output (B, T, D)."""
+    k, v = _project_kv(cfg, p, enc_out)
+    return {"k": k.contiguous(), "v": v.contiguous()}

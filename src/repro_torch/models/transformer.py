@@ -1,5 +1,5 @@
 """Decoder-only LM assembled from blocks — the port of
-``repro.models.transformer`` for four families:
+``repro.models.transformer`` for five families:
 
   dense  — [norm->attn, norm->mlp] x L
   moe    — [norm->attn, norm->moe] x L
@@ -7,12 +7,14 @@
   hybrid — groups of (attn_every - 1) ssm blocks + one SHARED attention
            block (zamba2): the shared block's weights live once, its KV
            cache per group.
+  vlm    — the dense stack over projected patch embeddings (``patch_proj``)
+           prepended to the tokens; logits only on the text slots.
 
 One submodule per layer (``nn.ModuleList``) in place of the JAX package's
 stacked layer axis under ``lax.scan``; a Python loop walks them. The
-``vlm`` and ``encdec`` families wait for a later slice. The kernel route
-("torch" or "cuda") is fixed when the model is built and handed to every
-attention and SSD call.
+``encdec`` family is :mod:`.encdec`. The kernel route ("torch" or
+"cuda") is fixed when the model is built and handed to every attention
+and SSD call.
 """
 from __future__ import annotations
 
@@ -25,18 +27,18 @@ from ..configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import MLP, Embed, Norm, dtype_of
+from .layers import MLP, Dense, Embed, Norm, dtype_of
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _block_kind(cfg: ModelConfig) -> str:
-    """The family's block stack: dense and moe share the attention one."""
+    """The family's block stack: dense, moe and vlm share the attention
+    one."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port runs "
-            f"{FAMILIES}")
-    return "dense" if cfg.family == "moe" else cfg.family
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM; "
+                         f"this module runs {FAMILIES}")
+    return "dense" if cfg.family in ("moe", "vlm") else cfg.family
 
 
 def _hybrid_shape(cfg: ModelConfig) -> tuple[int, int]:
@@ -76,7 +78,8 @@ class SSMBlock(nn.Module):
 class Transformer(nn.Module):
     """The LM's weights, with the parameter names of the JAX tree:
     ``tok``, ``final_norm`` and ``layers.<i>`` or, for the hybrid family,
-    ``ssm_layers.<group>.<j>`` and ``shared_attn``."""
+    ``ssm_layers.<group>.<j>`` and ``shared_attn``; the vlm family's
+    ``patch_proj.w`` (d_model, d_model), drawn after the layers."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  kernels: str = "torch"):
@@ -97,6 +100,8 @@ class Transformer(nn.Module):
                 nn.ModuleList(SSMBlock(cfg, gen) for _ in range(per))
                 for _ in range(groups))
             self.shared_attn = AttnBlock(cfg, gen)
+        if cfg.family == "vlm":
+            self.patch_proj = Dense(cfg, cfg.d_model, cfg.d_model, gen)
 
     def forward(self, batch: dict, *, window: int | None = None,
                 head: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -161,18 +166,29 @@ def backbone(model: Transformer, x: torch.Tensor, *,
 
 
 def embed_tokens(model: Transformer, batch: dict) -> torch.Tensor:
-    return model.tok(batch["tokens"])
+    """The token embeddings; for the vlm family the projected patches
+    (B, num_patches, D) come first."""
+    x = model.tok(batch["tokens"])
+    if model.cfg.family == "vlm":
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([model.patch_proj(patches), x], dim=1)
+    return x
 
 
 def hidden(model: Transformer, batch: dict, *,
            window: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Final-norm hidden states (pre-logits), + aux."""
-    return backbone(model, embed_tokens(model, batch), window=window)
+    """Final-norm hidden states over the text positions (pre-logits), +
+    aux."""
+    h, aux = backbone(model, embed_tokens(model, batch), window=window)
+    if model.cfg.family == "vlm":                # logits only on text slots
+        h = h[:, model.cfg.num_patches:]
+    return h, aux
 
 
 def forward(model: Transformer, batch: dict, *,
             window: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Training / eval forward. Returns (logits (B, S, V), aux)."""
+    """Training / eval forward. Returns (logits over the text positions
+    (B, S, V), aux)."""
     h, aux = hidden(model, batch, window=window)
     return model.tok.logits(h), aux
 
@@ -283,7 +299,8 @@ def _pos_tags(s: int, cache_len: int, device) -> torch.Tensor:
 def prefill(model: Transformer, batch: dict, *, window: int | None = None,
             cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Full-sequence prefill: logits (B, S, V) + a cache ready for decode
-    at index S.
+    at index S (the vlm family: logits over the S text slots, the cache at
+    index num_patches + S).
 
     ``cache_len`` >= S reserves decode headroom (it defaults to S, which
     makes the cache a ring that evicts at once — pass the full expected
@@ -325,4 +342,6 @@ def prefill(model: Transformer, batch: dict, *, window: int | None = None,
         cache["ssm"] = ssm_states
         cache["attn"] = kvs
         cache["pos"] = _pos_tags(s, cache_len, x.device)
+    if cfg.family == "vlm":
+        x = x[:, cfg.num_patches:]
     return model.tok.logits(model.final_norm(x)), cache

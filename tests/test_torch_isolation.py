@@ -65,6 +65,8 @@ def test_lm_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(ARCHS["whisper-large-v3"].reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "zamba2-2.7b", "--reduced"])
     model = build_model(cfg, device="cpu")
     assert model.device.type == "cpu" and model.kernels == "cuda"

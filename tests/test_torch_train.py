@@ -7,7 +7,9 @@ The reference's weights cross to the port as numpy
 (``convert.lm_params_from_numpy``) and the port's gradients and trained
 weights come back the same way (``convert.lm_params_to_numpy``), so every
 comparison is leaf by leaf on the reference's tree. Reduced qwen3-0.6b
-(dense) and reduced mamba2-130m (ssm), float32, on the CPU.
+(dense) and reduced mamba2-130m (ssm), float32, on the CPU; the loss and
+its gradients also at reduced internvl2-1b (vlm) and whisper-large-v3
+(encdec), with the zero patches or frames of the reference's adapters.
 
 Tolerances, measured on these cases and stated here:
 
@@ -43,7 +45,7 @@ from repro_torch.core import distributed as tdist
 from repro_torch.core.entropy import group_entropy_np
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.fl import MaxEntropyJudge
-from repro_torch.launch.train import build_fl_corpus
+from repro_torch.launch.train import batch_extras, build_fl_corpus
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, sgd
 
@@ -51,7 +53,15 @@ OPT_RTOL = 1e-6
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-5
 PARAMS_RTOL = 1e-5
-ARCH_CASES = ["qwen3-0.6b", "mamba2-130m"]
+ARCH_CASES = ["qwen3-0.6b", "mamba2-130m", "internvl2-1b",
+              "whisper-large-v3"]
+
+
+def _extras(cfg, b: int) -> dict:
+    """The zero patches or frames of the vlm and encdec families
+    (``train.batch_extras``, as the reference's adapters give them), as
+    numpy; none for the others."""
+    return {k: v.numpy() for k, v in batch_extras(cfg, b, "cpu").items()}
 
 
 @pytest.fixture(scope="module")
@@ -160,7 +170,7 @@ def test_lm_loss_and_model_loss_match_reference(lm, arch, weighted):
     jm, params, model, cfg = lm(arch)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
-    batch = {"tokens": toks}
+    batch = {"tokens": toks, **_extras(cfg, 2)}
     if weighted:
         batch["loss_weights"] = rng.random((2, 24)).astype(np.float32)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -183,15 +193,46 @@ def test_model_loss_grads_match_reference_per_leaf(lm, arch):
     jm, params, model, cfg = lm(arch)
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, 40)).astype(np.int32)
-    jgrads = jax.grad(lambda p: jm.loss(
-        p, {"tokens": jnp.asarray(toks)})[0])(params)
+    batch = {"tokens": toks, **_extras(cfg, 2)}
+    jgrads = jax.jit(jax.grad(lambda p: jm.loss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()})[0]))(params)
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in model.params().items()}
-    loss, _ = model.loss(leaves, {"tokens": torch.from_numpy(toks)})
+    loss, _ = model.loss(leaves, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
     grads = torch.autograd.grad(loss, list(leaves.values()))
     got = lm_params_to_numpy(cfg, dict(zip(leaves, grads)))
-    worst = _leafwise_rel(jax.tree.map(np.asarray, jgrads), got)
+    want = jax.tree.map(np.asarray, jgrads)
+    if cfg.attn_bias and cfg.rope_style == "none":
+        _check_zero_grad_leaves(want, got)
+    worst = _leafwise_rel(want, got)
     assert worst <= GRAD_RTOL, worst
+
+
+def _check_zero_grad_leaves(want: dict, got: dict) -> None:
+    """Takes the key projection's bias (``w_k.b``, whisper's
+    ``attn_bias``) out of both gradient trees, after holding it
+    absolutely. Without RoPE the bias adds q . b to every score of a
+    query, which the softmax does not see, so its gradient is 0 in exact
+    arithmetic and
+    both packages give rounding noise (about 1e-9 against leaves of about
+    1e-2): a ratio to the leaf's own max |grad| compares noise with noise.
+    Both sides must lie within GRAD_RTOL of the largest |grad| of the
+    model."""
+    scale = max(float(np.abs(x).max()) for x in jax.tree.leaves(want))
+    for tw, tg in _walk(want, got):
+        if "w_k" in tw and "b" in tw["w_k"]:
+            for t in (tw, tg):
+                zero = t["w_k"].pop("b")
+                assert np.abs(zero).max() <= GRAD_RTOL * scale
+
+
+def _walk(a: dict, b: dict):
+    """Pairs of the same subtree of two trees of dicts."""
+    yield a, b
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _walk(v, b[k])
 
 
 # ------------------------------------------------------------ train step
