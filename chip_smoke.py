@@ -226,6 +226,25 @@ Phases, each of which raises on failure (exit code non-zero):
    the prefill and of a decode step, the memory before each model and
    its peak, and K3 and K4 at these shapes in turns with their plain
    versions and SDPA, beside their bounds.
+19. train the moe, vlm and encdec families through ``train.main``'s
+   mesh step (8 clients, 3 steps, K1's loop judging each step's soft
+   labels, 3 launches and nothing else, the parameter counts the
+   reference's): whisper-large-v3 at full width and depth on the
+   blockwise route with remat "full" (8 x 1 utterance of 1,500 zero
+   frames and 129 tokens), internvl2-1b at full width and depth with
+   remat "full" (8 x 2 windows of 129 tokens after 256 patches of one
+   random draw: zero patches overflow its gradient at 24 layers) and
+   qwen3-moe-235b-a22b at its published widths cut to 1 of 94 layers
+   (3,733,467,392 params, 8 x 2 windows, each step's dropped assignments
+   and aux loss; the forward's routing and the recomputation's must
+   drop alike); each step's seconds, one more step profiled, the peak
+   above the phase's start beside its reckoning. whisper at 4 + 4 layers
+   three times from the same params, torch + "none", blockwise + "full"
+   and torch + "full": masks equal (a split only at a float32 tie,
+   followed), loss and gradient norm within TRAIN_RTOL; internvl2 again
+   with the plain judge under phase 16's rule; internvl2's lmstep at 4
+   layers sequential (K2 3) and pipelined (K1 3, K2 3 + misses), equal
+   bit for bit; one whisper lmstep round at 4 + 4 layers (K2 1).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -247,7 +266,10 @@ and ``scan fedavg``
 (a block's launches include the eager run before its first capture), and
 phase 15's ``streaming``, ``streaming pipelined`` and ``streaming
 pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
-``lmstep pipelined``, ``lmstep async`` and ``lmstep scan``; they also
+``lmstep pipelined``, ``lmstep async`` and ``lmstep scan``, and phase
+19's ``whisper mesh step``, ``whisper lmstep sequential``, ``internvl2
+mesh step``, ``internvl2 lmstep sequential``, ``internvl2 lmstep
+pipelined`` and ``qwen3-moe mesh step``; they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
 phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18) and
@@ -3464,8 +3486,9 @@ class CheckedJudge:
 
 
 def _lm_config(layers: int | None = None):
-    cfg = ARCHS[TRAIN_ARCH].replace(remat="none", param_dtype="float32",
-                                    dtype="float32")
+    """The config ``train.main(TRAIN_ARGV)`` trains (its own
+    ``remat="full"``), optionally cut to ``layers``."""
+    cfg = train.train_config(train.parser().parse_args(TRAIN_ARGV))
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
@@ -3518,7 +3541,7 @@ def gradient_step() -> dict:
             "busy_s": busy}
 
 
-def build_lmstep(model, cfg, data, engine="sequential", **kw):
+def build_lmstep(model, cfg, data, engine="sequential", stub=None, **kw):
     """``fl.build("fedentropy", lm_window_apply(...), strategy="lmstep")``
     as ``launch.train --lm-objective window`` builds it: 8 logical
     clients, cohorts of 4, E = 1, minibatches of 2, lr 0.01; with K2
@@ -3526,16 +3549,17 @@ def build_lmstep(model, cfg, data, engine="sequential", **kw):
     CLI's aggregator is the composition's)."""
     params = {k: v.detach() for k, v in model.params().items()}
     return fl.build(
-        "fedentropy", train.lm_window_apply(model, cfg), params, data,
+        "fedentropy", train.lm_window_apply(model, cfg, stub), params, data,
         fl.ServerConfig(num_clients=8, participation=0.5, seed=0),
         fl.LocalSpec(epochs=1, lr=0.01, batch_size=2), strategy="lmstep",
         aggregator=fl.FusedAverageAggregator("cuda"), engine=engine,
         device=DEV, **kw)
 
 
-def _lm_data(cfg, seq: int) -> dict:
+def _lm_data(cfg, seq: int, windows: int | None = None) -> dict:
     corpus, idx = train.build_fl_corpus(cfg, 8, "case1", seq, 0)
-    return train.stack_lm_clients(corpus, idx, LMSTEP_WINDOWS, seq, 0)
+    return train.stack_lm_clients(corpus, idx, windows or LMSTEP_WINDOWS,
+                                  seq, 0)
 
 
 def _counted_rounds(server, label: str, rounds: int) -> tuple[dict, list]:
@@ -3631,6 +3655,111 @@ def lmstep_verdicts(rec: RecordingJudge, pip) -> float:
     return worst
 
 
+def hold_to_torch_judge(argv: list, cfg, n_params: int, recs_k: list,
+                        what: str) -> "CheckedJudge":
+    """The mesh step of ``argv`` again from the same params with the
+    plain float32 judge (:class:`CheckedJudge`, each verdict held against
+    K1's loop on the same labels) against ``recs_k``, the K1 run's
+    records: masks equal (a split only at a float32 tie, followed), loss
+    and gradient norm within TRAIN_RTOL relative, entropies within
+    K1_ATOL. Returns the judge (its labels, ties and entropy gap)."""
+    args = train.parser().parse_args(argv + ["--judge-backend", "torch",
+                                             "--device", DEV])
+    model = build_model(cfg, device=DEV, kernels=args.attn, seed=args.seed)
+    if model.num_params() != n_params:
+        raise AssertionError(f"{what}: {model.num_params()} params")
+    corpus, idx = train.build_fl_corpus(cfg, args.logical_clients,
+                                        args.case, args.seq_len, args.seed)
+    checked = CheckedJudge()
+    recs_p = train.run_mesh_engine(args, cfg, model, corpus, idx,
+                                   judge_fn=checked)
+    worst = _held_steps(recs_k, recs_p, what)
+    print(f"{what}, torch judge vs K1 (cuda): masks equal over "
+          f"{len(recs_k)} steps ({len(checked.ties)} float32 ties followed"
+          f"), loss and grad norm within {worst:.3e} relative (limit "
+          f"{TRAIN_RTOL:.0e}), K1 vs plain entropy within "
+          f"{checked.ent_err:.3e} (limit {K1_ATOL:.0e})")
+    return checked
+
+
+def _held_steps(recs_a: list, recs_b: list, what: str) -> float:
+    """Two mesh runs of the same steps: masks and cohorts equal, the
+    entropies within K1_ATOL, finite; returns the larger relative gap of
+    the loss and the gradient norm, which must be within TRAIN_RTOL."""
+    worst = 0.0
+    for a, b in zip(recs_a, recs_b, strict=True):
+        if (a["mask"], a["selected"]) != (b["mask"], b["selected"]):
+            raise AssertionError(f"{what}: step {a['step']}: masks "
+                                 f"{a['mask']} vs {b['mask']}")
+        if not all(math.isfinite(r[k]) for r in (a, b)
+                   for k in ("loss", "grad_norm", "entropy")):
+            raise AssertionError(f"{what}: non-finite step {a} / {b}")
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(a[key] - b[key]) / abs(a[key]))
+        if abs(a["entropy"] - b["entropy"]) > K1_ATOL:
+            raise AssertionError(f"{what}: step {a['step']}: entropy "
+                                 f"{a['entropy']} vs {b['entropy']}")
+        print(f"{what}: step {a['step']}: mask {a['mask']} on both; loss "
+              f"{a['loss']:.7f} vs {b['loss']:.7f}; grad norm "
+              f"{a['grad_norm']:.6f} vs {b['grad_norm']:.6f}; entropy "
+              f"{a['entropy']:.6f} vs {b['entropy']:.6f}")
+    if worst > TRAIN_RTOL:
+        raise AssertionError(f"{what}: loss or grad norm apart by {worst} "
+                             f"> {TRAIN_RTOL}")
+    return worst
+
+
+def lmstep_pair(cfg, n_params: int, what: str, stub=None,
+                windows: int | None = None) -> dict:
+    """lmstep at ``cfg`` (a depth cut), 8 logical clients of ``windows``
+    (default LMSTEP_WINDOWS) windows of LMSTEP_SEQ + 1 tokens:
+    LMSTEP_ROUNDS rounds on the sequential server (K2 a round) and on the
+    pipelined engine speculating in K1's loop (K1 a round, K2 a round and
+    one more a miss), each client program one CUDA graph, equal bit for
+    bit; each miss only at a tie; ``stub`` the vlm and encdec families'
+    frontend (``train.stub_frontend``). Returns the launches by path
+    (``<what> sequential``, ``<what> pipelined``), round 0's judge inputs
+    and the larger K1 entropy error."""
+    model = build_model(cfg, device=DEV, kernels="torch", seed=0)
+    if model.num_params() != n_params:
+        raise AssertionError(f"{what}: {model.num_params()} params at "
+                             f"depth {cfg.num_layers}")
+    data = _lm_data(cfg, LMSTEP_SEQ, windows)
+    torch.cuda.reset_peak_memory_stats()
+    rec = RecordingJudge(fl.MaxEntropyJudge())
+    seq = build_lmstep(model, cfg, data, judge=rec, stub=stub)
+    ls, walls_s = _counted_rounds(seq, f"{what} sequential", LMSTEP_ROUNDS)
+    pip = build_lmstep(model, cfg, data, engine="pipelined", runtime=SPEC,
+                       stub=stub)
+    lp, walls_p = _counted_rounds(pip, f"{what} pipelined", LMSTEP_ROUNDS)
+    equal_to_sequential(seq, pip, f"{what} pipelined vs sequential")
+    misses = sum(not r["spec_hit"] for r in pip.history)
+    k1_err = lmstep_verdicts(rec, pip)
+    k1s, k2s, k1p, k2p = (ls["entropy_judge_loop"],
+                          ls["masked_weighted_sum"],
+                          lp["entropy_judge_loop"],
+                          lp["masked_weighted_sum"])
+    if (k1s, k2s, k1p, k2p) != (0, LMSTEP_ROUNDS, LMSTEP_ROUNDS,
+                                LMSTEP_ROUNDS + misses):
+        raise AssertionError(f"{what} launches: sequential K1 {k1s} K2 "
+                             f"{k2s}, pipelined K1 {k1p} K2 {k2p} with "
+                             f"{misses} misses")
+    if seq.graphs_captured != 1 or pip.graphs_captured != 1:
+        raise AssertionError(f"{what}: the client program was not "
+                             "captured")
+    print(f"{what} at depth {cfg.num_layers} ({n_params:,} params): "
+          f"sequential K1 {k1s} K2 {k2s}; pipelined K1 {k1p} K2 {k2p} "
+          f"({misses} misses); round s sequential "
+          f"{[round(w, 4) for w in walls_s]}, pipelined "
+          f"{[round(w, 4) for w in walls_p]}; peak device memory "
+          f"{_gib(torch.cuda.max_memory_allocated())}")
+    seen = rec.seen[0]
+    del seq, pip, rec, model
+    gc_collect()
+    return {"launches": {f"{what} sequential": ls, f"{what} pipelined": lp},
+            "seen": seen, "k1_err": k1_err}
+
+
 def lm_training_path() -> dict:
     """Phase 16: the gradient-level FedEntropy step at qwen3-0.6b's full
     configuration through ``launch.train``'s entry point (K1's loop once a
@@ -3643,11 +3772,12 @@ def lm_training_path() -> dict:
     cfg = _lm_config()
     n = TRAIN_PARAMS
     logits = 16 * 129 * cfg.padded_vocab * 4
-    print(f"reckoning: {n:,} params, {_gib(n * 4)} each of the weights, "
-          f"the step's params, grads and SGD momentum ({_gib(4 * n * 4)}); "
-          f"logits (16, 129, {cfg.padded_vocab}) float32 {_gib(logits)} a "
-          f"copy, about 5 live: {_gib(4 * n * 4 + 5 * logits)} expected "
-          "at the peak")
+    print(f"reckoning: {n:,} params, {_gib(n * 4)} each of the donated "
+          f"weights, the gradients and the SGD momentum "
+          f"({_gib(3 * n * 4)}); logits (16, 129, {cfg.padded_vocab}) "
+          f"float32 {_gib(logits)} a copy, about 5 live; remat "
+          f"{cfg.remat!r} keeps each layer's input: "
+          f"{_gib(3 * n * 4 + 5 * logits)} expected at the peak")
 
     # (a) the gradient step: the CLI's main, counted
     gc_collect()
@@ -3666,96 +3796,30 @@ def lm_training_path() -> dict:
     if launches["lm mesh step"] != want:
         raise AssertionError(f"gradient step launches "
                              f"{launches['lm mesh step']}; expected {want}")
-    print(f"gradient step (cuda route, train.main): launches "
-          f"{launches['lm mesh step']}; peak device memory {_gib(peak)} "
-          f"({_gib(peak - base)} above the {_gib(base)} held before); "
-          f"step s {[round(r['seconds'], 4) for r in recs_k]}")
+    print(f"gradient step (cuda route, train.main, remat "
+          f"{cfg.remat!r}): launches {launches['lm mesh step']}; peak "
+          f"device memory {_gib(peak)} ({_gib(peak - base)} above the "
+          f"{_gib(base)} held before; PR 25's step, remat 'none' and "
+          f"undonated: 18.9 GiB above); step s "
+          f"{[round(r['seconds'], 4) for r in recs_k]}")
 
     # the torch route from the same params, each verdict held against K1
     gc_collect()
-    args = train.parser().parse_args(TRAIN_ARGV + ["--judge-backend",
-                                                   "torch", "--device", DEV])
-    model = build_model(cfg, device=DEV, kernels="torch", seed=args.seed)
-    if model.num_params() != TRAIN_PARAMS:
-        raise AssertionError(f"{model.num_params()} params")
-    corpus, idx = train.build_fl_corpus(cfg, args.logical_clients,
-                                        args.case, args.seq_len, args.seed)
-    checked = CheckedJudge()
-    recs_p = train.run_mesh_engine(args, cfg, model, corpus, idx,
-                                   judge_fn=checked)
-    worst = 0.0
-    for k, p in zip(recs_k, recs_p, strict=True):
-        if (k["mask"], k["selected"]) != (p["mask"], p["selected"]):
-            raise AssertionError(f"step {k['step']}: masks {k['mask']} vs "
-                                 f"{p['mask']}")
-        for key in ("loss", "grad_norm"):
-            worst = max(worst, abs(k[key] - p[key]) / abs(k[key]))
-        if abs(k["entropy"] - p["entropy"]) > K1_ATOL:
-            raise AssertionError(f"step {k['step']}: entropy {k['entropy']}"
-                                 f" vs {p['entropy']}")
-        print(f"step {k['step']}: mask {k['mask']} on both routes; loss "
-              f"{k['loss']:.6f} vs {p['loss']:.6f}; entropy "
-              f"{k['entropy']:.6f} vs {p['entropy']:.6f}")
-    if worst > TRAIN_RTOL:
-        raise AssertionError(f"loss or grad norm apart by {worst} > "
-                             f"{TRAIN_RTOL}")
-    print(f"gradient step, torch route vs cuda route: masks equal over "
-          f"{TRAIN_STEPS} steps ({len(checked.ties)} float32 ties followed"
-          f"), loss and grad norm within {worst:.3e} relative (limit "
-          f"{TRAIN_RTOL:.0e}), K1 vs plain entropy within "
-          f"{checked.ent_err:.3e} (limit {K1_ATOL:.0e})")
-    for r in recs_k:
-        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
-            raise AssertionError(f"non-finite step {r}")
+    checked = hold_to_torch_judge(TRAIN_ARGV, cfg, TRAIN_PARAMS, recs_k,
+                                  "gradient step")
     soft8, sizes8 = checked.seen[0]
-    del model
     gc_collect()
     timed = gradient_step()
     gc_collect()
 
     # (b) lmstep at qwen3-0.6b widths, depth 4: sequential vs pipelined
-    cfg4 = _lm_config(LMSTEP_LAYERS)
-    model4 = build_model(cfg4, device=DEV, kernels="torch", seed=0)
-    if model4.num_params() != LMSTEP_PARAMS:
-        raise AssertionError(f"{model4.num_params()} params at depth "
-                             f"{LMSTEP_LAYERS}")
-    data4 = _lm_data(cfg4, LMSTEP_SEQ)
-    torch.cuda.reset_peak_memory_stats()
-    rec = RecordingJudge(fl.MaxEntropyJudge())
-    seq = build_lmstep(model4, cfg4, data4, judge=rec)
-    launches["lmstep sequential"], walls_s = _counted_rounds(
-        seq, "lmstep sequential", LMSTEP_ROUNDS)
-    pip = build_lmstep(model4, cfg4, data4, engine="pipelined",
-                       runtime=SPEC)
-    launches["lmstep pipelined"], walls_p = _counted_rounds(
-        pip, "lmstep pipelined", LMSTEP_ROUNDS)
-    equal_to_sequential(seq, pip, "lmstep pipelined vs sequential")
-    misses = sum(not r["spec_hit"] for r in pip.history)
-    k1_err = lmstep_verdicts(rec, pip)
-    k1s, k2s = (launches["lmstep sequential"][k] for k in (
-        "entropy_judge_loop", "masked_weighted_sum"))
-    k1p, k2p = (launches["lmstep pipelined"][k] for k in (
-        "entropy_judge_loop", "masked_weighted_sum"))
-    if (k1s, k2s, k1p, k2p) != (0, LMSTEP_ROUNDS, LMSTEP_ROUNDS,
-                                LMSTEP_ROUNDS + misses):
-        raise AssertionError(f"lmstep launches: sequential K1 {k1s} K2 "
-                             f"{k2s}, pipelined K1 {k1p} K2 {k2p} with "
-                             f"{misses} misses")
-    if seq.graphs_captured != 1 or pip.graphs_captured != 1:
-        raise AssertionError("lmstep: the client program was not captured")
-    print(f"lmstep at depth {LMSTEP_LAYERS} ({LMSTEP_PARAMS:,} params): "
-          f"sequential K1 {k1s} K2 {k2s}; pipelined K1 {k1p} K2 {k2p} "
-          f"({misses} misses); round s sequential "
-          f"{[round(w, 4) for w in walls_s]}, pipelined "
-          f"{[round(w, 4) for w in walls_p]}; peak device memory "
-          f"{_gib(torch.cuda.max_memory_allocated())}")
-    soft4, sizes4 = rec.seen[0]
-    del seq, pip, rec
-    gc_collect()
+    pair = lmstep_pair(_lm_config(LMSTEP_LAYERS), LMSTEP_PARAMS, "lmstep")
+    launches.update(pair["launches"])
+    soft4, sizes4 = pair["seen"]
     kernel_times = _time_lm_kernels(soft8, sizes8, soft4, sizes4,
                                     LMSTEP_PARAMS)
-    k1_err = max(k1_err, checked.ent_err, kernel_times.pop("k1_err"))
-    del model4
+    k1_err = max(pair["k1_err"], checked.ent_err,
+                 kernel_times.pop("k1_err"))
     gc_collect()
 
     # (c) the async and scan engines at the reduced config
@@ -4403,6 +4467,426 @@ def time_family_kernels() -> dict:
     return out
 
 
+# ------------------------------------- 19. moe, vlm and encdec training
+
+# train.main's argv of phase 19: the mesh step, 8 clients, 3 steps, K1's
+# loop judging each step's soft labels; the models at their published
+# widths, whisper and internvl2 at full depth, qwen3-moe at 1 of 94
+# layers; the parameter counts are jax.eval_shape's of the reference's
+# init at those depths
+FAM_STEP_ARGV = ["--steps", "3", "--clients", "8", "--judge-backend",
+                 "cuda"]
+FAM_TRAIN = {
+    # 8 clients x 1 utterance of 1,500 zero frames and 129 tokens
+    "whisper": (["--arch", "whisper-large-v3", "--per-client-batch", "1",
+                 "--attn", "blockwise", "--remat", "full"], 1_535_636_480),
+    # 8 clients x 2 windows of 129 tokens after 256 patches, one random
+    # draw (zero patches overflow the gradient at 24 layers: ROADMAP
+    # queue 3)
+    "internvl2": (["--arch", "internvl2-1b", "--remat", "full",
+                   "--extras", "random"], 494_720_896),
+    # 8 clients x 2 windows of 129 tokens, one layer of 128 experts
+    "qwen3-moe": (["--arch", MOE_ARCH, "--layers", "1", "--remat", "full"],
+                  3_733_467_392),
+}
+FAM_CUT = 4             # the cut-depth comparisons: 4 (+ 4) layers
+FAM_LMSTEP_WINDOWS = 4  # internvl2's lmstep: windows a client
+FAM_CUT_PARAMS = {"whisper": 250_163_200, "internvl2": 196_473_216}
+
+
+def _dev_argv() -> list:
+    return [] if DEV == "cuda" else ["--device", DEV]
+
+
+class _Captured:
+    """While open, ``train.build_model`` hands each model it builds to
+    ``on_build`` and keeps it, and ``kernels.ops.entropy_judge_loop``
+    records the shape of each batch of soft labels it sends to K1's loop
+    (whose wrapper counts as before)."""
+
+    def __init__(self, on_build=None):
+        self.on_build, self.models, self.shapes = on_build, [], []
+
+    def __enter__(self):
+        self._build, self._loop = train.build_model, \
+            kernel_ops.entropy_judge_loop
+
+        def build(*args, **kw):
+            model = self._build(*args, **kw)
+            self.models.append(model)
+            if self.on_build is not None:
+                self.on_build(model)
+            return model
+
+        def loop(soft, *args, **kw):
+            if kw.get("backend") == "cuda":
+                self.shapes.append(tuple(soft.shape))
+            return self._loop(soft, *args, **kw)
+
+        train.build_model, kernel_ops.entropy_judge_loop = build, loop
+        return self
+
+    def __exit__(self, *exc):
+        train.build_model = self._build
+        kernel_ops.entropy_judge_loop = self._loop
+
+
+class DroppedCounter:
+    """Forward pre-hooks on every layer's MoE block of the model
+    ``train.main`` builds: each call's dropped assignments (positions in
+    expert at or past the capacity, ``moe.route`` and ``moe.positions``
+    on the block's own input), kept on the card. Under ``remat="full"``
+    a step calls each block twice, the forward and its recomputation in
+    the backward, which must route alike."""
+
+    def __init__(self):
+        self.calls, self.handles = [], []
+
+    def attach(self, model):
+        @torch.no_grad()
+        def hook(block, args):
+            xt = args[0].reshape(-1, args[0].shape[-1])
+            _, top_i, _, _ = moe_mod.route(block.cfg, block.router.w, xt)
+            cap = moe_mod.capacity(block.cfg, xt.shape[0])
+            self.calls.append((moe_mod.positions(top_i) >= cap).sum())
+        self.handles = [lp.moe.register_forward_pre_hook(hook)
+                        for lp in model.net.layers]
+
+    def per_step(self, steps: int, layers: int) -> list:
+        """Removes the hooks; each step's dropped assignments over its
+        layers, after checking each recomputation's against its
+        forward's."""
+        for h in self.handles:
+            h.remove()
+        counts = [int(c) for c in self.calls]
+        if len(counts) != 2 * steps * layers:
+            raise AssertionError(f"{len(counts)} MoE calls in {steps} "
+                                 f"steps of {layers} layers")
+        out = []
+        for i in range(steps):
+            step = counts[2 * i * layers:2 * (i + 1) * layers]
+            fwd, rec = step[:layers], step[layers:][::-1]
+            if fwd != rec:
+                raise AssertionError(f"step {i}: the recomputation drops "
+                                     f"{rec}, the forward {fwd}")
+            out.append(sum(fwd))
+        return out
+
+
+def family_training(name: str, on_build=None) -> dict:
+    """``train.main`` of FAM_TRAIN[name], counted: K1's loop 3 launches
+    on (8, padded vocabulary) soft labels and nothing else, the
+    parameter count the reference's, finite steps. Prints each step and
+    the peak device memory above the phase's start; returns the records,
+    launches, peak and the model (its weights the trained params: the
+    step donates them)."""
+    argv, n_params = FAM_TRAIN[name]
+    gc_collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _Captured(on_build) as cap:
+        _reset_counts()
+        recs = train.main(argv + FAM_STEP_ARGV + _dev_argv())
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (model,) = cap.models
+    cfg = model.cfg
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["entropy_judge_loop"] = TRAIN_STEPS
+    shapes = [(8, cfg.padded_vocab)] * TRAIN_STEPS
+    if launches != want or cap.shapes != shapes:
+        raise AssertionError(f"{name} mesh step: launches {launches} on "
+                             f"{cap.shapes}; expected {want} on {shapes}")
+    if model.num_params() != n_params:
+        raise AssertionError(f"{name}: {model.num_params()} params, "
+                             f"expected {n_params}")
+    for r in recs:
+        if not all(math.isfinite(r[k]) for k in ("loss", "grad_norm",
+                                                 "entropy", "aux_loss")):
+            raise AssertionError(f"{name}: non-finite step {r}")
+        print(f"{name} step {r['step']}: loss {r['loss']:.6f} aux "
+              f"{r['aux_loss']:.6f} grad norm {r['grad_norm']:.4f} mask "
+              f"{r['mask']} entropy {r['entropy']:.6f} {r['seconds']:.4f} s")
+    print(f"{name} mesh step (train.main, {cfg.num_layers} layers, remat "
+          f"{cfg.remat!r}, route {model.kernels!r}, {n_params:,} params): "
+          f"launches {launches} on {cap.shapes[0]}; step s "
+          f"{[round(r['seconds'], 4) for r in recs]}; peak device memory "
+          f"{_gib(peak)}, {_gib(peak - base)} above the {_gib(base)} held "
+          "before")
+    return {"records": recs, "launches": launches, "peak": peak - base,
+            "model": model, "argv": argv}
+
+
+def profiled_step(model, argv: list, name: str) -> dict:
+    """Two more donated steps of ``model`` (its weights the trained
+    params, a fresh momentum) on ``argv``'s first batch, the second under
+    torch.profiler: (wall s, busy s, idle share), with the top kernels."""
+    args = train.parser().parse_args(argv + FAM_STEP_ARGV + _dev_argv())
+    cfg = model.cfg
+    corpus, idx = train.build_fl_corpus(cfg, args.logical_clients,
+                                        args.case, args.seq_len, args.seed)
+    rows = np.concatenate([corpus[idx[c][:args.per_client_batch]]
+                           for c in range(args.clients)])
+    tokens = torch.from_numpy(rows).to(DEV)
+    batch = {"tokens": tokens, **train.batch_extras(
+        cfg, tokens.shape[0], DEV,
+        train.stub_frontend(cfg, args.extras, args.seed, DEV))}
+    opt = sgd(lr=args.lr, momentum=0.5)
+    step = make_train_step(model, opt, FedSpec(num_clients=args.clients),
+                           judge_fn=fl.MaxEntropyJudge("cuda").traced(),
+                           donate=True)
+    params = {k: v.detach() for k, v in model.params().items()}
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_s(prof)
+    print(f"{name}: a step unprofiled {warm:.4f} s; profiled: wall "
+          f"{wall:.4f} s, device busy (union of kernel intervals) "
+          f"{busy:.4f} s, idle share {1 - busy / wall:.3f} (profiler on)")
+    for kname, us in sorted(_kernel_us(prof).items(),
+                            key=lambda kv: -kv[1])[:6]:
+        print(f"  {us / 1e3:9.3f} ms  {kname[:100]}")
+    del params, state, step
+    return {"step_s": warm, "profiled_s": wall, "busy_s": busy}
+
+
+class StepLeader:
+    """The K1 judge of a mesh run, keeping each step's inputs and
+    verdict for :class:`StepFollower`."""
+
+    def __init__(self):
+        self.verdicts = []
+
+    def __call__(self, soft, sizes):
+        self.verdicts.append(judge(soft, sizes, backend="cuda"))
+        return self.verdicts[-1]
+
+
+class StepFollower:
+    """The K1 judge of a second mesh run of the same steps on another
+    route or remat: equal removal orders pass; where they part, the two
+    choices must differ in float64 on this run's labels by less than
+    float32's spacing at the entropy (ROADMAP F5), printed, and this run
+    follows the leader's verdict, so the steps after it stay
+    comparable."""
+
+    def __init__(self, leader: StepLeader, what: str):
+        self.leader, self.what, self.calls, self.ties = leader, what, 0, 0
+
+    def __call__(self, soft, sizes):
+        lead = self.leader.verdicts[self.calls]
+        self.calls += 1
+        own = judge(soft, sizes, backend="cuda")
+        o_l = lead.removal_order[:int(lead.num_removed)].tolist()
+        o_o = own.removal_order[:int(own.num_removed)].tolist()
+        if o_l == o_o:
+            return own
+        step, gap = _split_margin((soft, sizes, None, None, None), o_l, o_o)
+        ulp = _f32_ulp(float(own.entropy))
+        if not gap < ulp:
+            raise AssertionError(f"{self.what}: removal orders {o_l} vs "
+                                 f"{o_o} part at step {step} by {gap} in "
+                                 f"float64, not below {ulp:.3e}")
+        print(f"{self.what}: float32 tie at step {step} ({gap:.3e} apart "
+              f"in float64, spacing {ulp:.3e}): follows the leader's "
+              f"verdict {o_l} over its own {o_o}")
+        self.ties += 1
+        return lead
+
+
+def _cut_argv(name: str, *extra) -> list:
+    return (FAM_TRAIN[name][0] + FAM_STEP_ARGV + _dev_argv()
+            + ["--layers", str(FAM_CUT), *extra])
+
+
+def cut_comparison(name: str) -> dict:
+    """``name``'s mesh step at its widths cut to FAM_CUT (+ FAM_CUT)
+    layers, the same 3 steps from the same params three times: on the
+    torch route with ``remat="none"`` (the leader), on the blockwise
+    route with ``"full"`` and on the torch route with ``"full"``, each
+    held to the leader: masks equal (a split only at a float32 tie,
+    followed), loss and gradient norm within TRAIN_RTOL relative,
+    entropies within K1_ATOL; whether remat's run equals the leader's
+    bits is printed. Returns each run's peak above its start."""
+    leader, runs, peaks = StepLeader(), {}, {}
+    for label, attn, remat in (("torch none", "torch", "none"),
+                               ("blockwise full", "blockwise", "full"),
+                               ("torch full", "torch", "full")):
+        args = train.parser().parse_args(_cut_argv(name, "--attn", attn,
+                                                   "--remat", remat))
+        cfg = train.train_config(args)
+        gc_collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=DEV, kernels=args.attn,
+                            seed=args.seed)
+        if model.num_params() != FAM_CUT_PARAMS[name]:
+            raise AssertionError(f"{name} at {FAM_CUT} layers: "
+                                 f"{model.num_params()} params")
+        corpus, idx = train.build_fl_corpus(
+            cfg, args.logical_clients, args.case, args.seq_len, args.seed)
+        runs[label] = train.run_mesh_engine(
+            args, cfg, model, corpus, idx, judge_fn=leader if not runs
+            else StepFollower(leader, f"{name} cut, {label}"))
+        peaks[label] = torch.cuda.max_memory_allocated() - base
+        print(f"{name} cut to {FAM_CUT} layers, {label}: peak "
+              f"{_gib(peaks[label])} above the start; step s "
+              f"{[round(r['seconds'], 4) for r in runs[label]]}")
+        del model
+    worst = _held_steps(runs["torch none"], runs["blockwise full"],
+                        f"{name} cut: blockwise full vs torch none")
+    worst_r = _held_steps(runs["torch none"], runs["torch full"],
+                          f"{name} cut: torch full vs torch none")
+    bits = all(a[k] == b[k] for a, b in zip(runs["torch none"],
+                                            runs["torch full"])
+               for k in ("loss", "grad_norm", "entropy", "aux_loss"))
+    print(f"{name} cut to {FAM_CUT} layers: blockwise + remat 'full' "
+          f"within {worst:.3e} of torch + 'none' (limit {TRAIN_RTOL:.0e}); "
+          f"remat 'full' vs 'none' on the torch route within {worst_r:.3e}"
+          f", the same bits (loss, grad norm, entropy, aux): {bits}")
+    return {"peaks": peaks, "rel": worst, "remat_rel": worst_r,
+            "remat_bits": bits}
+
+
+def whisper_lmstep_round() -> dict:
+    """One lmstep round of whisper at its widths cut to FAM_CUT + FAM_CUT
+    layers, FAM_LMSTEP_WINDOWS windows a client, on the sequential server
+    (K2 once, the client program one CUDA graph). Returns its
+    launches."""
+    args = train.parser().parse_args(_cut_argv("whisper"))
+    cfg = train.train_config(args)
+    model = build_model(cfg, device=DEV, kernels="torch", seed=0)
+    if model.num_params() != FAM_CUT_PARAMS["whisper"]:
+        raise AssertionError(f"whisper lmstep: {model.num_params()} params")
+    torch.cuda.reset_peak_memory_stats()
+    seq = build_lmstep(model, cfg, _lm_data(cfg, LMSTEP_SEQ,
+                                            FAM_LMSTEP_WINDOWS),
+                       judge=fl.MaxEntropyJudge())
+    counts, walls = _counted_rounds(seq, "whisper lmstep sequential", 1)
+    want = {**dict.fromkeys(WRAPPERS, 0), "masked_weighted_sum": 1}
+    rec = seq.history[0]
+    if counts != want or seq.graphs_captured != 1 or \
+            not math.isfinite(rec["entropy"]):
+        raise AssertionError(f"whisper lmstep: launches {counts}, graphs "
+                             f"{seq.graphs_captured}, record {rec}")
+    print(f"whisper lmstep at {FAM_CUT} + {FAM_CUT} layers: one round "
+          f"{walls[0]:.4f} s (capture included), launches {counts}; peak "
+          f"device memory {_gib(torch.cuda.max_memory_allocated())}")
+    del seq, model
+    gc_collect()
+    return counts
+
+
+def _reckon(name: str, n: int, extra: float, what: str) -> None:
+    print(f"reckoning, {name}: {n:,} params, {_gib(n * 4)} float32 each "
+          f"of the donated weights, the gradients and the SGD momentum "
+          f"({_gib(3 * n * 4)}); {what} {_gib(extra)}: about "
+          f"{_gib(3 * n * 4 + extra)} at the peak")
+
+
+def whisper_training(launches: dict) -> dict:
+    """Phase 19 (a): whisper-large-v3 at full depth, blockwise, remat
+    "full"; the cut-depth comparisons; one lmstep round."""
+    unit = 8 * 1500 * 1280 * 4        # one (8, 1500, 1280) float32
+    _reckon("whisper-large-v3", FAM_TRAIN["whisper"][1],
+            32 * 24 * unit + 5 * 8 * 129 * 51968 * 4,
+            "the unchecked encoder's activations, about 24 (8, 1,500, "
+            "1,280) float32 a layer over 32 layers, and the logits")
+    run = family_training("whisper")
+    launches["whisper mesh step"] = run["launches"]
+    out = {"peak": run["peak"], **profiled_step(
+        run["model"], run["argv"], "whisper-large-v3 step")}
+    del run
+    gc_collect()
+    out["cut"] = cut_comparison("whisper")
+    gc_collect()
+    launches["whisper lmstep sequential"] = whisper_lmstep_round()
+    return out
+
+
+def internvl2_training(launches: dict) -> tuple[dict, float]:
+    """Phase 19 (b): internvl2-1b at full depth, remat "full", against
+    the torch judge; its lmstep at 4 layers, sequential and pipelined.
+    Returns what it measured and the larger K1 entropy error."""
+    _reckon("internvl2-1b", FAM_TRAIN["internvl2"][1],
+            5 * 16 * 129 * 151808 * 4 + 24 * 16 * 385 * 896 * 4,
+            "logits (16, 129, 151,808) about 5 live and each layer's "
+            "input")
+    run = family_training("internvl2")
+    launches["internvl2 mesh step"] = run["launches"]
+    recs, cfg = run["records"], run["model"].cfg
+    out = {"peak": run["peak"], **profiled_step(
+        run["model"], run["argv"], "internvl2-1b step")}
+    del run
+    gc_collect()
+    checked = hold_to_torch_judge(FAM_TRAIN["internvl2"][0] + FAM_STEP_ARGV,
+                                  cfg, FAM_TRAIN["internvl2"][1], recs,
+                                  "internvl2 mesh step")
+    k1_err = checked.ent_err
+    del checked
+    gc_collect()
+    # 4 windows a client: under vmap the tied head's ``x @ embed.T``
+    # expands each client's (896, 151,808) embedding over its windows, and
+    # two engines' graph pools hold the 256 patch positions too
+    cfg4 = cfg.replace(num_layers=FAM_CUT)
+    pair = lmstep_pair(cfg4, FAM_CUT_PARAMS["internvl2"], "internvl2 lmstep",
+                       train.stub_frontend(cfg4, "random", 0, DEV),
+                       windows=FAM_LMSTEP_WINDOWS)
+    launches.update(pair["launches"])
+    return out, max(k1_err, pair["k1_err"])
+
+
+def moe_training(launches: dict) -> dict:
+    """Phase 19 (c): qwen3-moe-235b-a22b at 1 of 94 layers, the first moe
+    backward, with each step's dropped assignments and aux loss."""
+    n = FAM_TRAIN["qwen3-moe"][1]
+    _reckon("qwen3-moe-235b-a22b, 1 layer", n,
+            5 * 16 * 129 * 152064 * 4 + 2 * 128 * 4096 * 1536 * 4,
+            "logits (16, 129, 152,064) about 5 live and the donated "
+            "update's temporaries of the largest leaf (an expert matrix, "
+            "twice)")
+    counter = DroppedCounter()
+    run = family_training("qwen3-moe", on_build=counter.attach)
+    launches["qwen3-moe mesh step"] = run["launches"]
+    cfg = run["model"].cfg
+    dropped = counter.per_step(TRAIN_STEPS, cfg.num_layers)
+    t = 16 * 129 * cfg.experts_per_token
+    for r, d in zip(run["records"], dropped):
+        print(f"qwen3-moe step {r['step']}: {d} of {t} assignments "
+              f"dropped ({d / t:.3f}), aux loss {r['aux_loss']:.6f}")
+    out = {"peak": run["peak"], "dropped": dropped, **profiled_step(
+        run["model"], run["argv"], "qwen3-moe-235b-a22b step")}
+    del run
+    gc_collect()
+    return out
+
+
+def family_training_path() -> dict:
+    """Phase 19: the mesh step of whisper-large-v3 (blockwise, remat
+    "full"), internvl2-1b (remat "full") and qwen3-moe-235b-a22b (1 of 94
+    layers) through ``train.main`` with K1 judging each step, each step
+    timed and one profiled; whisper's cut-depth comparisons of route and
+    remat and one lmstep round; internvl2 against the torch judge and its
+    lmstep at 4 layers, sequential and pipelined. Returns the paths'
+    launches, what each measured and the larger K1 entropy error."""
+    launches = {}
+    out = {"whisper": whisper_training(launches)}
+    out["internvl2"], k1_err = internvl2_training(launches)
+    out["qwen3-moe"] = moe_training(launches)
+    return {"launches": launches, "families": out, "k1_err": k1_err}
+
+
 def gc_collect() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4515,6 +4999,16 @@ def main() -> int:
                   for arch in FAM_ARCHS}
     fam_times = time_family_kernels()
     print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+    _phase("19. training of the moe, vlm and encdec families: the mesh "
+           "step of whisper-large-v3 (blockwise attention, remat 'full') "
+           "and internvl2-1b at full width and depth and of "
+           f"{MOE_ARCH} at 1 of 94 layers, K1's loop judging each step; "
+           "whisper's route and remat held at 4 + 4 layers; internvl2 "
+           "against the torch judge and its lmstep at 4 layers, "
+           "sequential and pipelined; a whisper lmstep round")
+    t19 = time.perf_counter()
+    fam_trained = family_training_path()
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4536,7 +5030,8 @@ def main() -> int:
                              "decode_attention.py:60"),
         "ssd_chunked": (None, "ssd_scan.cu", "ssd_scan.py:73")}
     errors = {"entropy_judge_sweep": k1_err,
-              "entropy_judge_loop": max(k1_loop_err, trained["k1_err"]),
+              "entropy_judge_loop": max(k1_loop_err, trained["k1_err"],
+                                        fam_trained["k1_err"]),
               "masked_weighted_sum": k2_err, **lm_err}
     kernels = []
     for name, (on_fl_path, cu, tpu) in sources.items():
@@ -4583,7 +5078,9 @@ def main() -> int:
                 path: n[name] for path, n in clustered.items()}, **{
                 path: n[name] for path, n in scanned.items()}, **{
                 path: n[name] for path, n in streamed.items()}, **{
-                path: n[name] for path, n in trained["launches"].items()}}
+                path: n[name] for path, n in trained["launches"].items()},
+                **{path: n[name] for path, n in
+                   fam_trained["launches"].items()}}
             row["lm_shapes"] = {
                 label: {"shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                         "library_ms": t[2], "bound_ms": t[3],

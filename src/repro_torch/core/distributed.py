@@ -124,12 +124,44 @@ def _judged(fed: FedSpec, judge_fn, soft, sizes, device):
             jr.initial_entropy)
 
 
+def _update_donated(opt: Optimizer, grads: dict, state: dict,
+                    params: dict) -> tuple[dict, dict]:
+    """``opt.update`` one leaf at a time, each new leaf written into the
+    donated ``params`` and ``state`` and each gradient dropped once used:
+    the reference's ``jax.jit(step, donate_argnums=(0, 1))``. The same
+    arithmetic on the same values as one ``opt.update`` of the whole
+    tree, so the same bits; at the peak, params, state and gradients and
+    one leaf's temporaries, not a second params and state. ``state``'s
+    entries that mirror the params are dicts; the others (``count``) are
+    taken from the last leaf's update, each leaf's computed from the old
+    ones."""
+    scalars = {}
+    for k in list(grads):
+        sub = {n: ({k: v[k]} if isinstance(v, dict) else v)
+               for n, v in state.items()}
+        new_p, new_s = opt.update({k: grads.pop(k)}, sub, {k: params[k]})
+        params[k].copy_(new_p[k])
+        for n, v in new_s.items():
+            if isinstance(v, dict):
+                state[n][k].copy_(v[k])
+            else:
+                scalars[n] = v
+    state.update(scalars)
+    return params, state
+
+
 def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
-                    judge_fn: Callable | None = None) -> Callable:
+                    judge_fn: Callable | None = None, *,
+                    donate: bool = False) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` over a ``Model.params()``-shaped dict. ``batch``
     needs ``tokens`` (B, S) on the model's device, B a multiple of M, and
-    optionally ``client_sizes`` (M,) (default uniform).
+    optionally ``client_sizes`` (M,) (default uniform). With ``donate``
+    the step writes the new params and state into the tensors of
+    ``params`` and ``opt_state`` and returns those (the reference jits
+    the step with ``donate_argnums=(0, 1)``): the caller gives them up,
+    and the step holds one copy of each instead of two
+    (:func:`_update_donated`).
 
     ``judge_fn`` is the judge axis: ``(soft (M, V), sizes (M,)) ->
     JudgmentResult``, default the plain float32 loop; pass a judge's
@@ -166,7 +198,7 @@ def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
             loss = loss + cfg.router_aux_weight * aux
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
-        new_params, new_state = opt.update(grads, opt_state, params)
+        del leaves
         metrics = {
             "loss": loss.detach(),
             "aux_loss": aux.detach(),
@@ -177,6 +209,11 @@ def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
             "per_client_loss": client_loss.detach(),
             "grad_norm": _grad_norm(grads),
         }
+        if donate:
+            new_params, new_state = _update_donated(opt, grads, opt_state,
+                                                    params)
+        else:
+            new_params, new_state = opt.update(grads, opt_state, params)
         return new_params, new_state, metrics
 
     return train_step

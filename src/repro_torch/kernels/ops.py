@@ -1,13 +1,22 @@
 """Kernel entry points with backend dispatch.
 
-backend="torch" — the plain PyTorch versions in :mod:`.ref` (any device).
-backend="cuda"  — the hand-written CUDA kernels; on a CUDA tensor the
-                  kernel launches or raises, and only a CPU tensor takes
-                  the plain version.
+backend="torch"     — the plain PyTorch versions in :mod:`.ref` (any
+                      device).
+backend="blockwise" — the "torch" route, but attention over more than
+                      512 keys goes to :func:`.ref.mha_blockwise`
+                      (key blocks with an online softmax, each
+                      recomputed in the backward: the reference's
+                      memory-bounded route for training); plain PyTorch
+                      too, as the reference's is plain XLA.
+backend="cuda"      — the hand-written CUDA kernels; on a CUDA tensor the
+                      kernel launches or raises, and only a CPU tensor
+                      takes the plain version.
 
 The route is an argument of every call: the LM modules receive it from
 ``build_model(..., kernels=...)``, the FL judge and aggregator from their
-own ``backend``. There is no global default.
+own ``backend``. There is no global default: ``build_model(...,
+kernels="blockwise")`` stands for the reference's
+``set_default_backend("blockwise")``.
 
 The ``"cuda"`` routes of attention (K3, K4) and the SSD scan (K5) have no
 backward: the wrappers fill an output buffer through a C call, which
@@ -17,14 +26,15 @@ them ``attention`` and ``ssd`` on the ``"cuda"`` route, raise whenever
 autograd would record through them (grad mode on and an input that
 requires grad), on any device (``_build.refuse_autograd``), rather than
 hand back an output that silently cuts the gradient. Training runs
-on the ``"torch"`` route; serving (under ``inference_mode``) and the FL
-kernels (detached inputs) are unaffected.
+on the ``"torch"`` or ``"blockwise"`` route; serving (under
+``inference_mode``) and the FL kernels (detached inputs) are
+unaffected.
 """
 from __future__ import annotations
 
 from . import ref
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "blockwise", "cuda")
 
 
 def _check(backend: str) -> None:
@@ -43,7 +53,8 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
     ``q_offset`` as the current position of each row; anything else goes
     to the flash kernel (K3), which places queries at 0..S-1 and keys at
     0..T-1 and so refuses a ``q_offset`` or ``kv_positions`` it cannot
-    honour.
+    honour. The ``"blockwise"`` route takes :func:`.ref.mha_blockwise`
+    when there are more than ``ref.BLOCK_K`` keys, the reference's rule.
     """
     _check(backend)
     if backend == "cuda":
@@ -62,6 +73,10 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
         from .flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
+    if backend == "blockwise" and k.shape[1] > ref.BLOCK_K:
+        return ref.mha_blockwise(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset,
+                                 kv_positions=kv_positions, scale=scale)
     return ref.mha_reference(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_positions=kv_positions,
                              scale=scale)

@@ -8,8 +8,11 @@ holds every kernel against them on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30          # score of a masked key, as in the JAX package
+BLOCK_K = 512            # keys a step of :func:`mha_blockwise`
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,27 +40,127 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     f = _acc_dtype(q)
     qq = q.reshape(b, s, kh, g, d).to(f)
     logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(f)) * scale
-    # a Python offset stays on the host: no copy, so a CUDA graph can
-    # capture the plain version
-    off = (q_offset if isinstance(q_offset, int) else
-           torch.as_tensor(q_offset, device=dev).reshape(-1, 1))
-    q_pos = torch.arange(s, device=dev)[None, :] + off           # (1|B, S)
+    q_pos = _query_positions(s, q_offset, dev)                   # (1|B, S)
     if kv_positions is None:
         kv_pos = torch.arange(t, device=dev)[None, :]            # (1, T)
         valid = torch.ones((1, t), dtype=torch.bool, device=dev)
     else:
         kv_pos = kv_positions.to(dev)
         valid = kv_pos >= 0
-    mask = valid[:, None, :]                                     # (B,1,T)
-    if causal:
-        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
-    if window:
-        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    mask = _key_mask(q_pos, kv_pos, valid, causal, window)       # (B,S,T)
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), NEG_INF, device=dev))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(f))
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _query_positions(s: int, q_offset, dev) -> torch.Tensor:
+    """(1|B, S): the global position of each query. A Python offset
+    stays on the host: no copy, so a CUDA graph can capture the plain
+    version."""
+    off = (q_offset if isinstance(q_offset, int) else
+           torch.as_tensor(q_offset, device=dev).reshape(-1, 1))
+    return torch.arange(s, device=dev)[None, :] + off
+
+
+def _key_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+              valid: torch.Tensor, causal: bool, window: int
+              ) -> torch.Tensor:
+    """(1|B, S, T) bool: key t is seen by query s (valid, at or before
+    it when causal, inside the window)."""
+    mask = valid[:, None, :]
+    if causal:
+        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    return mask
+
+
+def recording() -> bool:
+    """Whether a checkpoint applies here: grad mode on and no
+    ``torch.func`` transform active (see :func:`recomputed`)."""
+    return (torch.is_grad_enabled()
+            and not torch._C._are_functorch_transforms_active())
+
+
+def recomputed(fn, *args, context_fn=None):
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept: a non-reentrant ``torch.utils.checkpoint``, the
+    counterpart of ``jax.checkpoint`` (``context_fn`` a selective policy
+    of ``create_selective_checkpoint_contexts``). Only while autograd
+    records: without grad mode (serving) ``fn`` runs plainly, and so it
+    does under a ``torch.func`` transform (``grad``, ``vmap``: lmstep's
+    client program), which refuses the checkpoint's saved-tensor hooks
+    and so keeps the activations the reference would recompute. The
+    values are the same either way. No body recomputed here draws random
+    numbers, so the RNG state is not saved."""
+    if not recording():
+        return fn(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_offset: torch.Tensor | int = 0,
+                  kv_positions: torch.Tensor | None = None,
+                  scale: float | None = None,
+                  block_k: int = BLOCK_K) -> torch.Tensor:
+    """Blockwise attention with an online softmax, the port of the JAX
+    package's ``ref.mha_blockwise``: the arguments and masks of
+    :func:`mha_reference`, the keys taken ``block_k`` at a time, T padded
+    to a multiple of it with zero keys tagged -1. Each step runs under
+    :func:`recomputed`, so the backward recomputes its block's scores and
+    never holds (S, T): the activations kept are the (B, KH, G, S) max
+    and sum and the (B, KH, G, S, D) accumulator a block. The same values
+    as :func:`mha_reference` up to float summation order, except a query
+    that sees no key at all, which averages the padded values too, as
+    the reference's does. Queries are scaled before the product, as
+    there. Accumulates in float32 (float64 for float64 inputs)."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d ** -0.5 if scale is None else scale
+    dev, f = q.device, _acc_dtype(q)
+    block_k = min(block_k, t)
+    pad = (block_k - t % block_k) % block_k
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = _query_positions(s, q_offset, dev)
+    kv_pos = (torch.arange(t, device=dev)[None, :] if kv_positions is None
+              else kv_positions.to(dev))
+    kv_pos = F.pad(kv_pos, (0, pad), value=-1).expand(b, t + pad)
+    qq = q.reshape(b, s, kh, g, d).to(f) * scale
+    carry = (torch.full((b, kh, g, s), NEG_INF, dtype=f, device=dev),
+             torch.zeros((b, kh, g, s), dtype=f, device=dev),
+             torch.zeros((b, kh, g, s, d), dtype=f, device=dev))
+    for t0 in range(0, t + pad, block_k):
+        blk = slice(t0, t0 + block_k)
+        carry = recomputed(_online_block, qq, kp[:, blk], vp[:, blk],
+                           kv_pos[:, blk], q_pos, *carry, causal, window)
+    _, l_f, acc = carry
+    out = acc / l_f.clamp(min=1e-30)[..., None]          # (B, KH, G, S, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _online_block(qq, kb, vb, posb, q_pos, m_prev, l_prev, acc, causal,
+                  window):
+    """One key block of :func:`mha_blockwise`: (max, sum, accumulator)
+    after the block's scores join the running softmax."""
+    f = qq.dtype
+    sc = torch.einsum("bskgd,btkd->bkgst", qq, kb.to(f))  # (B,KH,G,S,bk)
+    mask = _key_mask(q_pos, posb, posb >= 0, causal, window)
+    sc = torch.where(mask[:, None, None, :, :], sc,
+                     torch.full((), NEG_INF, dtype=f, device=sc.device))
+    m_new = torch.maximum(m_prev, sc.amax(-1))
+    p = torch.exp(sc - m_new[..., None])
+    alpha = torch.exp(m_prev - m_new)
+    l_new = alpha * l_prev + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p,
+                                                vb.to(f))
+    return m_new, l_new, acc
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:

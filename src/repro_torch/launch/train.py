@@ -19,16 +19,27 @@ Two execution paths, one composition API:
   reference's flag does; the aggregator is the composition's.
 
 The model trains on the ``"torch"`` kernel route (the reference trains on
-its default ``"xla"`` route): the hand-written attention and SSD kernels
-have no backward. Weights are random from ``--seed``, in float32. The
-run goes to the card unless ``--device cpu``; ``run_*`` return their
-records (one dict a step or round) as well as printing them. Example:
+its default ``"xla"`` route), or with ``--attn blockwise`` (dryrun's
+flag) on the ``"blockwise"`` route, which takes attention over more than
+512 keys in key blocks recomputed in the backward: the hand-written
+attention and SSD kernels have no backward. ``--remat`` sets
+``cfg.remat`` (default the config's: ``"full"`` but at ``--reduced``;
+the reference's ``main`` sets ``"none"``, which changes the memory and
+not the numbers). ``--layers`` cuts the depth (an encdec model's encoder
+and decoder both), to fit a card. The mesh step donates its params and
+optimizer state, as the reference's jit does. Weights are random from
+``--seed``, in float32. The run goes to the card unless ``--device
+cpu``; ``run_*`` return their records (one dict a step or round) as
+well as printing them. Example:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --steps 3 --clients 4 --logical-clients 8 --seq-len 32 \\
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 3 --clients 8 --judge-backend cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --steps 3 --per-client-batch 1 \\
+      --attn blockwise --judge-backend cuda
 """
 from __future__ import annotations
 
@@ -101,44 +112,65 @@ def _components(args, *, host_oracle: bool):
     return config, selector, judge
 
 
-def batch_extras(cfg, b: int, device) -> dict:
-    """The zero inputs a family's stubbed frontend takes beside a batch of
+_EXTRAS = {"vlm": ("patches", "num_patches"),
+           "encdec": ("frames", "encoder_seq")}
+
+
+def stub_frontend(cfg, kind: str, seed: int, device):
+    """What the vlm and encdec families' stubbed frontend gives every row
+    of a training batch: ``"zeros"`` (None: the reference's training
+    adapters), or ``"random"``, one (num_patches or encoder_seq, d_model)
+    float32 draw of N(0, 1) from ``seed`` on ``device``, the same for
+    every row. Zero patches stay exactly 0 through every layer, where each
+    RMSNorm's Jacobian is 1/sqrt(eps): at internvl2-1b's 24 layers the
+    gradient overflows to inf and NaN, in the reference too (ROADMAP queue
+    3); whisper's frames get sinusoids added and are not 0."""
+    if kind == "zeros" or cfg.family not in _EXTRAS:
+        return None
+    rows = getattr(cfg, _EXTRAS[cfg.family][1])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((rows, cfg.d_model), generator=gen, device=device)
+
+
+def batch_extras(cfg, b: int, device, stub=None) -> dict:
+    """The inputs a family's stubbed frontend takes beside a batch of
     ``b`` token rows: ``patches`` (b, num_patches, d_model) for vlm,
-    ``frames`` (b, encoder_seq, d_model) for encdec, none otherwise."""
-    if cfg.family == "vlm":
-        return {"patches": torch.zeros((b, cfg.num_patches, cfg.d_model),
-                                       device=device)}
-    if cfg.family == "encdec":
-        return {"frames": torch.zeros((b, cfg.encoder_seq, cfg.d_model),
-                                      device=device)}
-    return {}
+    ``frames`` (b, encoder_seq, d_model) for encdec, none otherwise;
+    zeros, or ``stub`` (:func:`stub_frontend`) in every row."""
+    if cfg.family not in _EXTRAS:
+        return {}
+    name, rows = _EXTRAS[cfg.family]
+    if stub is None:
+        return {name: torch.zeros((b, getattr(cfg, rows), cfg.d_model),
+                                  device=device)}
+    return {name: stub.to(device).expand(b, -1, -1)}
 
 
-def lm_window_apply(model, cfg):
+def lm_window_apply(model, cfg, stub=None):
     """Adapter: (params, x (B, L+1) tokens) -> ((B, L, V) next-token
     logits for targets ``x[:, 1:]``, feats): the full-window LM contract
     :class:`repro_torch.fl.LMWindowStrategy` (``--lm-objective window``)
     consumes. Every position trains; the soft label is the weighted mean
     next-token distribution over all positions. The vlm and encdec
-    families see zero patches or frames."""
+    families see zero patches or frames, or ``stub``."""
     def apply_fn(params, x):
         batch = {"tokens": x[:, :-1],
-                 **batch_extras(cfg, x.shape[0], x.device)}
+                 **batch_extras(cfg, x.shape[0], x.device, stub)}
         logits, _ = model.apply(params, batch)
         logits = logits.to(torch.float32)
         return logits, logits[:, -1, :]
     return apply_fn
 
 
-def lm_client_apply(model, cfg):
+def lm_client_apply(model, cfg, stub=None):
     """Adapter: (params, x (B, L+1) tokens) -> (next-token logits at the
     last position, feats), so the classification client rule drives an
     LM: each window is a sample, its final token the label, the soft label
     the mean next-token distribution. The vlm and encdec families see zero
-    patches or frames."""
+    patches or frames, or ``stub``."""
     def apply_fn(params, x):
         batch = {"tokens": x[:, :-1],
-                 **batch_extras(cfg, x.shape[0], x.device)}
+                 **batch_extras(cfg, x.shape[0], x.device, stub)}
         logits, _ = model.apply(params, batch)
         last = logits[:, -1, :].to(torch.float32)
         return last, last
@@ -241,7 +273,8 @@ def run_server_engine(args, cfg, model, corpus, client_idx) -> list:
             "--num-clusters > 1 runs the plain vmapped ClientUpdate "
             "(per-client bank centers); --lm-objective window swaps in "
             "the lmstep strategy's own client fn — drop one of the two")
-    apply_fn = (lm_window_apply if window else lm_client_apply)(model, cfg)
+    apply_fn = (lm_window_apply if window else lm_client_apply)(
+        model, cfg, stub_frontend(cfg, args.extras, args.seed, model.device))
     server = fl.build(
         composition, apply_fn, _init_params(model), data, config,
         fl.LocalSpec(epochs=args.local_epochs, lr=args.lr,
@@ -313,9 +346,10 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
     opt = (sgd(lr=args.lr, momentum=0.5) if args.optimizer == "sgd"
            else adamw(lr=args.lr))
     step = make_train_step(model, opt, fed,
-                           judge_fn=judge_fn or judge.traced())
+                           judge_fn=judge_fn or judge.traced(), donate=True)
     params = _init_params(model)
     opt_state = opt.init(params)
+    stub = stub_frontend(cfg, args.extras, args.seed, model.device)
     rng = np.random.default_rng(args.seed)
     records = []
     _sync(model.device)
@@ -329,14 +363,15 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
             rows.append(corpus[take, : args.seq_len + 1])
         tokens = torch.from_numpy(np.concatenate(rows)).to(model.device)
         batch = {"tokens": tokens,
-                 **batch_extras(cfg, tokens.shape[0], model.device)}
+                 **batch_extras(cfg, tokens.shape[0], model.device, stub)}
         params, opt_state, metrics = step(params, opt_state, batch)
         host = torch.cat([metrics["mask"].reshape(-1)] + [
             metrics[k].reshape(1).to(torch.float32) for k in (
-                "loss", "num_positive", "entropy", "grad_norm")]).cpu()
+                "loss", "num_positive", "entropy", "grad_norm",
+                "aux_loss")]).cpu()
         seconds = time.perf_counter() - t_step
         mask = host[:m].numpy()
-        loss, npos, ent, gnorm = host[m:].tolist()
+        loss, npos, ent, gnorm, aux = host[m:].tolist()
         pos = [sel[i] for i in range(m) if mask[i] > 0]
         neg = [sel[i] for i in range(m) if mask[i] == 0]
         selector.update(pos, neg)
@@ -344,7 +379,7 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
                         "negative": neg, "mask": mask.tolist(),
                         "loss": loss, "num_positive": int(npos),
                         "entropy": ent, "grad_norm": gnorm,
-                        "seconds": seconds})
+                        "aux_loss": aux, "seconds": seconds})
         print(f"step {it:4d} loss={loss:.4f} pos={int(npos)}/{m} "
               f"ent={ent:.4f} gnorm={gnorm:.3f}", flush=True)
     _sync(model.device)
@@ -440,6 +475,23 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--samples-per-client", type=int, default=16,
                     help="local dataset size per client (server engines)")
     ap.add_argument("--eps", type=float, default=0.8)
+    ap.add_argument("--attn", default="torch",
+                    choices=["torch", "blockwise"],
+                    help="the model's kernel route: torch (plain "
+                         "attention) or blockwise (over 512 keys, key "
+                         "blocks recomputed in the backward)")
+    ap.add_argument("--remat", default=None,
+                    choices=["none", "full", "dots"],
+                    help="cfg.remat (default: the config's)")
+    ap.add_argument("--extras", default="zeros",
+                    choices=["zeros", "random"],
+                    help="the vlm and encdec families' stubbed frontend: "
+                         "zero patches or frames (the reference's), or one "
+                         "random draw from --seed in every row")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (encdec: "
+                         "encoder and decoder each); 0 keeps the "
+                         "config's depth")
     ap.add_argument("--mesh", default="host",
                     help="the mesh of the gradient-level step: host (the "
                          "one card) is the only one ported")
@@ -450,6 +502,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def train_config(args):
+    """The config ``main`` trains: ``--arch`` (``--reduced``), in
+    float32, with ``--remat`` and ``--layers`` applied."""
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = cfg.replace(param_dtype="float32", dtype="float32")
+    if args.remat is not None:
+        cfg = cfg.replace(remat=args.remat)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers, **(
+            {"num_encoder_layers": args.layers}
+            if cfg.family == "encdec" else {}))
+    return cfg
+
+
 def main(argv=None) -> list:
     """Runs the training; returns the step or round records."""
     args = parser().parse_args(argv)
@@ -457,12 +525,10 @@ def main(argv=None) -> list:
         raise SystemExit(
             f"--mesh {args.mesh}: the port runs on one card; only the "
             "host mesh is ported (several cards: ROADMAP queue 1)")
-    cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = cfg.reduced()
-    cfg = cfg.replace(remat="none", param_dtype="float32", dtype="float32")
+    cfg = train_config(args)
     device = resolve_device(args.device)
-    model = build_model(cfg, device=device, kernels="torch", seed=args.seed)
+    model = build_model(cfg, device=device, kernels=args.attn,
+                        seed=args.seed)
 
     corpus, client_idx = build_fl_corpus(
         cfg, args.logical_clients, args.case, args.seq_len, args.seed)

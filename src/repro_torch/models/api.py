@@ -7,7 +7,10 @@ other LM family on :mod:`.transformer`. ``input_specs``, ``supported``,
 ``build_model`` draws random weights on the card unless the caller asks
 for the CPU, and fixes the kernel route: ``kernels="cuda"`` sends prefill
 attention to K3, decode attention to K4 and the SSD scan to K5;
-``kernels="torch"`` runs their plain versions.
+``kernels="torch"`` runs their plain versions; ``kernels="blockwise"``
+too, but attention over more than 512 keys in key blocks recomputed in
+the backward (``kernels.ref.mha_blockwise``; the reference's
+``set_default_backend("blockwise")``).
 
 The functional forward, for training: ``Model.params()`` is the weights
 by name, and ``apply`` / ``apply_hidden`` / ``loss`` take such a dict
@@ -15,7 +18,8 @@ by name, and ``apply`` / ``apply_hidden`` / ``loss`` take such a dict
 ``torch.autograd`` differentiate with respect to it, as the reference
 differentiates ``model.forward(params, batch)``. The ``"cuda"`` route's
 attention and SSD kernels have no backward and refuse autograd
-(``kernels.ops``): a model that trains is built with ``kernels="torch"``.
+(``kernels.ops``): a model that trains is built with ``kernels="torch"``
+or ``"blockwise"``.
 """
 from __future__ import annotations
 

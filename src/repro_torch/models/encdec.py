@@ -10,6 +10,11 @@ Encoder: bidirectional self-attention blocks over the frames. Decoder
 block: causal self attention, cross attention to the encoder's K and V,
 then the MLP. One submodule per layer (``nn.ModuleList``) in place of the
 JAX package's stacked layers under ``lax.scan``; a Python loop walks them.
+``cfg.remat == "full"`` recomputes each decoder layer in the backward
+(``layers.remat``), as the reference checkpoints its decoder scan's
+body; the encoder is never checkpointed and ``"dots"`` changes nothing
+here, as there. The same limit as the transformer's: under a
+``torch.func`` transform the layers run plainly.
 
 Cache: the decoder's self KV as the transformer's (``layers``: one
 {"k", "v"} (B, L, KH, hd) a layer, ``pos`` the slot tags, ``index``),
@@ -27,7 +32,7 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
-from .layers import MLP, Embed, Norm, dtype_of
+from .layers import MLP, Embed, Norm, dtype_of, remat
 from .transformer import _place, _pos_tags
 
 
@@ -135,11 +140,16 @@ def hidden(model: EncDec, batch: dict, *, window: int | None = None
     window = cfg.sliding_window if window is None else window
     enc = encode(model, batch["frames"])
     x = _dec_embed(model, batch["tokens"])
-    for lp in model.dec_layers:
+
+    def layer(lp, x, enc):
         a, _ = attn.self_attention(cfg, lp.attn, lp.ln1(x), causal=True,
                                    window=window, kernels=model.kernels)
-        x = _cross_and_mlp(model, lp, x + a,
-                           attn.cross_kv(cfg, lp.xattn, enc))
+        return _cross_and_mlp(model, lp, x + a,
+                              attn.cross_kv(cfg, lp.xattn, enc))
+
+    mode = "full" if cfg.remat == "full" else "none"
+    for lp in model.dec_layers:
+        x = remat(mode, (lp,), layer, lp, x, enc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return model.final_norm(x), aux
 

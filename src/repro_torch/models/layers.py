@@ -10,11 +10,18 @@ an explicit ``torch.Generator`` on the device the weights live on.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
+from functools import partial
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.utils.stateless import _reparametrize_module
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..kernels.ref import recomputed, recording
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -201,3 +208,47 @@ def logits_apply(cfg: ModelConfig, tok: dict,
                              torch.full((), -1e9, dtype=logits.dtype,
                                         device=x.device))
     return logits
+
+
+# ------------------------------------------------------------------ remat
+
+REMATS = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    products without batch dims (every ``Dense``, an ``aten.mm``) are
+    kept, everything else recomputed, ``aten.bmm`` (attention's
+    einsums, the experts' batched products) among it."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(mode: str, modules, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``, the reference's
+    ``_maybe_remat``: ``"none"`` keeps every activation for the
+    backward, ``"full"`` recomputes the body's (only its inputs kept),
+    ``"dots"`` keeps the outputs of the products without batch dims
+    (:func:`_dots_policy`). ``modules`` are those whose weights ``fn``
+    reads: the weights in them now (under ``functional_call``, the
+    caller's leaves) are put back into them for the recomputation, which
+    runs in the backward, after ``functional_call`` has restored the
+    module's own. Checkpoints apply only where :func:`.ref.recording`
+    says; elsewhere ``fn`` runs plainly. The values never depend on the
+    mode."""
+    if mode not in REMATS:
+        raise ValueError(f"remat {mode!r}; expected one of {REMATS}")
+    if mode == "none" or not recording():
+        return fn(*args)
+    weights = [dict(m.named_parameters()) for m in modules]
+
+    def body(weights, *args):
+        with ExitStack() as stack:
+            for m, w in zip(modules, weights):
+                stack.enter_context(_reparametrize_module(m, w))
+            return fn(*args)
+
+    policy = (partial(create_selective_checkpoint_contexts, _dots_policy)
+              if mode == "dots" else None)
+    return recomputed(body, weights, *args, context_fn=policy)

@@ -12,9 +12,19 @@
 
 One submodule per layer (``nn.ModuleList``) in place of the JAX package's
 stacked layer axis under ``lax.scan``; a Python loop walks them. The
-``encdec`` family is :mod:`.encdec`. The kernel route ("torch" or
-"cuda") is fixed when the model is built and handed to every attention
-and SSD call.
+``encdec`` family is :mod:`.encdec`. The kernel route ("torch",
+"blockwise" or "cuda") is fixed when the model is built and handed to
+every attention and SSD call.
+
+``cfg.remat`` reaches what the reference's ``_maybe_remat`` wraps
+(``layers.remat``): one layer of the dense, moe and vlm stacks (its aux
+term returned, so the sum over layers is ``backbone``'s), one ssm layer,
+one hybrid group (its ssm layers and the shared attention block).
+Checkpoints apply only while autograd records outside a ``torch.func``
+transform: lmstep's client program differentiates under ``grad`` and
+``vmap``, which refuse the checkpoint's hooks, so there the layers run
+plainly and keep the activations the reference would recompute (ROADMAP
+queue 3); the values are the same.
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ from ..configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import MLP, Dense, Embed, Norm, dtype_of
+from .layers import MLP, Dense, Embed, Norm, dtype_of, remat
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -144,24 +154,32 @@ def _ssm_block_with_state(model, p: SSMBlock, x):
 def backbone(model: Transformer, x: torch.Tensor, *,
              window: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (final-norm hidden (B, S, D), aux loss ()).
-    Full-sequence pass."""
+    Full-sequence pass, each layer (a hybrid group) under ``cfg.remat``."""
     cfg = model.cfg
     window = cfg.sliding_window if window is None else window
     kind = _block_kind(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "dense":
-        for lp in model.layers:
+        def layer(lp, x):
             x, _, a = _attn_block(model, lp, x, window=window)
+            return x, a
+
+        for lp in model.layers:
+            x, a = remat(cfg.remat, (lp,), layer, lp, x)
             aux = aux + a                      # the layers' sum (moe)
     elif kind == "ssm":
         for lp in model.layers:
-            x = _ssm_block(model, lp, x)
+            x = remat(cfg.remat, (lp,), _ssm_block, model, lp, x)
     else:
-        for group in model.ssm_layers:
+        def group_of(group, x):
             for lp in group:
                 x = _ssm_block(model, lp, x)
-            x, _, _ = _attn_block(model, model.shared_attn, x,
-                                  window=window)
+            return _attn_block(model, model.shared_attn, x,
+                               window=window)[0]
+
+        for group in model.ssm_layers:
+            x = remat(cfg.remat, (group, model.shared_attn), group_of,
+                      group, x)
     return model.final_norm(x), aux
 
 

@@ -10,6 +10,7 @@ nothing of JAX, so they run where JAX is not installed::
 
 The LRU itself is plain Python and is checked here on the CPU too.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import os
 import subprocess
 import sys

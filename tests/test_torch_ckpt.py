@@ -3,6 +3,7 @@ retention and the shape check, the file format shared with the JAX
 package (each package's ``load`` reads the other's files to the same flat
 arrays and meta), and ``launch.serve --ckpt-dir`` serving what
 ``launch.train --ckpt-dir`` saved, on the CPU."""
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import os
 
 import numpy as np

@@ -43,6 +43,7 @@ port's own init params and bank and import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_clusters.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import json
 import os
 from types import SimpleNamespace

@@ -5,6 +5,7 @@ Tolerances: the forward pass agrees to 1e-5 (float32 convolutions and
 products summed in another order); one client's E local epochs agree to
 1e-5 in params and soft label.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ synthetic data, partitioners, device pools and selectors (exact
 transcriptions on numpy RNGs: equal outputs), the resident corpus, and
 the aggregation module (float32 tolerance 1e-5, sums in another order;
 bf16 leaves compared at bf16 resolution)."""
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

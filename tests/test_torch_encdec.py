@@ -11,6 +11,7 @@ cache of the self KV decoded from empty beside the cross cache.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_encdec.py
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ cases), so they run where JAX is not installed::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_engine.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import numpy as np
 import pytest
 import torch

@@ -33,6 +33,7 @@ the port's own init params and import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_fedcat.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import json
 import os
 from types import SimpleNamespace

@@ -9,6 +9,7 @@ published constants and the packed ``.npy`` cache (written, then reopened
 as memory maps) are the reference's; ``HostCorpus`` maps a packed cache
 directly.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import os
 import pickle
 import shutil

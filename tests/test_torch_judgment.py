@@ -7,6 +7,7 @@ must give the same masks and removal orders as ``repro``'s
 ``tests/test_judgment.py``; its entropies agree within 1e-5 (float32
 sums taken in another order).
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax.numpy as jnp
 import numpy as np
 import pytest

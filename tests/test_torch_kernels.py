@@ -4,6 +4,7 @@ On the CPU each kernel wrapper takes its plain PyTorch version, which is
 held here against ``repro.kernels`` run as ``tests/test_kernels.py`` runs
 it (``interpret=True``), on the same numpy inputs. The kernels themselves
 run only on a CUDA card: the ``test_card_*`` cases skip without one. They
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import nothing of JAX, so on a machine with a card and without JAX they
 run alone::
 

@@ -11,6 +11,7 @@ and the reference agree to about 7e-6 on these cases (logits of size
 about 4), about the reference's own xla-vs-pallas difference, so 1e-4
 leaves room for summation order without hiding a wrong mask or layout.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import dataclasses
 
 import jax

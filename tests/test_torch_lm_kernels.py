@@ -6,6 +6,7 @@ here against ``repro.kernels`` run as ``tests/test_kernels.py`` runs it
 (``interpret=True``), on the same numpy inputs, at that file's shapes and
 tolerances plus Zamba2's head width D = 80. The ``test_card_*`` cases hold
 each CUDA kernel against its plain version and skip without a card; they
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_lm_kernels.py -k card

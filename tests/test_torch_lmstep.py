@@ -30,6 +30,7 @@ the port's own init weights and import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_lmstep.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 from types import SimpleNamespace
 
 import numpy as np

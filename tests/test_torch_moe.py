@@ -25,6 +25,7 @@ the live JAX reference, on the CPU, at ``reduced()`` sizes.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_moe.py
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import dataclasses
 
 import jax

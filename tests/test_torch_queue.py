@@ -11,6 +11,7 @@ positive and negative lists, comm bytes) must be equal; entropy within
 ``tests/test_torch_server.py`` (the soft labels come out of another
 framework's convolutions).
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

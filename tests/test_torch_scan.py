@@ -26,6 +26,7 @@ them. ``tests/test_torch_scan_blocks.py`` holds the forced misses and
 rewinds, the block-graph cache, the fallbacks and the card cases, on
 these helpers.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import numpy as np
 import pytest
 import torch

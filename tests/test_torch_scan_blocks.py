@@ -21,6 +21,7 @@ JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_scan_blocks.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import logging
 
 import numpy as np

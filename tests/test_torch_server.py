@@ -11,6 +11,7 @@ variate ``c_global`` is held within 1e-5 absolute (measured: at most
 7.5e-7): its rows divide the params' change by K * lr = 0.02, so those
 float32 differences grow 50x.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ relative 1e-6 (measured: at most 1.2e-7, fedavg_uniform). The
 reference's own 1e-9 entropy tolerance does not carry across frameworks:
 the soft labels come out of other float32 convolutions.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import json
 import os
 

@@ -18,6 +18,7 @@ minibatches of 20):
   and float32 sums over the classes, taken in another order, part by up
   to 1.4e-6 (about 20 ulp).
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

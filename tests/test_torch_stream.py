@@ -34,6 +34,7 @@ streaming plane with a forced miss. They import nothing of JAX::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_stream.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import sys
 import threading
 import time

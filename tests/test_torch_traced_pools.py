@@ -9,6 +9,7 @@ key and masks exactly, and ``TracedPoolSelector`` the reference
 selector's cohorts, keys and pools over 8 rounds fed the same verdicts.
 All integers, so the tolerance is none.
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

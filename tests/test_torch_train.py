@@ -28,6 +28,7 @@ Tolerances, measured on these cases and stated here:
   spacing at the entropy); loss and entropy within 1e-5; params within
   ``PARAMS_RTOL`` = 1e-5 of max |value| per leaf (measured 1.7e-7).
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ The ``test_card_*`` case needs a card and skips without one::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_train_cli.py -k card
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import os
 import subprocess
 import sys

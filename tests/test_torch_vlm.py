@@ -28,6 +28,7 @@ with the helpers of this file.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_vlm.py
 """
+from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import dataclasses
 import json
 import re
