@@ -245,6 +245,21 @@ Phases, each of which raises on failure (exit code non-zero):
    with the plain judge under phase 16's rule; internvl2's lmstep at 4
    layers sequential (K2 3) and pipelined (K1 3, K2 3 + misses), equal
    bit for bit; one whisper lmstep round at 4 + 4 layers (K2 1).
+20. serve gemma-7b (28 layers, d_model 3072, 16 heads of 256, vocabulary
+   256,000), granite-8b (36 layers, 32 heads over 8 of 128) and
+   chatglm3-6b (28 layers, 32 heads over 2 of 128) at their published
+   widths and full depth, float32, one at a time, as phase 18 serves
+   its two: 4 prompts of 1024 tokens, 32 greedy tokens; the parameter
+   counts the reference's and the dry-run's meta build's; K3 once a
+   layer (28, 36, 28), K4 once a layer a decode step (868, 1,116, 868);
+   logits within LOGITS_RTOL of the plain route; beside each model's
+   measured peak, the dry-run's reckoning of the same prefill on the
+   plain route (``launch.dryrun``'s counter over the meta build): its
+   argument bytes equal to the weights' and the batch's on the card, and
+   its peak above them within DRY_RTOL of ``max_memory_allocated()``
+   above the memory allocated before the plain-route prefill; K3 and K4
+   at the three models' shapes in turns with their plain versions and
+   SDPA, beside their bounds.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -272,8 +287,9 @@ mesh step``, ``internvl2 lmstep sequential``, ``internvl2 lmstep
 pipelined`` and ``qwen3-moe mesh step``; they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
-phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18) and
-``lm_shapes``, the times of phases 17 and 18 at those models' shapes
+phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18,
+``gemma serve``, ``granite serve`` and ``chatglm3 serve``, phase 20) and
+``lm_shapes``, the times of phases 17, 18 and 20 at those models' shapes
 (``whisper cross decode`` among them: one query against 1,500 keys); K4 also ``profiled_launches`` and ``kernels_per_call`` at both
 serve decode shapes, from phase 8's kernel-alone profiles: the launches
 of its split pass and of its merge that each kept over the calls
@@ -339,6 +355,7 @@ from repro_torch.kernels.fused_aggregate import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.dryrun import PARAM_COUNTS, count_call  # noqa: E402
 from repro_torch.launch.time_judge import judgment_ms  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
@@ -382,8 +399,12 @@ FAM_B, FAM_GEN = 4, 32
 WHISPER_T, WHISPER_S = 1500, 64
 VLM_P, VLM_S = 256, 768
 VLM_T = VLM_P + VLM_S + FAM_GEN
-FAM_ARCHS = {"whisper-large-v3": 1_535_636_480,
-             "internvl2-1b": 494_720_896}
+FAM_ARCHS = ("whisper-large-v3", "internvl2-1b")
+# phase 20: the dense models at full width and depth, phase 17's requests
+# (FAM_B = MOE_B, FAM_GEN = MOE_GEN); the dry-run's peak above the
+# arguments against the card's, relative
+DENSE_ARCHS = ("gemma-7b", "granite-8b", "chatglm3-6b")
+DRY_RTOL = 0.10
 
 WRAPPERS = {"entropy_judge_sweep": entropy_judge_sweep,
             "entropy_judge_loop": entropy_judge_loop,
@@ -4309,11 +4330,14 @@ def _family_config(arch: str):
 
 
 def _family_batch(cfg) -> tuple[dict, int]:
-    """Phase 18's requests, drawn by ``launch.serve`` from seed 0 (the
-    prompts, then the frames or patches), and the cache length."""
+    """Phase 18's and 20's requests, drawn by ``launch.serve`` from seed 0
+    (the prompts, then the frames or patches), and the cache length."""
     if cfg.family == "encdec":
         return (serve.request_batch(cfg, FAM_B, WHISPER_S, 0, DEV),
                 WHISPER_S + FAM_GEN)
+    if cfg.family == "dense":
+        return (serve.request_batch(cfg, MOE_B, MOE_S, 0, DEV),
+                MOE_S + MOE_GEN)
     return (serve.request_batch(cfg, FAM_B, VLM_S, 0, DEV),
             cfg.num_patches + VLM_S + FAM_GEN)
 
@@ -4321,8 +4345,8 @@ def _family_batch(cfg) -> tuple[dict, int]:
 def _family_launches(cfg) -> dict:
     """The launches of one request batch: K3 in every encoder layer and,
     in every decoder layer, the self prefill, the cross prefill and the
-    cross attention of each decode step (encdec), or once a layer (vlm);
-    K4 once a decoder layer a decode step; nothing else."""
+    cross attention of each decode step (encdec), or once a layer (vlm,
+    dense); K4 once a decoder layer a decode step; nothing else."""
     layers, steps = cfg.num_layers, FAM_GEN - 1
     k3 = (cfg.num_encoder_layers + layers * (2 + steps)
           if cfg.family == "encdec" else layers)
@@ -4330,10 +4354,27 @@ def _family_launches(cfg) -> dict:
             "decode_attention": layers * steps}
 
 
+def dry_prefill(cfg, batch: dict, cache_len: int) -> tuple[dict, float]:
+    """The dry-run's reckoning of the plain-route prefill of ``batch``:
+    ``launch.dryrun``'s counter over the meta build of ``cfg``, the batch
+    as meta tensors of its shapes and dtypes. (memory_analysis, s)."""
+    model = build_model(cfg, device="meta", kernels="torch")
+    if model.num_params() != PARAM_COUNTS[cfg.name]:
+        raise AssertionError(f"the meta build of {cfg.name} has "
+                             f"{model.num_params()} params")
+    specs = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    args = (model.params(), specs)
+    counter, out, secs = count_call(
+        lambda: model.prefill(specs, cache_len=cache_len), args)
+    return counter.memory_analysis(out, args), secs
+
+
 def family_serve_path(arch: str) -> dict:
-    """Phase 18, for one model: ``arch`` at its published widths and full
-    depth through the port's entry points on the kernel route, then
-    replayed on the plain route on the same module, teacher-forced."""
+    """Phase 18 and 20, for one model: ``arch`` at its published widths
+    and full depth through the port's entry points on the kernel route,
+    then replayed on the plain route on the same module, teacher-forced;
+    for a dense model, the plain-route prefill's peak held against the
+    dry-run's reckoning (:func:`dry_prefill`)."""
     cfg = _family_config(arch)
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
@@ -4346,9 +4387,9 @@ def family_serve_path(arch: str) -> dict:
     n_params = model.num_params()
     print(f"{cfg.name}: {n_params} params ({_gib(n_params * 4)} float32), "
           f"random init on the card in {time.perf_counter() - t0:.2f} s")
-    if n_params != FAM_ARCHS[arch]:
+    if n_params != PARAM_COUNTS[arch]:
         raise AssertionError(f"{n_params} params, expected "
-                             f"{FAM_ARCHS[arch]}")
+                             f"{PARAM_COUNTS[arch]}")
     batch, cache_len = _family_batch(cfg)
     b, s = batch["tokens"].shape
 
@@ -4388,8 +4429,14 @@ def family_serve_path(arch: str) -> dict:
     # over the real vocabulary (the padded slots hold -1e9)
     v = cfg.vocab_size
     model.net.kernels = "torch"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     try:
         lg, pcache = model.prefill(batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+        plain_above = torch.cuda.max_memory_allocated() - start
         rel = [float((lg - prefill_logits)[..., :v].abs().max()) /
                float(prefill_logits[..., :v].abs().max())]
         agree = int((lg[:, -1:].argmax(-1) == tokens[0]).sum())
@@ -4408,6 +4455,27 @@ def family_serve_path(arch: str) -> dict:
     if not max(rel) <= LOGITS_RTOL:
         raise AssertionError(f"{arch}: kernel and plain route logits "
                              f"differ: {max(rel)} > {LOGITS_RTOL}")
+    dry = None
+    if cfg.family == "dense":
+        dry, dry_s = dry_prefill(cfg, batch, cache_len)
+        args = n_params * 4 + sum(t.numel() * t.element_size()
+                                  for t in batch.values())
+        gap = dry["temp_size_in_bytes"] / plain_above - 1
+        print(f"dry-run of the plain-route prefill ({dry_s:.2f} s on the "
+              f"meta device): arguments {dry['argument_size_in_bytes']} "
+              f"bytes (weights and batch on the card {args}), peak "
+              f"{_gib(dry['temp_size_in_bytes'])} above them, output "
+              f"{_gib(dry['output_size_in_bytes'])}; measured "
+              f"max_memory_allocated() {_gib(plain_above)} above the "
+              f"{_gib(start)} before the plain prefill: {gap:+.4%} "
+              f"(bound {DRY_RTOL:.0%}); {dry['temp_size_in_bytes']} "
+              f"against {plain_above} bytes")
+        if dry["argument_size_in_bytes"] != args:
+            raise AssertionError(f"{arch}: the dry-run's arguments "
+                                 f"{dry['argument_size_in_bytes']} != {args}")
+        if not abs(gap) <= DRY_RTOL:
+            raise AssertionError(f"{arch}: the dry-run's peak is {gap:+.2%} "
+                                 f"off the card's")
 
     # warm timings on the kernel route
     del step_logits, cache
@@ -4434,7 +4502,7 @@ def family_serve_path(arch: str) -> dict:
     _print_profile("decode step", *_profiled(
         lambda: model.decode_step(cache, tokens[-1])))
     del cache, logits
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, torch.cuda.max_memory_allocated())
     print(f"device memory: {_gib(before)} before {arch}, peak {_gib(peak)} "
           f"({_gib(peak - before)} above it)")
     del model, batch
@@ -4442,7 +4510,8 @@ def family_serve_path(arch: str) -> dict:
     return {"launches": launches, "prefill_s": prefill_s,
             "warm_prefill_s": warm_prefill_s,
             "decode_ms": statistics.median(step_ms), "rel": max(rel),
-            "peak_bytes": peak}
+            "peak_bytes": peak, "plain_prefill_bytes": plain_above,
+            "dry": dry}
 
 
 def time_family_kernels() -> dict:
@@ -4463,6 +4532,24 @@ def time_family_kernels() -> dict:
         gen, FAM_B, WHISPER_S + FAM_GEN, 20, 20, 64)
     out[("decode_attention", "internvl2 decode")] = _k4_times(
         gen, FAM_B, VLM_T, 14, 2, 64)
+    _print_lm_times({" ".join(key): t for key, t in out.items()})
+    return out
+
+
+def time_dense_kernels() -> dict:
+    """K3 and K4 at phase 20's shapes, as :func:`time_family_kernels`:
+    each model's causal prefill of MOE_S tokens and its decode over a
+    cache of MOE_S + MOE_GEN slots."""
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = ARCHS[arch]
+        h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        name = arch.split("-")[0]
+        out[("flash_attention", f"{name} prefill")] = _k3_times(
+            gen, MOE_B, MOE_S, MOE_S, h, kh, d, True)
+        out[("decode_attention", f"{name} decode")] = _k4_times(
+            gen, MOE_B, MOE_S + MOE_GEN, h, kh, d)
     _print_lm_times({" ".join(key): t for key, t in out.items()})
     return out
 
@@ -5009,6 +5096,16 @@ def main() -> int:
     t19 = time.perf_counter()
     fam_trained = family_training_path()
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
+    _phase(f"20. serve {', '.join(DENSE_ARCHS)} at full width and depth, "
+           f"one at a time: {MOE_B} prompts of {MOE_S} tokens, {MOE_GEN} "
+           f"greedy tokens each; the dry-run's reckoning of the plain "
+           f"prefill held against the card's peak")
+    t20 = time.perf_counter()
+    fam_served.update({arch.split("-")[0]: family_serve_path(arch)
+                       for arch in DENSE_ARCHS})
+    fam_times.update(time_dense_kernels())
+    print(f"phase 20 took {time.perf_counter() - t20:.1f} s; phases 1-20 "
+          f"{time.perf_counter() - _START:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -29,6 +29,9 @@ ARCHS: dict[str, ModelConfig] = {
     )
 }
 
+# the 10 assigned architectures (excludes the paper's own CNN)
+ASSIGNED = [n for n in ARCHS if n != "fedentropy-cnn"]
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:

@@ -1,11 +1,15 @@
 """Uniform model API of the port: ``build_model(cfg)`` -> ``Model`` with
 forward / hidden / prefill / decode_step / init_cache, the port of
 ``repro.models.api``. The encdec family runs on :mod:`.encdec`, every
-other LM family on :mod:`.transformer`. ``input_specs``, ``supported``,
-``decode_window`` and ``attn_cache_len`` wait with the dry-run.
+other LM family on :mod:`.transformer`. ``input_specs(cfg, shape)``
+returns meta tensors in place of every input of an (arch, shape) pair,
+allocating nothing, for the dry-run (:mod:`..launch.dryrun`);
+``supported``, ``decode_window`` and ``attn_cache_len`` say which pairs
+are in scope, the decode window and the cache length.
 
 ``build_model`` draws random weights on the card unless the caller asks
-for the CPU, and fixes the kernel route: ``kernels="cuda"`` sends prefill
+for the CPU; on the meta device it builds the same modules and draws
+nothing. It fixes the kernel route: ``kernels="cuda"`` sends prefill
 attention to K3, decode attention to K4 and the SSD scan to K5;
 ``kernels="torch"`` runs their plain versions; ``kernels="blockwise"``
 too, but attention over more than 512 keys in key blocks recomputed in
@@ -24,14 +28,20 @@ or ``"blockwise"``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch.func import functional_call
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from ..kernels import ops
 from . import encdec, transformer
+from .layers import NoDraws, dtype_of
+
+# dense archs use this ring-buffer window for the long_500k decode shape
+# (the explicitly-implemented sub-quadratic sliding-window variant).
+LONG_CONTEXT_WINDOW = 8192
 
 
 def _module(cfg: ModelConfig):
@@ -124,9 +134,64 @@ def build_model(cfg: ModelConfig, *, device="cuda", kernels: str = "cuda",
                 seed: int = 0) -> Model:
     """A model of ``cfg`` with random weights from a generator seeded with
     ``seed`` on ``device``; raises if ``device`` is the card and none is
-    present."""
+    present. On ``"meta"`` the weights are shapes only: nothing is drawn
+    or allocated."""
     ops._check(kernels)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (NoDraws() if device.type == "meta" else
+           torch.Generator(device=device).manual_seed(seed))
     net = _module(cfg).init(cfg, gen, kernels)
     return Model(cfg=cfg, net=net, device=device, kernels=kernels)
+
+
+def decode_window(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Sliding window used for a decode shape (0 = full attention)."""
+    if shape.name == "long_500k" and cfg.family != "ssm":
+        return LONG_CONTEXT_WINDOW
+    return cfg.sliding_window
+
+
+def attn_cache_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """KV-cache length for decode: ring buffer when windowed."""
+    w = decode_window(cfg, shape)
+    return min(shape.seq_len, w) if w else shape.seq_len
+
+
+def supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is (arch x shape) in scope? (the one documented skip)."""
+    if cfg.family == "encdec" and shape.name == "long_500k":
+        return False, ("whisper context is bounded by construction "
+                       "(1500 frames / 448-token decoder); 500k-token "
+                       "decode has no analogue — documented skip")
+    if cfg.family == "cnn":
+        return False, ("paper CNN is exercised by the FL simulator, "
+                       "not LM shapes")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors for every input of (arch, shape): ``tokens`` int32
+    and the family's ``patches`` or ``frames`` for train and prefill; for
+    decode one token and the cache of ``init_cache(b, attn_cache_len)``,
+    built on meta. Nothing is allocated."""
+    b, s = shape.global_batch, shape.seq_len
+    act = dtype_of(cfg)
+
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        text = s
+        specs: dict[str, Any] = {}
+        if cfg.family == "vlm":
+            text = s - cfg.num_patches
+            specs["patches"] = spec((b, cfg.num_patches, cfg.d_model), act)
+        if cfg.family == "encdec":
+            specs["frames"] = spec((b, cfg.encoder_seq, cfg.d_model), act)
+        specs["tokens"] = spec((b, text), torch.int32)
+        return specs
+
+    # decode: one new token + a full cache of seq_len context
+    cache = _module(cfg).init_cache(cfg, b, attn_cache_len(cfg, shape),
+                                    None, device="meta")
+    return {"tokens": spec((b, 1), torch.int32), "cache": cache}

@@ -6,7 +6,9 @@ Modules hold the weights under the JAX package's names (``w``, ``b``,
 ``scale``, ``embed``, ``head``), so ``convert.lm_params_from_numpy`` maps
 a JAX parameter tree onto a state dict key by key; the arithmetic is in
 plain functions on tensors. Every module draws its initial weights from
-an explicit ``torch.Generator`` on the device the weights live on.
+an explicit ``torch.Generator`` on the device the weights live on, or,
+for a build on the meta device, from :class:`NoDraws`, which draws
+nothing.
 """
 from __future__ import annotations
 
@@ -35,10 +37,24 @@ def pdtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.param_dtype]
 
 
+class NoDraws:
+    """The generator of a build on the meta device: the same modules,
+    parameter names and shapes as a build anywhere else, with no storage
+    and nothing drawn (a meta tensor has no values)."""
+    device = torch.device("meta")
+
+
+def generator_of(gen) -> torch.Generator | None:
+    """The generator to draw from: ``gen``, or None for :class:`NoDraws`
+    (a draw on the meta device makes only a shape)."""
+    return None if isinstance(gen, NoDraws) else gen
+
+
 def normal(gen: torch.Generator, shape, std: float,
            dtype: torch.dtype) -> nn.Parameter:
     """A parameter of N(0, std^2) draws from ``gen``, on its device."""
-    w = torch.randn(shape, generator=gen, device=gen.device) * std
+    w = torch.randn(shape, generator=generator_of(gen),
+                    device=gen.device) * std
     return nn.Parameter(w.to(dtype))
 
 

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import Dense, constant, normal, pdtype_of, rms_norm
+from .layers import (Dense, constant, generator_of, normal, pdtype_of,
+                     rms_norm)
 
 
 def _dims(cfg: ModelConfig):
@@ -43,7 +44,7 @@ class SSM(nn.Module):
         self.conv_w = normal(gen, (cfg.ssm_conv, conv_ch),
                              cfg.ssm_conv ** -0.5, pdt)
         self.conv_b = constant(0.0, (conv_ch,), pdt, dev)
-        u = torch.rand((heads,), generator=gen, device=dev)
+        u = torch.rand((heads,), generator=generator_of(gen), device=dev)
         dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) +
                        math.log(0.001))
         # inverse softplus, so softplus(dt_bias) == dt at init

@@ -20,6 +20,8 @@ _PROBE = textwrap.dedent("""
         repro_torch.__path__, "repro_torch.")]
     for name in names:
         importlib.import_module(name)
+    assert {"repro_torch.launch.dryrun",
+            "repro_torch.launch.cost_analysis"} <= set(names)
     import chip_smoke
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

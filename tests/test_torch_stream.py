@@ -291,13 +291,28 @@ def test_memory_report_matches_reference():
 
 # ------------------------------------------------------------ prefetcher
 
-def _replay(corpus, calls):
+def _replay(corpus, calls, settle: bool = False):
     """Apply ``calls`` to a corpus of either package; return the stats
-    after each call (without the timings) and the cohorts taken."""
-    out, cohorts = [], []
+    after each call (without the timings) and the cohorts taken.
+
+    With ``settle``, each ``prefetch`` first waits until every staging
+    thread started before it has finished. The reference's prefetcher
+    needs it: its ring of ``depth + 1`` buffers hands a buffer out again
+    while the thread of an evicted or cancelled stage may still be
+    writing it, and ``np.take(..., out=buf)`` marks ``buf`` read-only
+    while it writes through a copy, so a second thread's take into the
+    same buffer then raises "WRITEBACKIFCOPY base is read-only". The
+    counts depend only on the order of the calls, so the wait leaves
+    them as they are."""
+    out, cohorts, started = [], [], []
     for op, *args in calls:
         if op == "prefetch":
+            if settle:
+                for done in started:
+                    done.wait()
             corpus.prefetch(*args)
+            if settle:
+                started.append(corpus.prefetcher()._pending[-1][1])
         elif op == "cohort":
             cohorts.append(_np(corpus.cohort(*args)))
         else:
@@ -330,7 +345,7 @@ def test_prefetcher_counts_equal_reference(tiny, depth, calls):
     port = HostCorpus(dict(data), prefetch_depth=depth, device="cpu")
     ref = JHost(dict(data), prefetch_depth=depth)
     got, got_cohorts = _replay(port, calls)
-    want, want_cohorts = _replay(ref, calls)
+    want, want_cohorts = _replay(ref, calls, settle=True)
     assert got == want
     for g, w in zip(got_cohorts, want_cohorts, strict=True):
         for k in g:
