@@ -181,7 +181,12 @@ Phases, each of which raises on failure (exit code non-zero):
    clients of 8 windows of 129 tokens, cohorts of 4, E = 1, K2
    aggregating: 3 rounds on the sequential server (K2 3) and on the
    pipelined engine speculating in K1's loop (K1 3, K2 3 + misses), each
-   client program one CUDA graph, equal bit for bit; K1's loop at (8,
+   client program one CUDA graph, equal bit for bit, under the config's
+   remat "full" (recomputed under ``torch.func``), the sequential
+   server's graph dropped before the pipelined engine captures, each
+   one's peak printed; one captured sequential round each under remat
+   "none" and "full" with the gradient through ``vjp`` and through
+   ``grad``, equal bit for bit, with their peaks; K1's loop at (8,
    152,064) and (4, 152,064) and K2 at (4, 218,638,336) timed in turns
    with their plain versions (and ``w @ flat``) beside their bytes
    bounds; at the reduced config the async engine (zero clock, K1 and K2
@@ -243,8 +248,24 @@ Phases, each of which raises on failure (exit code non-zero):
    and torch + "full": masks equal (a split only at a float32 tie,
    followed), loss and gradient norm within TRAIN_RTOL; internvl2 again
    with the plain judge under phase 16's rule; internvl2's lmstep at 4
-   layers sequential (K2 3) and pipelined (K1 3, K2 3 + misses), equal
-   bit for bit; one whisper lmstep round at 4 + 4 layers (K2 1).
+   layers: one captured sequential round at 4 windows a client under
+   remat "none" and "full", each with the gradient through ``vjp`` and
+   through ``grad``, equal bit for bit, with their peaks;
+   the client program at 8 windows reckoned on the meta device
+   (``launch.cost_analysis``); then at 8 windows sequential (K2 3) and
+   pipelined (K1 3, K2 3 + misses), equal bit for bit; one whisper
+   lmstep round at 4 + 4 layers (K2 1); qwen3-moe's lmstep at 1 layer
+   reckoned on the meta device at internvl2's cohort and windows, run
+   for a round only below LMSTEP_FIT_GIB (it reckons far above one
+   card).
+21. run the example twins' ``main`` on the card at their defaults:
+   ``examples/torch_quickstart.py`` (16 round lines),
+   ``torch_compare_strategies.py`` (4 rows),
+   ``torch_fl_llm_finetune.py --verify --kernels cuda`` (8 rounds in
+   scan blocks of 4, equal to the sequential server bit for bit; K1 and
+   K2 at least once a round) and ``torch_serve_lm.py --kernels cuda`` (K3, K4 and K5
+   launched; greedy tokens equal to ``--kernels torch``'s), each line
+   echoed and held to the reference example's pattern.
 20. serve gemma-7b (28 layers, d_model 3072, 16 heads of 256, vocabulary
    256,000), granite-8b (36 layers, 32 heads over 8 of 128) and
    chatglm3-6b (28 layers, 32 heads over 2 of 128) at their published
@@ -284,11 +305,13 @@ pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 ``lmstep pipelined``, ``lmstep async`` and ``lmstep scan``, and phase
 19's ``whisper mesh step``, ``whisper lmstep sequential``, ``internvl2
 mesh step``, ``internvl2 lmstep sequential``, ``internvl2 lmstep
-pipelined`` and ``qwen3-moe mesh step``; they also
+pipelined`` and ``qwen3-moe mesh step``, and phase 21's
+``torch_fl_llm_finetune example``; they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
 phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18,
-``gemma serve``, ``granite serve`` and ``chatglm3 serve``, phase 20) and
+``gemma serve``, ``granite serve`` and ``chatglm3 serve``, phase 20,
+``torch_serve_lm example``, phase 21; K5 the first and the last) and
 ``lm_shapes``, the times of phases 17, 18 and 20 at those models' shapes
 (``whisper cross decode`` among them: one query against 1,500 keys); K4 also ``profiled_launches`` and ``kernels_per_call`` at both
 serve decode shapes, from phase 8's kernel-alone profiles: the launches
@@ -311,10 +334,14 @@ Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import importlib.util
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -3462,6 +3489,18 @@ LMSTEP_PARAMS = 218_638_336
 LMSTEP_ROUNDS = 3
 LMSTEP_WINDOWS, LMSTEP_SEQ = 8, 128   # 8 windows of 129 tokens a client
 LMSTEP_REDUCED_SEQ = 32
+# phase 16's lmstep pair peak before the recompute applied under
+# torch.func (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): both
+# servers' captured graphs alive, the gradient through torch.func.grad,
+# the layers run plainly. Another protocol than this run's: printed
+# beside it, compared with nothing; remat_rounds splits the difference
+# by cause within one run
+LMSTEP_PEAK_BEFORE_GIB = 29.942
+# lmstep's client program under (remat, gradient form): "vjp" is
+# fl.strategies.pulled_grad, the port's; "grad" torch.func.grad, its
+# form before (the same bits)
+LMSTEP_VARIANTS = (("none", "grad"), ("none", "vjp"), ("full", "vjp"),
+                   ("full", "grad"))
 
 
 class CheckedJudge:
@@ -3746,13 +3785,28 @@ def lmstep_pair(cfg, n_params: int, what: str, stub=None,
         raise AssertionError(f"{what}: {model.num_params()} params at "
                              f"depth {cfg.num_layers}")
     data = _lm_data(cfg, LMSTEP_SEQ, windows)
+    gc_collect()
     torch.cuda.reset_peak_memory_stats()
     rec = RecordingJudge(fl.MaxEntropyJudge())
     seq = build_lmstep(model, cfg, data, judge=rec, stub=stub)
     ls, walls_s = _counted_rounds(seq, f"{what} sequential", LMSTEP_ROUNDS)
+    # a captured client program's private pool stays reserved while it is
+    # cached, about 1.5x its peak of live tensors, so two servers' graphs
+    # need not fit beside each other: the sequential server's goes before
+    # the pipelined engine captures its own (its records and params stay)
+    torch.cuda.synchronize()
+    seq_peak = torch.cuda.max_memory_allocated()
+    seen_seq = torch.cuda.max_memory_reserved()
+    held = torch.cuda.memory_allocated()
+    seq.drop_graphs()
+    gc_collect()
+    held -= torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     pip = build_lmstep(model, cfg, data, engine="pipelined", runtime=SPEC,
                        stub=stub)
     lp, walls_p = _counted_rounds(pip, f"{what} pipelined", LMSTEP_ROUNDS)
+    torch.cuda.synchronize()
+    pip_peak = torch.cuda.max_memory_allocated()
     equal_to_sequential(seq, pip, f"{what} pipelined vs sequential")
     misses = sum(not r["spec_hit"] for r in pip.history)
     k1_err = lmstep_verdicts(rec, pip)
@@ -3772,13 +3826,20 @@ def lmstep_pair(cfg, n_params: int, what: str, stub=None,
           f"sequential K1 {k1s} K2 {k2s}; pipelined K1 {k1p} K2 {k2p} "
           f"({misses} misses); round s sequential "
           f"{[round(w, 4) for w in walls_s]}, pipelined "
-          f"{[round(w, 4) for w in walls_p]}; peak device memory "
-          f"{_gib(torch.cuda.max_memory_allocated())}")
+          f"{[round(w, 4) for w in walls_p]}; remat {cfg.remat!r}, "
+          f"recomputed under torch.func; peak device memory "
+          f"{_gib(seq_peak)} on the sequential server (reserved "
+          f"{_gib(seen_seq)}), whose graph then held {_gib(held)} "
+          f"allocated and was dropped; {_gib(pip_peak)} on the pipelined "
+          f"engine after it ({_gib(torch.cuda.max_memory_reserved())} "
+          "reserved)")
     seen = rec.seen[0]
     del seq, pip, rec, model
     gc_collect()
     return {"launches": {f"{what} sequential": ls, f"{what} pipelined": lp},
-            "seen": seen, "k1_err": k1_err}
+            "seen": seen, "k1_err": k1_err,
+            "peak": max(seq_peak, pip_peak), "seq_peak": seq_peak,
+            "pip_peak": pip_peak, "held": held}
 
 
 def lm_training_path() -> dict:
@@ -3836,6 +3897,20 @@ def lm_training_path() -> dict:
     # (b) lmstep at qwen3-0.6b widths, depth 4: sequential vs pipelined
     pair = lmstep_pair(_lm_config(LMSTEP_LAYERS), LMSTEP_PARAMS, "lmstep")
     launches.update(pair["launches"])
+    gc_collect()
+    forms = remat_rounds(_lm_config(LMSTEP_LAYERS), LMSTEP_PARAMS, "lmstep",
+                         None, LMSTEP_WINDOWS, LMSTEP_VARIANTS)
+    print(f"lmstep at depth 4, {LMSTEP_WINDOWS} windows: pair peak "
+          f"{_gib(pair['peak'])} (sequential {_gib(pair['seq_peak'])}, "
+          f"pipelined {_gib(pair['pip_peak'])} after the sequential graph's "
+          f"{_gib(pair['held'])} were dropped); the pair before, both "
+          f"graphs alive, grad, layers plain: {LMSTEP_PEAK_BEFORE_GIB:.3f} "
+          f"GiB. One round, one graph: 'none'+grad (the client program "
+          f"before) "
+          f"{_gib(forms['none', 'grad'])}, 'none'+vjp "
+          f"{_gib(forms['none', 'vjp'])}, 'full'+vjp "
+          f"{_gib(forms['full', 'vjp'])}, 'full'+grad "
+          f"{_gib(forms['full', 'grad'])}")
     soft4, sizes4 = pair["seen"]
     kernel_times = _time_lm_kernels(soft8, sizes8, soft4, sizes4,
                                     LMSTEP_PARAMS)
@@ -4577,7 +4652,10 @@ FAM_TRAIN = {
                   3_733_467_392),
 }
 FAM_CUT = 4             # the cut-depth comparisons: 4 (+ 4) layers
-FAM_LMSTEP_WINDOWS = 4  # internvl2's lmstep: windows a client
+FAM_LMSTEP_WINDOWS = 8  # internvl2's lmstep: windows a client
+FAM_REMAT_WINDOWS = 4   # internvl2's lmstep under "none" against "full"
+WHISPER_LMSTEP_WINDOWS = 4
+LMSTEP_FIT_GIB = 70     # a reckoned lmstep runs on the card below this
 FAM_CUT_PARAMS = {"whisper": 250_163_200, "internvl2": 196_473_216}
 
 
@@ -4848,7 +4926,7 @@ def cut_comparison(name: str) -> dict:
 
 def whisper_lmstep_round() -> dict:
     """One lmstep round of whisper at its widths cut to FAM_CUT + FAM_CUT
-    layers, FAM_LMSTEP_WINDOWS windows a client, on the sequential server
+    layers, WHISPER_LMSTEP_WINDOWS windows a client, on the sequential server
     (K2 once, the client program one CUDA graph). Returns its
     launches."""
     args = train.parser().parse_args(_cut_argv("whisper"))
@@ -4858,7 +4936,7 @@ def whisper_lmstep_round() -> dict:
         raise AssertionError(f"whisper lmstep: {model.num_params()} params")
     torch.cuda.reset_peak_memory_stats()
     seq = build_lmstep(model, cfg, _lm_data(cfg, LMSTEP_SEQ,
-                                            FAM_LMSTEP_WINDOWS),
+                                            WHISPER_LMSTEP_WINDOWS),
                        judge=fl.MaxEntropyJudge())
     counts, walls = _counted_rounds(seq, "whisper lmstep sequential", 1)
     want = {**dict.fromkeys(WRAPPERS, 0), "masked_weighted_sum": 1}
@@ -4923,15 +5001,104 @@ def internvl2_training(launches: dict) -> tuple[dict, float]:
     k1_err = checked.ent_err
     del checked
     gc_collect()
-    # 4 windows a client: under vmap the tied head's ``x @ embed.T``
-    # expands each client's (896, 151,808) embedding over its windows, and
-    # two engines' graph pools hold the 256 patch positions too
     cfg4 = cfg.replace(num_layers=FAM_CUT)
+    stub = train.stub_frontend(cfg4, "random", 0, DEV)
+    out["remat"] = remat_rounds(cfg4, FAM_CUT_PARAMS["internvl2"],
+                                "internvl2 lmstep", stub, FAM_REMAT_WINDOWS,
+                                LMSTEP_VARIANTS)
+    peak, args = lmstep_reckoning(cfg4, FAM_LMSTEP_WINDOWS, stub)
+    print(f"reckoning, internvl2 lmstep at {FAM_CUT} layers, "
+          f"{FAM_LMSTEP_WINDOWS} windows: the client program's peak "
+          f"{_gib(peak)} ({_gib(args)} of it its arguments), counted on "
+          "the meta device")
+    # 8 windows a client: the soft label's pass over every window holds
+    # (4, 8, 128, 151,808) float32 logits, 2.32 GiB a copy; on an H100
+    # 80GB the client program peaks about 29 GiB above the start and its
+    # graph's pool reserves about 45 GiB, so two servers' graphs do not
+    # fit together: lmstep_pair holds one at a time
     pair = lmstep_pair(cfg4, FAM_CUT_PARAMS["internvl2"], "internvl2 lmstep",
-                       train.stub_frontend(cfg4, "random", 0, DEV),
-                       windows=FAM_LMSTEP_WINDOWS)
+                       stub, windows=FAM_LMSTEP_WINDOWS)
     launches.update(pair["launches"])
+    out["lmstep_peak"] = pair["peak"]
     return out, max(k1_err, pair["k1_err"])
+
+
+def lmstep_reckoning(cfg, windows: int, stub=None) -> tuple[int, int]:
+    """(peak, argument) bytes of lmstep's client program for one cohort of
+    4 at ``cfg``, ``windows`` windows of LMSTEP_SEQ + 1 tokens, minibatches
+    of 2, counted on the meta device by the dry-run's counter: nothing is
+    computed or allocated."""
+    model = build_model(cfg, device="meta", kernels="torch")
+    data = _lm_data(cfg, LMSTEP_SEQ, windows)
+    cohort = {k: torch.as_tensor(v[:4]).to("meta") for k, v in data.items()}
+    params = {k: v.detach() for k, v in model.params().items()}
+    stub = None if stub is None else torch.empty_like(stub, device="meta")
+    client = fl.LMWindowStrategy(fl.LocalSpec(
+        epochs=1, lr=0.01, batch_size=2)).make_client_fn(
+            train.lm_window_apply(model, cfg, stub))
+    counter, _, _ = count_call(
+        lambda: client(params, cohort, None, None, None), (params, cohort))
+    return counter.peak_bytes, counter.argument_bytes
+
+
+@contextlib.contextmanager
+def grad_form(form: str):
+    """lmstep servers built inside take their gradient as ``form``:
+    "vjp" (``fl.strategies.pulled_grad``, the port's) or "grad"
+    (``torch.func.grad``, its form before; the same bits)."""
+    pulled = fl.strategies.pulled_grad
+    if form == "grad":
+        fl.strategies.pulled_grad = torch.func.grad
+    elif form != "vjp":
+        raise ValueError(f"gradient form {form!r}")
+    try:
+        yield
+    finally:
+        fl.strategies.pulled_grad = pulled
+
+
+def remat_rounds(cfg, n_params: int, what: str, stub, windows: int,
+                 variants=(("none", "vjp"), ("full", "vjp"))) -> dict:
+    """One sequential lmstep round (the client program captured) at
+    ``cfg`` under each (remat, gradient form) of ``variants``
+    (:func:`grad_form`), ``windows`` windows a client, one server alive
+    at a time: every round's record and global params equal the first's
+    bit for bit; returns each variant's peak above the memory held
+    before it."""
+    peaks, first = {}, None
+    for remat, form in variants:
+        gc_collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg.replace(remat=remat), device=DEV,
+                            kernels="torch", seed=0)
+        if model.num_params() != n_params:
+            raise AssertionError(f"{what}: {model.num_params()} params")
+        with grad_form(form):
+            seq = build_lmstep(model, cfg, _lm_data(cfg, LMSTEP_SEQ,
+                                                    windows), stub=stub)
+        timed_round(seq, f"{what} remat {remat!r} {form}")
+        torch.cuda.synchronize()
+        peaks[remat, form] = torch.cuda.max_memory_allocated() - base
+        got = (seq.history[0], {k: v.cpu() for k, v in
+                                _leaves(seq.global_params).items()})
+        if seq.graphs_captured != 1:
+            raise AssertionError(f"{what} remat {remat!r} {form}: not "
+                                 "captured")
+        del seq, model
+        if first is None:
+            first = got
+            continue
+        if got[0] != first[0] or any(not torch.equal(v, first[1][k])
+                                     for k, v in got[1].items()):
+            raise AssertionError(f"{what}: remat {remat!r} {form}'s round "
+                                 f"differs from {variants[0]}'s")
+    gc_collect()
+    print(f"{what} at {cfg.num_layers} layers, {windows} windows a client, "
+          "one captured round, peak above the start: " + "; ".join(
+              f"remat {r!r} {f} {_gib(p)}" for (r, f), p in peaks.items())
+          + "; records and global params equal bit for bit")
+    return peaks
 
 
 def moe_training(launches: dict) -> dict:
@@ -4956,7 +5123,44 @@ def moe_training(launches: dict) -> dict:
         run["model"], run["argv"], "qwen3-moe-235b-a22b step")}
     del run
     gc_collect()
+    out["lmstep"] = moe_lmstep(cfg, launches)
     return out
+
+
+def moe_lmstep(cfg, launches: dict) -> int:
+    """qwen3-moe-235b-a22b's lmstep at 1 of 94 layers, internvl2's cohort
+    of 4 and FAM_LMSTEP_WINDOWS windows: reckoned on the meta device, and
+    run for one sequential round (K2 once) only if the reckoning is below
+    LMSTEP_FIT_GIB. Returns the reckoned peak."""
+    n = FAM_TRAIN["qwen3-moe"][1]
+    peak, args = lmstep_reckoning(cfg, FAM_LMSTEP_WINDOWS)
+    print(f"reckoning, qwen3-moe lmstep at {cfg.num_layers} of 94 layers, "
+          f"a cohort of 4, {FAM_LMSTEP_WINDOWS} windows of {LMSTEP_SEQ + 1} "
+          f"tokens: the client program's peak {_gib(peak)} counted on the "
+          f"meta device ({_gib(args)} of it its arguments); by hand, the "
+          f"global params and each client's params, momentum and gradient "
+          f"({n:,} float32 each) {_gib(13 * n * 4)}")
+    if peak >= LMSTEP_FIT_GIB * 2**30:
+        print(f"qwen3-moe lmstep: {_gib(peak)} does not fit on one card "
+              f"(run below {LMSTEP_FIT_GIB} GiB only): not run")
+        return peak
+    model = build_model(cfg, device=DEV, kernels="torch", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    seq = build_lmstep(model, cfg, _lm_data(cfg, LMSTEP_SEQ,
+                                            FAM_LMSTEP_WINDOWS))
+    counts, walls = _counted_rounds(seq, "qwen3-moe lmstep sequential", 1)
+    want = {**dict.fromkeys(WRAPPERS, 0), "masked_weighted_sum": 1}
+    if counts != want or seq.graphs_captured != 1 or \
+            not math.isfinite(seq.history[0]["entropy"]):
+        raise AssertionError(f"qwen3-moe lmstep: launches {counts}, graphs "
+                             f"{seq.graphs_captured}, {seq.history[0]}")
+    launches["qwen3-moe lmstep sequential"] = counts
+    print(f"qwen3-moe lmstep: one round {walls[0]:.4f} s (capture "
+          f"included), launches {counts}; peak device memory "
+          f"{_gib(torch.cuda.max_memory_allocated())}")
+    del seq, model
+    gc_collect()
+    return peak
 
 
 def family_training_path() -> dict:
@@ -4977,6 +5181,95 @@ def family_training_path() -> dict:
 def gc_collect() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------ 21. the example twins
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+EX_FINETUNE_ROUNDS = 8          # torch_fl_llm_finetune's default rounds
+
+
+def run_example(name: str, argv: list) -> tuple[list, dict, object]:
+    """(printed lines, launches, what ``main`` returns) of
+    ``examples/<name>.py``'s ``main(argv)``, its counts set to 0 just
+    before; echoes each line."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{name}] {line}")
+    print(f"{name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts}", flush=True)
+    return lines, counts, out
+
+
+def _lines_like(name: str, lines: list, pattern: str, count: int) -> list:
+    """The lines that match ``pattern``; raises unless there are
+    ``count``."""
+    found = [m for m in map(re.compile(pattern).fullmatch, lines) if m]
+    if len(found) != count:
+        raise AssertionError(f"{name}: {len(found)} lines like {pattern!r}, "
+                             f"expected {count}: {lines}")
+    return found
+
+
+def examples_path() -> dict:
+    """Phase 21: each example twin's ``main`` on the card at its default
+    arguments (the device the card by default): what each prints held to
+    the reference example's lines, and the kernels counted where they
+    launch: torch_fl_llm_finetune on ``--kernels cuda``, whose scan
+    blocks judge in K1's loop and aggregate in K2; torch_serve_lm on ``--kernels cuda`` runs K3, K4 and
+    K5, its greedy tokens equal to the torch route's. Returns the
+    launches by example."""
+    launches = {}
+    name = "torch_quickstart"
+    lines, launches[name], servers = run_example(name, [])
+    rounds = _lines_like(
+        name, lines, r"  round \d+: positives=(\d+)/4 entropy=(\S+) "
+        r"acc=(\S+) uplink_savings=\S+%", 16)
+    if not all(math.isfinite(float(m[2])) for m in rounds[:8]) or \
+            any(s.device.type != DEV for s in servers.values()):
+        raise AssertionError(f"{name}: {lines}")
+    _lines_like(name, lines, r"final: FedEntropy=\S+ vs FedAvg=\S+", 1)
+    name = "torch_compare_strategies"
+    lines, launches[name], servers = run_example(name, [])
+    rows = _lines_like(name, lines, r"(\w+) +([\d.]+) +([\d.]+)", 4)
+    if [m[1] for m in rows] != ["fedavg", "fedprox", "scaffold", "moon"] \
+            or len(servers) != 8:
+        raise AssertionError(f"{name}: {lines}")
+    name = "torch_fl_llm_finetune"
+    lines, launches[name], server = run_example(name, ["--verify",
+                                                       "--kernels", "cuda"])
+    _lines_like(name, lines, r"round \d+: positives=\d+/4 entropy=\S+ "
+                r"spec=(hit|miss)", EX_FINETUNE_ROUNDS)
+    _lines_like(name, lines, rf"verify: {EX_FINETUNE_ROUNDS} scan rounds == "
+                r"sequential Server \(histories and params bit-for-bit\)", 1)
+    got = launches[name]
+    if got["entropy_judge_loop"] < EX_FINETUNE_ROUNDS or \
+            got["masked_weighted_sum"] < EX_FINETUNE_ROUNDS or \
+            not server.stats()["captured_block"]:
+        raise AssertionError(f"{name}: launches {got}, {server.stats()}")
+    name = "torch_serve_lm"
+    lines, launches[name], tokens = run_example(name, ["--kernels", "cuda"])
+    if any(launches[name][k] == 0 for k in
+           ("flash_attention", "decode_attention", "ssd_chunked")):
+        raise AssertionError(f"{name}: launches {launches[name]}")
+    _, plain, plain_tokens = run_example(name, ["--kernels", "torch"])
+    if any(plain.values()) or not np.array_equal(tokens, plain_tokens):
+        raise AssertionError(f"{name}: the cuda route's tokens {tokens} "
+                             f"against the torch route's {plain_tokens}")
+    print("torch_serve_lm: the cuda route's greedy tokens equal the torch "
+          "route's")
+    return launches
 
 
 def main() -> int:
@@ -5091,8 +5384,10 @@ def main() -> int:
            "and internvl2-1b at full width and depth and of "
            f"{MOE_ARCH} at 1 of 94 layers, K1's loop judging each step; "
            "whisper's route and remat held at 4 + 4 layers; internvl2 "
-           "against the torch judge and its lmstep at 4 layers, "
-           "sequential and pipelined; a whisper lmstep round")
+           "against the torch judge and its lmstep at 4 layers (remat "
+           "'none' against 'full' at 4 windows; 8 windows sequential and "
+           "pipelined); a whisper lmstep round; qwen3-moe's lmstep "
+           "reckoned")
     t19 = time.perf_counter()
     fam_trained = family_training_path()
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
@@ -5104,7 +5399,13 @@ def main() -> int:
     fam_served.update({arch.split("-")[0]: family_serve_path(arch)
                        for arch in DENSE_ARCHS})
     fam_times.update(time_dense_kernels())
-    print(f"phase 20 took {time.perf_counter() - t20:.1f} s; phases 1-20 "
+    print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+    _phase("21. the example twins on the card: torch_quickstart, "
+           "torch_compare_strategies, torch_fl_llm_finetune --verify "
+           "--kernels cuda (K1, K2) and torch_serve_lm --kernels cuda (K3, K4, K5)")
+    t21 = time.perf_counter()
+    examples = examples_path()
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s; phases 1-21 "
           f"{time.perf_counter() - _START:.1f} s")
 
     smi = subprocess.run(
@@ -5158,7 +5459,8 @@ def main() -> int:
                 "zamba2 serve": count,
                 "qwen3-moe serve": moe_served["launches"][name], **{
                     f"{model} serve": o["launches"][name]
-                    for model, o in fam_served.items()}}
+                    for model, o in fam_served.items()},
+                "torch_serve_lm example": examples["torch_serve_lm"][name]}
             shapes = {"qwen3-moe serve": moe_times[name], **{
                 label: t for (kernel, label), t in fam_times.items()
                 if kernel == name}}
@@ -5177,7 +5479,9 @@ def main() -> int:
                 path: n[name] for path, n in streamed.items()}, **{
                 path: n[name] for path, n in trained["launches"].items()},
                 **{path: n[name] for path, n in
-                   fam_trained["launches"].items()}}
+                   fam_trained["launches"].items()},
+                "torch_fl_llm_finetune example":
+                    examples["torch_fl_llm_finetune"][name]}
             row["lm_shapes"] = {
                 label: {"shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                         "library_ms": t[2], "bound_ms": t[3],
@@ -5185,6 +5489,9 @@ def main() -> int:
                 for label, t in trained["kernels"].items()
                 if label.startswith("K1") == (name == "entropy_judge_loop")}
         if name == "ssd_chunked":
+            row["launches_by_path"] = {
+                "zamba2 serve": count,
+                "torch_serve_lm example": examples["torch_serve_lm"][name]}
             row["tensor_core_bound_ms"] = bound
             row["cuda_core_bound_ms"] = lm_times["k5_cuda_core_bound_ms"]
         kernels.append(row)

@@ -198,6 +198,13 @@ class BoundedGraphCache:
         ev.set()
         return entry
 
+    def clear(self) -> None:
+        """Drop every captured program: a program's graph holds a private
+        memory pool the size of its working set (about 1.5x its peak of
+        live tensors) for as long as it is cached."""
+        with self._lock:
+            self._entries.clear()
+
     def trim(self, maxsize: int) -> None:
         """Rebound the LRU to ``maxsize`` entries, dropping the oldest."""
         with self._lock:

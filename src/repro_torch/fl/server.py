@@ -278,6 +278,12 @@ class Server:
         it)."""
         return self._captures
 
+    def drop_graphs(self) -> None:
+        """Drop this server's captured client programs (not the process
+        cache's) and with them the memory pools their graphs hold; the
+        next round captures again."""
+        self._graphs.clear()
+
     # -------------------------------------------------------------- drift
     def _apply_drift(self) -> list:
         """Apply every drift event scheduled for the current round (before

@@ -19,7 +19,7 @@ from dataclasses import replace
 
 import numpy as np
 import torch
-from torch.func import grad, vmap
+from torch.func import vjp, vmap
 from torch.utils import _pytree as pytree
 
 from ..core.strategies import LocalSpec, client_update
@@ -158,6 +158,21 @@ class ScaffoldStrategy(_Strategy):
         }
 
 
+def pulled_grad(f):
+    """``torch.func.grad(f)``, the gradient of the scalar ``f`` in its
+    first argument, pulled back through ``torch.func.vjp``: the same bits
+    (``create_graph=True`` picks the backward formulas ``grad`` takes;
+    ``silu``'s, for one, sums in another order under grad mode) and a
+    lower peak. ``grad`` differentiates inside its own level, so its
+    ``create_graph=True`` builds a graph of the gradients that holds
+    every layer's backward tensors until the last layer is done; here
+    the pull runs after the level has closed, so nothing records it."""
+    def grad_fn(p, *args):
+        out, pull = vjp(lambda q: f(q, *args), p)
+        return pull(torch.ones_like(out), create_graph=True)[0]
+    return grad_fn
+
+
 @register("strategy", "lmstep")
 class LMWindowStrategy(_Strategy):
     """Causal-LM local fine-tuning over full token windows.
@@ -197,7 +212,7 @@ class LMWindowStrategy(_Strategy):
             per_window = tok.mean(dim=-1)
             return (per_window * bw).sum() / bw.sum().clamp(min=1e-12)
 
-        grad_fn = grad(nll)
+        grad_fn = pulled_grad(nll)
 
         def one(global_params, data, prev_p, c_loc, c_glob):
             del prev_p, c_loc, c_glob              # stateless

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30          # score of a masked key, as in the JAX package
@@ -78,28 +79,148 @@ def _key_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
 
 
 def recording() -> bool:
-    """Whether a checkpoint applies here: grad mode on and no
-    ``torch.func`` transform active (see :func:`recomputed`)."""
-    return (torch.is_grad_enabled()
-            and not torch._C._are_functorch_transforms_active())
+    """Whether autograd records here, so a recompute applies: grad mode
+    on (a ``torch.func`` ``grad`` or ``vjp`` turns it on inside its
+    function). Serving runs under ``no_grad``."""
+    return torch.is_grad_enabled()
+
+
+def _transforms() -> list[str]:
+    """The active ``torch.func`` transforms, outermost first (``"Vmap"``,
+    ``"Grad"``, ``"Jvp"``, ``"Functionalize"``)."""
+    if not torch._C._are_functorch_transforms_active():
+        return []
+    from torch._functorch.pyfunctorch import \
+        retrieve_all_functorch_interpreters
+    return [i.key().name for i in retrieve_all_functorch_interpreters()]
 
 
 def recomputed(fn, *args, context_fn=None):
     """``fn(*args)`` with its activations recomputed in the backward
-    instead of kept: a non-reentrant ``torch.utils.checkpoint``, the
-    counterpart of ``jax.checkpoint`` (``context_fn`` a selective policy
-    of ``create_selective_checkpoint_contexts``). Only while autograd
-    records: without grad mode (serving) ``fn`` runs plainly, and so it
-    does under a ``torch.func`` transform (``grad``, ``vmap``: lmstep's
-    client program), which refuses the checkpoint's saved-tensor hooks
-    and so keeps the activations the reference would recompute. The
-    values are the same either way. No body recomputed here draws random
-    numbers, so the RNG state is not saved."""
+    instead of kept, the counterpart of ``jax.checkpoint``. Only while
+    autograd records: without grad mode (serving) ``fn`` runs plainly.
+
+    * Outside any ``torch.func`` transform: a non-reentrant
+      ``torch.utils.checkpoint`` (``context_fn`` a selective policy of
+      ``create_selective_checkpoint_contexts``).
+    * Under ``vmap`` and one ``grad`` (or ``vjp``), lmstep's client
+      program, which refuses the checkpoint's saved-tensor hooks:
+      :class:`_Recompute`, which keeps only the tensors among ``args``
+      (the weights among them, flattened) and differentiates ``fn`` again
+      in the backward; there ``context_fn`` is not applied, so every
+      activation is recomputed (``models.layers.remat``'s ``"dots"``
+      recomputes as ``"full"`` does).
+    * Under ``vmap`` alone nothing records (lmstep's soft label): ``fn``
+      runs plainly.
+    * Under any other transform (``jvp``, ``functionalize``, a ``grad``
+      inside a ``grad``, ``vmap`` inside plain autograd) it raises,
+      naming it: the recompute's backward is not differentiated again,
+      and under plain autograd its gradients would sum in another order.
+
+    The values are the same on every path. No body recomputed here draws
+    random numbers (``tests/test_torch_recompute.py`` runs every family
+    under a mode that raises on a draw), so the RNG state is not saved."""
     if not recording():
         return fn(*args)
+    active = _transforms()
+    if active:
+        refused = [t for t in active if t not in ("Vmap", "Grad")]
+        if refused or active.count("Grad") > 1 or (
+                "Grad" not in active and _autograd_under(args)):
+            raise NotImplementedError(
+                f"recompute under torch.func {' > '.join(active)}"
+                f"{'' if 'Grad' in active else ' inside autograd'}: only "
+                "vmap and a single grad/vjp are supported")
+        if "Grad" not in active:        # vmap alone: nothing records
+            return fn(*args)
+        return _recompute_under_transform(fn, args)
     kw = {} if context_fn is None else {"context_fn": context_fn}
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
+
+
+def _autograd_under(args) -> bool:
+    """Whether a tensor of ``args`` is, beneath its ``vmap`` wrappers, one
+    that plain autograd records (``vmap`` inside ``backward()``)."""
+    F_ = torch._C._functorch
+    for t in tree_flatten(args)[0]:
+        if isinstance(t, torch.Tensor):
+            while F_.is_batchedtensor(t):
+                t = F_.get_unwrapped(t)
+            if t.requires_grad:
+                return True
+    return False
+
+
+class _Recompute(torch.autograd.Function):
+    """``call(*tensors)`` (a tuple of tensors) keeping only ``tensors``
+    for the backward, which runs ``call`` again under ``torch.func.vjp``.
+    ``generate_vmap_rule`` lets it run under ``vmap``, over per-client
+    weights as over shared ones. ``torch.func.grad`` differentiates with
+    ``create_graph=True``: the backward's tensors are detached, or that
+    graph would keep every recomputed activation until the gradients are
+    out (so the backward is not differentiated again, and
+    :func:`recomputed` refuses a ``grad`` inside a ``grad``). Its ``vjp``
+    takes the grad mode that autograd runs the backward in, as the ops
+    around it do: several backward formulas (``silu``'s among them)
+    switch to another sum order under grad mode."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(call, *tensors):
+        return tuple(call(*tensors))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        call, *tensors = inputs
+        ctx.call = call
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # detached: nothing here joins the gradients' own graph
+        tensors = [t.detach() for t in ctx.saved_tensors]
+        live = [i for i, t in enumerate(tensors)
+                if ctx.needs_input_grad[i + 1] and t.is_floating_point()]
+
+        def part(*diff):
+            full = list(tensors)
+            for i, t in zip(live, diff):
+                full[i] = t
+            return tuple(ctx.call(*full))
+
+        _, vjp_fn = torch.func.vjp(part, *(tensors[i] for i in live))
+        got = vjp_fn(tuple(g.detach() for g in grads))
+        out = [None] * len(tensors)
+        for i, g in zip(live, got):
+            out[i] = g
+        return (None, *out)
+
+
+def _recompute_under_transform(fn, args):
+    """``fn(*args)`` through :class:`_Recompute`: the tensors among
+    ``args`` (nested in lists, tuples and dicts) become its inputs and
+    the tensors ``fn`` returns its outputs; the rest stays as it is (a
+    layer's aux of 0.0)."""
+    leaves, spec = tree_flatten(args)
+    at = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    got = {}
+
+    def call(*tensors):
+        full = list(leaves)
+        for i, t in zip(at, tensors):
+            full[i] = t
+        outs, got["spec"] = tree_flatten(fn(*tree_unflatten(full, spec)))
+        got["rest"] = [_TENSOR if isinstance(x, torch.Tensor) else x
+                       for x in outs]
+        return [x for x in outs if isinstance(x, torch.Tensor)]
+
+    tensors = iter(_Recompute.apply(call, *(leaves[i] for i in at)))
+    outs = [next(tensors) if x is _TENSOR else x for x in got["rest"]]
+    return tree_unflatten(outs, got["spec"])
+
+
+_TENSOR = object()         # a tensor's place among a body's outputs
 
 
 def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -48,10 +48,13 @@ def _project_q(cfg: ModelConfig, p: Attention, x: torch.Tensor):
     return q
 
 
-def _project_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+def _project_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                x_v: torch.Tensor | None = None):
+    """K of ``x`` and V of ``x_v`` (default ``x``)."""
     b, s, _ = x.shape
+    x_v = x if x_v is None else x_v
     k = p.w_k(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = p.w_v(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = p.w_v(x_v).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if p.k_norm is not None:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return k, v
@@ -124,7 +127,9 @@ def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     return p.w_o(out.reshape(b, s, -1))
 
 
-def cross_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor) -> dict:
-    """The cross attention's K and V of the encoder's output (B, T, D)."""
-    k, v = _project_kv(cfg, p, enc_out)
+def cross_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor,
+             enc_v: torch.Tensor | None = None) -> dict:
+    """The cross attention's K and V of the encoder's output (B, T, D)
+    (V of ``enc_v`` when given: the same tensor, passed once a use)."""
+    k, v = _project_kv(cfg, p, enc_out, enc_v)
     return {"k": k.contiguous(), "v": v.contiguous()}

@@ -13,8 +13,8 @@ JAX package's stacked layers under ``lax.scan``; a Python loop walks them.
 ``cfg.remat == "full"`` recomputes each decoder layer in the backward
 (``layers.remat``), as the reference checkpoints its decoder scan's
 body; the encoder is never checkpointed and ``"dots"`` changes nothing
-here, as there. The same limit as the transformer's: under a
-``torch.func`` transform the layers run plainly.
+here, as there. Under lmstep's ``vmap`` and ``grad`` the recompute
+applies too (``kernels.ref.recomputed``).
 
 Cache: the decoder's self KV as the transformer's (``layers``: one
 {"k", "v"} (B, L, KH, hd) a layer, ``pos`` the slot tags, ``index``),
@@ -141,15 +141,19 @@ def hidden(model: EncDec, batch: dict, *, window: int | None = None
     enc = encode(model, batch["frames"])
     x = _dec_embed(model, batch["tokens"])
 
-    def layer(lp, x, enc):
+    def layer(lp, x, enc_v, enc_k):
         a, _ = attn.self_attention(cfg, lp.attn, lp.ln1(x), causal=True,
                                    window=window, kernels=model.kernels)
         return _cross_and_mlp(model, lp, x + a,
-                              attn.cross_kv(cfg, lp.xattn, enc))
+                              attn.cross_kv(cfg, lp.xattn, enc_k, enc_v))
 
     mode = "full" if cfg.remat == "full" else "none"
     for lp in model.dec_layers:
-        x = remat(mode, (lp,), layer, lp, x, enc)
+        # the encoder's output once a use, V's first: under torch.func the
+        # recompute hands back a gradient an input, so autograd adds each
+        # layer's V and K parts into the encoder's one at a time, in the
+        # order it does without the recompute (the same bits)
+        x = remat(mode, (lp,), layer, lp, x, enc, enc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return model.final_norm(x), aux
 

@@ -250,9 +250,14 @@ def remat(mode: str, modules, fn, *args):
     reads: the weights in them now (under ``functional_call``, the
     caller's leaves) are put back into them for the recomputation, which
     runs in the backward, after ``functional_call`` has restored the
-    module's own. Checkpoints apply only where :func:`.ref.recording`
-    says; elsewhere ``fn`` runs plainly. The values never depend on the
-    mode."""
+    module's own. The recompute is :func:`.ref.recomputed`'s: a
+    checkpoint under plain autograd, under ``vmap`` and ``grad`` (lmstep)
+    a function of the flattened weights and ``args``; without grad mode
+    ``fn`` runs plainly. Under ``torch.func`` ``"dots"`` recomputes as
+    ``"full"`` does: a dispatch-mode policy sits beneath ``vmap`` and
+    sees a ``Dense``'s product as an ``mm`` while the weights are shared
+    and as a ``bmm`` once they are per client, like attention's batched
+    products (ROADMAP F11). The values never depend on the mode."""
     if mode not in REMATS:
         raise ValueError(f"remat {mode!r}; expected one of {REMATS}")
     if mode == "none" or not recording():

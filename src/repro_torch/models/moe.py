@@ -73,7 +73,10 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, xt: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
-    f_e = F.one_hot(top_i, e).to(torch.float32).sum(1).mean(0)
+    # one-hot by comparison: ``F.one_hot`` checks its values on the host,
+    # which ``vmap`` (lmstep's client program) refuses
+    hot = top_i[..., None] == torch.arange(e, device=top_i.device)
+    f_e = hot.to(torch.float32).sum(1).mean(0)
     p_e = probs.mean(0)
     aux = e * (f_e * p_e).sum()
     return top_p, top_i, aux, probs

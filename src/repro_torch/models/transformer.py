@@ -20,11 +20,10 @@ every attention and SSD call.
 (``layers.remat``): one layer of the dense, moe and vlm stacks (its aux
 term returned, so the sum over layers is ``backbone``'s), one ssm layer,
 one hybrid group (its ssm layers and the shared attention block).
-Checkpoints apply only while autograd records outside a ``torch.func``
-transform: lmstep's client program differentiates under ``grad`` and
-``vmap``, which refuse the checkpoint's hooks, so there the layers run
-plainly and keep the activations the reference would recompute (ROADMAP
-queue 3); the values are the same.
+The recompute applies wherever autograd records: a checkpoint under
+plain autograd, and under lmstep's ``vmap`` and ``grad`` a function of
+the layer's weights and inputs (``kernels.ref.recomputed``); the values
+are the same as ``"none"``'s.
 """
 from __future__ import annotations
 

@@ -98,6 +98,17 @@ def test_bounded_graph_cache_keeps_nothing_of_a_failed_build():
     assert cache.get("a", lambda: 1) == 1
 
 
+def test_bounded_graph_cache_clear_drops_every_entry():
+    cache = BoundedGraphCache(2)
+    for key in ("a", "b"):
+        cache.get(key, lambda k=key: k)
+    cache.clear()
+    assert len(cache) == 0 and cache.captures == 2
+    made = []
+    assert cache.get("a", lambda: made.append(1) or "a") == "a"
+    assert made == [1] and cache.captures == 3
+
+
 # ------------------------------------------------------------- card only
 
 @pytest.mark.parametrize("name", ["fedentropy", "moon", "scaffold"])
@@ -114,6 +125,15 @@ def test_card_captured_route_equals_eager(cuda, tiny, name):
     assert _equal_trees(captured.state, eager.state)
     assert captured.graphs_captured == 1 and len(captured._graphs) == 1
     assert eager.graphs_captured == 0
+
+
+def test_card_drop_graphs_recaptures(cuda, tiny):
+    server = _server(tiny, "fedentropy")
+    server.round()
+    server.drop_graphs()
+    assert len(server._graphs) == 0
+    server.round()
+    assert server.graphs_captured == 2 and len(server._graphs) == 1
 
 
 def test_card_one_graph_per_key_and_the_lru_bound(cuda, tiny):

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke.py`` loads neither ``jax`` nor the JAX package ``repro``,
+"""The port stands alone: importing every ``repro_torch`` module,
+``chip_smoke.py`` and the example twins (``examples/torch_*.py``) loads
+neither ``jax`` nor the JAX package ``repro``,
 and the entry points refuse to run on the CPU in place of a missing
 card."""
 import os
@@ -23,6 +24,12 @@ _PROBE = textwrap.dedent("""
     assert {"repro_torch.launch.dryrun",
             "repro_torch.launch.cost_analysis"} <= set(names)
     import chip_smoke
+    import importlib.util
+    for name in ("torch_quickstart", "torch_compare_strategies",
+                 "torch_fl_llm_finetune", "torch_serve_lm"):
+        spec = importlib.util.spec_from_file_location(
+            name, f"examples/{name}.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print(len(names), bad)

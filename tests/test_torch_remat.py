@@ -12,8 +12,10 @@ replaced, one config a family (dense, moe, ssm, hybrid, vlm, encdec).
   within ``GRAD_RTOL`` = 1e-5 of the leaf's max |grad| and the loss
   within 1e-5 (``tests/test_torch_train.py``'s bounds; whisper's key
   bias, 0 in exact arithmetic, held absolutely as there).
-* lmstep differentiates under ``torch.func``, where the layers run
-  plainly: a ``"full"`` model gives ``"none"``'s records.
+* lmstep differentiates under ``torch.func``, where the layers are
+  recomputed by ``kernels.ref.recomputed``'s function of their weights
+  and inputs: a ``"full"`` model gives ``"none"``'s records
+  (``tests/test_torch_recompute.py`` holds every family and the memory).
 * ``make_train_step(..., donate=True)`` (the mesh engine's, the
   reference's ``donate_argnums``) equals the undonated step bit for bit
   and returns the tensors it was given.
@@ -170,9 +172,10 @@ def _lmstep_records(cfg, state):
 
 @pytest.mark.parametrize("fam", ["dense", "encdec"])
 def test_lmstep_with_remat_full_equals_none(family, fam):
-    """lmstep's client program runs under ``vmap(grad)``: the checkpoints
-    stand aside and the records and the global params are ``"none"``'s,
-    bit for bit."""
+    """lmstep's client program runs under ``vmap`` of a gradient: the
+    layers are recomputed there (``kernels.ref.recomputed`` under
+    ``torch.func``), and the records and the global params are
+    ``"none"``'s, bit for bit."""
     _, state, cfg, _ = family(fam)
     want, wp = _lmstep_records(cfg.replace(remat="none"), state)
     got, gp = _lmstep_records(cfg.replace(remat="full"), state)
