@@ -266,6 +266,28 @@ Phases, each of which raises on failure (exit code non-zero):
    K2 at least once a round) and ``torch_serve_lm.py --kernels cuda`` (K3, K4 and K5
    launched; greedy tokens equal to ``--kernels torch``'s), each line
    echoed and held to the reference example's pattern.
+22. the client axis over several shards at the main path's width (phase
+   4's fedentropy, the pipelined engine, speculation through K1's loop,
+   ``FusedAverageAggregator("cuda")``, three rounds; a sharded server
+   lays out its own copy of phase 4's corpus):
+   ``RuntimeConfig(shard=True)`` on a mesh of the one card, bit for bit
+   the unsharded pipelined engine; on
+   a mesh of three shard positions on that card (the corpus padded to
+   102 rows, 34 a block, the cohort to 12, 4 a shard, one captured graph
+   a shard), integer records equal to the sequential server's, and
+   records and params bit for bit those of a sequential server whose
+   program runs the same three blocks in turn (``blocked_server``; the
+   params' distance from the plain sequential server's is printed and
+   held within SHARD_PARAMS_RTOL: the vmap's width moves cuDNN's sums);
+   ``fedcat+maxent`` on the three-shard mesh (5 chains of 2 padded to 6
+   groups, 2 a shard), the same two checks; the round wall s of the
+   unsharded, one-card and three-shard engines in turns (the servers of
+   the checks, run on), the graphs a shard, the bytes the cohort
+   gathers copied between shard blocks a round, the corpus's
+   ``device_nbytes()`` and each block's bytes, and K1 and K2 launches,
+   each beside the card's name and power limit. With more than one card
+   visible it also runs the one-shard-per-card mesh against the
+   sequential server; on one card it says so.
 20. serve gemma-7b (28 layers, d_model 3072, 16 heads of 256, vocabulary
    256,000), granite-8b (36 layers, 32 heads over 8 of 128) and
    chatglm3-6b (28 layers, 32 heads over 2 of 128) at their published
@@ -306,7 +328,9 @@ pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 19's ``whisper mesh step``, ``whisper lmstep sequential``, ``internvl2
 mesh step``, ``internvl2 lmstep sequential``, ``internvl2 lmstep
 pipelined`` and ``qwen3-moe mesh step``, and phase 21's
-``torch_fl_llm_finetune example``; they also
+``torch_fl_llm_finetune example``, and phase 22's ``shard one-card
+mesh``, ``shard three shards`` and ``fedcat+maxent three shards``; they
+also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
 phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18,
@@ -330,6 +354,11 @@ in turns (this, DIR, DIR, this), each in a process of its own
 152,064), (4, 152,064) and (10, 151,936), and the sweep at (10, 10), µs
 a call queued on the device and host µs; it fails unless the warp
 route's packed output equals DIR's bit for bit at each of its shapes.
+``python3 chip_smoke.py --width-gap`` shows what the vmap's width alone
+does to the bits at phase 4's width (:func:`width_gap`): the client
+program on 4 and on 1 of a cohort's rows against its 10-client run, and
+the three-shard fan-out, which must equal its blocks' program bit for
+bit.
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -351,6 +380,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 # the package: this checkout's, or with --src another's (--k4-time)
 sys.path.insert(0, sys.argv[sys.argv.index("--src") + 1]
@@ -1013,15 +1043,22 @@ def compare_routes(a, b, what: str, rtol: float, ties: int = 0) -> float:
     return worst
 
 
-def main_path():
-    t0 = time.perf_counter()
-    (xtr, ytr), (xte, yte) = make_image_dataset(
+def paper_setup():
+    """Phase 4's seeded data: the CNN's params, the N = 100 corpus on the
+    card, the train split it was cut from and the test split."""
+    (xtr, ytr), test = make_image_dataset(
         num_classes=10, train_per_class=5000, hw=32, channels=3)
     parts = partition("case1", ytr, 100, 10)
     corpus = ClientCorpus.from_parts(xtr, ytr, parts, batch_multiple=50,
                                      device="cuda")
     params = cnn.init(torch.Generator().manual_seed(0), image_hw=32,
                       channels=3, num_classes=10)
+    return params, corpus, (xtr, ytr), test
+
+
+def main_path():
+    t0 = time.perf_counter()
+    params, corpus, (xtr, ytr), (xte, yte) = paper_setup()
     n_params = sum(t.numel() for layer in params.values()
                    for t in layer.values())
     print(f"corpus x{tuple(corpus['x'].shape)} {corpus.nbytes / 1e6:.1f} MB "
@@ -1200,7 +1237,9 @@ def other_compositions(params, corpus) -> dict:
 
 # ------------------------------------------------------ pipelined engine
 
-SPEC = fl.RuntimeConfig(speculate=True, spec_backend="cuda")
+# unsharded on any machine: every pipelined baseline is held bit for bit
+# to a sequential server, which a sharded run is not (the vmap's width)
+SPEC = fl.RuntimeConfig(speculate=True, spec_backend="cuda", shard=False)
 SPEC_ROUNDS = 5
 
 
@@ -1619,7 +1658,9 @@ ASYNC_KEYS = frozenset({"flush_time", "staleness", "buffer_occupancy",
 # the straggler settings of tests/golden/async_history.json
 ASYNC_STRAGGLER = fl.AsyncConfig(clock="straggler", latency_scale=1.0,
                                  straggler_frac=0.25, straggler_factor=8.0,
-                                 staleness_alpha=0.5, seed=0)
+                                 staleness_alpha=0.5, seed=0, shard=False)
+# the zero clock, unsharded on any machine (as SPEC)
+ASYNC = fl.AsyncConfig(shard=False)
 
 
 class RecordingAdmit:
@@ -1752,7 +1793,7 @@ def async_path(params, corpus, split) -> dict:
     seq = build_server("fedentropy", params, corpus, "cuda")
     run_rounds(seq, "sequential, K1 and K2")
     asy = build_server("fedentropy", params, corpus, "cuda",
-                       runtime=fl.AsyncConfig())
+                       runtime=ASYNC)
     out["async"] = run_async(asy, "async")
     equal_to_sequential(seq, asy, "async (zero clock) vs sequential",
                         flags=False, extra=ASYNC_KEYS)
@@ -1801,13 +1842,13 @@ def async_path(params, corpus, split) -> dict:
 
     _refused("async fedcat+maxent", "prepare_round",
              lambda: build_cat("fedcat+maxent", params, corpus,
-                               runtime=fl.AsyncConfig()))
+                               runtime=ASYNC))
     xtr, ytr = split
     events = drift_schedule(xtr, ytr, 100, 10, at=2, frac=0.5,
                             samples_per_client=corpus.samples_per_client)
     _refused("async with drift", "drift",
              lambda: build_server("fedentropy", params, corpus, "cuda",
-                                  runtime=fl.AsyncConfig(), drift=events))
+                                  runtime=ASYNC, drift=events))
     time_async(params, corpus)
     return out
 
@@ -1817,7 +1858,7 @@ def time_async(params, corpus) -> None:
     captured fedentropy round in turns (zero, straggler, round, round,
     straggler, zero), each on a new server for 4 flushes or rounds (the
     first captures), the median of the last two."""
-    runtimes = {"async zero-clock flush": fl.AsyncConfig(),
+    runtimes = {"async zero-clock flush": ASYNC,
                 "async straggler flush": ASYNC_STRAGGLER,
                 "fedentropy round": None}
     times = {name: [] for name in runtimes}
@@ -3927,7 +3968,7 @@ def lm_training_path() -> dict:
     _counted_rounds(seq_r, "lmstep reduced sequential", LMSTEP_ROUNDS)
     asy = build_lmstep(model_r, cfgr, data_r,
                        judge=fl.MaxEntropyJudge("cuda"), engine="async",
-                       runtime=fl.AsyncConfig())
+                       runtime=ASYNC)
     launches["lmstep async"] = run_async(asy, "lmstep async", LMSTEP_ROUNDS)
     equal_to_sequential(seq_r, asy, "lmstep async (zero clock) vs "
                         "sequential", flags=False, extra=ASYNC_KEYS)
@@ -5272,14 +5313,305 @@ def examples_path() -> dict:
     return launches
 
 
-def main() -> int:
+# ------------------------------------------------- the client axis (22)
+
+SHARD = fl.RuntimeConfig(shard=True, speculate=True, spec_backend="cuda")
+SHARD_TURN_ROUNDS = 5
+# how far a sharded run's params may part from the plain sequential
+# server's after ROUNDS rounds, relative to each leaf's largest value: the
+# vmap's width moves cuDNN's sums (an H100 80GB HBM3 at 700 W: 1.619e-03
+# for fedentropy on three shards, 4.382e-07 for fedcat+maxent; 6.041e-05
+# after one client update, chip_smoke.py --width-gap), so about three
+# times the widest gap seen; a block trained on the wrong rows parts
+# much further
+SHARD_PARAMS_RTOL = 5e-3
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def _server_device(corpus) -> torch.device:
+    """The device phase 4's servers run on, with its index."""
+    d = corpus.device
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if d.type == "cuda" else d
+
+
+def _blocked(program, n: int, axes: tuple):
+    """``program`` run on n blocks of the cohort in turn, as the fan-out's
+    shards run it, written apart from the port's fan-out: the axis-0
+    arguments padded to a multiple of n by repeating the last row (or
+    group), cut into n equal blocks, each block's outputs concatenated
+    and cut back. A sequential server with this program computes what a
+    mesh of n shards computes, on one device, in one graph."""
+    def call(*args):
+        m = pytree.tree_leaves(args[1])[0].shape[0]
+        per = -(-m // n)
+
+        def block(a, ax, j):
+            if ax != 0 or a is None:
+                return a
+            return pytree.tree_map(lambda t: torch.cat(
+                [t, t[-1:].expand((per * n - m,) + tuple(t.shape[1:]))])[
+                    j * per:(j + 1) * per], a)
+        outs = [program(*(block(a, ax, j) for a, ax in zip(args, axes)))
+                for j in range(n)]
+        return pytree.tree_map(lambda *xs: torch.cat(xs)[:m], *outs)
+    return call
+
+
+def blocked_server(server, n: int):
+    """``server`` (sequential, no round run yet) with its client program
+    run in n blocks (:func:`_blocked`)."""
+    chain = getattr(server.strategy, "prepare_round", None) is not None
+    axes = tuple(server._client_in_axes()) + ((0,) if chain else ())
+    server._eager_fn = _blocked(server._eager_fn, n, axes)
+    return server
+
+
+def _sharded_rounds(seq, blocked, sharded, label: str,
+                    k2: bool = True) -> dict:
+    """ROUNDS rounds of the sequential server ``seq`` and of ``blocked``
+    (the same with its program run in the mesh's blocks), not counted,
+    then of ``sharded`` with every count at 0 just before and read just
+    after. Raises unless ``sharded`` equals ``blocked`` bit for bit (the
+    fan-out adds nothing to what its blocks compute), its integer records
+    equal ``seq``'s, its params are within SHARD_PARAMS_RTOL of ``seq``'s
+    (the vmap's width: cuDNN sums a grouped convolution's weight gradient
+    in another order at 4 clients than at 10), and the K1 loop and K2
+    launches are a speculated round's. Returns the launches."""
+    for _ in range(ROUNDS):
+        seq.round()
+        blocked.round()
+    sharded.corpus.block_copy_nbytes = 0
+    _reset_counts()
+    for _ in range(ROUNDS):
+        sharded.round()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    equal_to_sequential(blocked, sharded, f"{label} vs the sequential "
+                        "server on the mesh's blocks")
+    for a, b in zip(seq.history, sharded.history):
+        for key in ("selected", "positive", "negative", "comm"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{label}: round {a['round']} {key}: "
+                                     f"{b[key]} != {a[key]}")
+    la, lb = _leaves(seq.global_params), _leaves(sharded.global_params)
+    gap = max(float((lb[k] - t).abs().max() / t.abs().max().clamp(
+        min=1e-30)) for k, t in la.items())
+    if not all(bool(torch.isfinite(t).all()) for t in lb.values()):
+        raise AssertionError(f"{label}: non-finite params")
+    print(f"{label}: integer records equal to the sequential server's over "
+          f"{ROUNDS} rounds; params max |diff| / max |value| per leaf "
+          f"{gap:.3e} against it, limit {SHARD_PARAMS_RTOL:g} (the blocked "
+          "sequential server's gap, bit for bit: the vmap's width, not the "
+          "fan-out)")
+    if not gap <= SHARD_PARAMS_RTOL:
+        raise AssertionError(f"{label}: params {gap:.3e} from the "
+                             f"sequential server's, over {SHARD_PARAMS_RTOL}")
+    misses = sum(not r["spec_hit"] for r in sharded.history)
+    want = {"entropy_judge_loop": ROUNDS, "entropy_judge_sweep": 0,
+            "masked_weighted_sum": (ROUNDS + misses) if k2 else 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label}: launches {launches}; expected "
+                             f"{want} ({misses} misses)")
+    return launches
+
+
+def _layout_lines(server, label: str, card: str) -> None:
+    corpus, mesh = server.corpus, server.client_mesh()
+    # each round's dispatch, a miss's re-dispatch, and the speculative
+    # dispatch of the round after the last
+    dispatches = ROUNDS + sum(not r["spec_hit"] for r in server.history) \
+        + (server._pending is not None)
+    print(f"[{card}] {label}: mesh {[str(d) for d in mesh.devices]}; "
+          f"corpus {corpus.num_clients} clients padded to "
+          f"{corpus.padded_num_clients}; device_nbytes() "
+          f"{corpus.device_nbytes()} B, block bytes "
+          f"{corpus.block_nbytes()}; graphs captured "
+          f"{server.graphs_captured} ({server.graphs_captured / len(mesh):g}"
+          f" a shard); bytes copied between shard blocks "
+          f"{corpus.block_copy_nbytes} in {dispatches} dispatches "
+          f"({corpus.block_copy_nbytes / dispatches:.0f} a dispatch)")
+
+
+def width_gap(params, corpus, card: str) -> None:
+    """``--width-gap``'s run. What a vmap's width does to the bits, on
+    one cohort of phase 4's first round, eager: the client program's
+    outputs on 4 and on 1 of its rows against the same rows of its
+    10-client run (cuDNN picks its
+    algorithms by the batch), and the three-shard fan-out against the
+    same program run on its blocks in turn (``_blocked``), which must be
+    equal bit for bit."""
+    server = build_fl("fedentropy", params, corpus)
+    idx = np.asarray(server.selector.select(10))
+    data = corpus.cohort(idx)
+    vm = server._eager_fn
+    full = vm(server.global_params, data, None, None, None)
+
+    def gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp(
+            min=1e-30)) for x, y in zip(pytree.tree_leaves(a),
+                                        pytree.tree_leaves(b)))
+    for m in (4, 1):
+        part = vm(server.global_params, {k: v[:m] for k, v in data.items()},
+                  None, None, None)
+        print(f"[{card}] vmap width: the client program on {m} of the "
+              f"cohort's rows against the same rows of its 10-client run: "
+              f"max |diff| / max |value| per leaf "
+              f"{gap(part, pytree.tree_map(lambda t: t[:m], full)):.3e}")
+    dev = _server_device(corpus)
+    fan = fl.runtime.make_sharded_client_fn(
+        cnn.apply, server.strategy.spec, server._client_in_axes(),
+        fl.make_client_mesh([dev] * 3), inner=vm, inner_axes=())
+    got = fan(server.global_params, data, None, None, None)
+    want = _blocked(vm, 3, tuple(server._client_in_axes()))(
+        server.global_params, data, None, None, None)
+    same = all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(got),
+                                                   pytree.tree_leaves(want)))
+    print(f"[{card}] the three-shard fan-out against the program on its "
+          f"blocks in turn, eager: equal bit for bit {same}; against the "
+          f"10-client run {gap(got, full):.3e}")
+    if not same:
+        raise AssertionError("the fan-out differs from its blocks' program")
+
+
+def time_sharded(servers: dict, card: str) -> None:
+    """The unsharded, one-card-mesh and three-shard pipelined engines of
+    the checks (``servers``, route -> server), run on in turns
+    (unsharded, one-card, three-shard, three-shard, one-card, unsharded),
+    SHARD_TURN_ROUNDS rounds a turn: a round's time is the host clock
+    from the previous round's return to its own (no synchronise between
+    rounds); the median of rounds 1-4 a turn (round 0 takes the dispatch
+    the turn before left pending). No round here runs under the profiler:
+    a profiled round this late in the run has crashed the process once
+    (a segmentation fault in the second of two), where the same phase
+    run alone profiled without fault."""
+    order = list(servers)
+    times = {r: [] for r in servers}
+    for route in order + order[::-1]:
+        server = servers[route]
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        for _ in range(SHARD_TURN_ROUNDS):
+            server.round()
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        gaps = np.diff(stamps)
+        times[route].append(float(statistics.median(gaps[1:])))
+        print(f"[{card}] {route}: round s "
+              f"{[round(float(g), 5) for g in gaps]}, median of rounds "
+              f"1-{SHARD_TURN_ROUNDS - 1} {times[route][-1]:.5f}",
+              flush=True)
+    print(f"[{card}] fedentropy pipelined round wall s in turns (unsharded,"
+          f" one-card mesh, three shards, three shards, one-card mesh, "
+          f"unsharded): " + ", ".join(f"{r} {[round(x, 5) for x in ts]}"
+                                      for r, ts in times.items()))
+
+
+def shard_path(params, corpus) -> dict:
+    """Phase 22: the client axis over several shards at the main path's
+    width. Returns the launches by path."""
+    card = _card_line()
+    dev = _server_device(corpus)
+    out = {}
+    # a mesh of the one card: the unsharded pipelined engine's programs
+    plain = build_fl("fedentropy", params, corpus, runtime=SPEC)
+    one = build_fl("fedentropy", params, corpus, runtime=SHARD, mesh=[dev])
+    label = "shard one-card mesh"
+    out[label] = run_speculative(plain, one, ROUNDS, label)
+    if out[label]["entropy_judge_loop"] != ROUNDS or \
+            one.graphs_captured != 1:
+        raise AssertionError(f"{label}: {out[label]}, "
+                             f"{one.graphs_captured} graphs")
+    _layout_lines(one, label, card)
+
+    # three shard positions on the card
+    seq = build_fl("fedentropy", params, corpus)
+    blocked = blocked_server(build_fl("fedentropy", params, corpus), 3)
+    three = build_fl("fedentropy", params, corpus, runtime=SHARD,
+                     mesh=[dev] * 3)
+    label = "shard three shards"
+    out[label] = _sharded_rounds(seq, blocked, three, label)
+    if three.corpus.padded_num_clients != 102 or \
+            three.graphs_captured != 3 or corpus.mesh is not None:
+        raise AssertionError(f"{label}: {three.corpus.padded_num_clients} "
+                             f"rows, {three.graphs_captured} graphs, the "
+                             f"shared corpus laid out over {corpus.mesh}")
+    _layout_lines(three, label, card)
+    print(f"[{card}] {label}: launches {out[label]}")
+    del seq, blocked
+    gc_collect()
+
+    # FedCAT's whole groups over the three shards
+    seq = build_cat("fedcat+maxent", params, corpus,
+                    judge=fl.MaxEntropyJudge())
+    blocked = blocked_server(build_cat(
+        "fedcat+maxent", params, corpus, judge=fl.MaxEntropyJudge()), 3)
+    cat = build_cat("fedcat+maxent", params, corpus,
+                    judge=fl.MaxEntropyJudge(), runtime=SHARD,
+                    mesh=[dev] * 3)
+    label = "fedcat+maxent three shards"
+    out[label] = _sharded_rounds(seq, blocked, cat, label, k2=False)
+    groups = len(cat.selector.last_groups)
+    if groups != 5 or cat.graphs_captured != 3:
+        raise AssertionError(f"{label}: {groups} groups, "
+                             f"{cat.graphs_captured} graphs")
+    _layout_lines(cat, label, card)
+    print(f"[{card}] {label}: {groups} chains of {CAT_GROUP} padded to 6 "
+          f"groups, 2 a shard; launches {out[label]}")
+    del seq, blocked, cat
+    gc_collect()
+
+    count = torch.cuda.device_count()
+    if count > 1:
+        seq = build_fl("fedentropy", params, corpus)
+        blocked = blocked_server(build_fl("fedentropy", params, corpus),
+                                 count)
+        many = build_fl("fedentropy", params, corpus, runtime=SHARD)
+        label = f"shard one shard a card ({count} cards)"
+        out[label] = _sharded_rounds(seq, blocked, many, label)
+        _layout_lines(many, label, card)
+        del seq, blocked, many
+        gc_collect()
+    else:
+        print(f"[{card}] ran on 1 card: the one-shard-per-card mesh is the "
+              "one-card mesh above; no run here spans two cards")
+    time_sharded({"unsharded": plain, "one-card mesh": one,
+                  "three shards": three}, card)
+    return out
+
+
+def width_gap_main() -> int:
+    """``--width-gap``: :func:`width_gap` on phase 4's seeded data, with
+    the card settings of :func:`main`."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    _card_settings()
+    params, corpus, _, _ = paper_setup()
+    width_gap(params, corpus, _card_line())
+    return 0
+
+
+def _card_settings() -> None:
+    """TF32 off for matmul and cuDNN, cuDNN deterministic."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    _card_settings()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -5405,7 +5737,15 @@ def main() -> int:
            "--kernels cuda (K1, K2) and torch_serve_lm --kernels cuda (K3, K4, K5)")
     t21 = time.perf_counter()
     examples = examples_path()
-    print(f"phase 21 took {time.perf_counter() - t21:.1f} s; phases 1-21 "
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s")
+    _phase("22. the client axis over several shards at the main path's "
+           "width: fedentropy pipelined on a mesh of the one card and on "
+           "three shard positions of it, fedcat+maxent's whole groups on "
+           "the three, K1's loop speculating and K2 aggregating on the "
+           "server's device")
+    t22 = time.perf_counter()
+    sharded = shard_path(*setup)
+    print(f"phase 22 took {time.perf_counter() - t22:.1f} s; phases 1-22 "
           f"{time.perf_counter() - _START:.1f} s")
 
     smi = subprocess.run(
@@ -5481,7 +5821,8 @@ def main() -> int:
                 **{path: n[name] for path, n in
                    fam_trained["launches"].items()},
                 "torch_fl_llm_finetune example":
-                    examples["torch_fl_llm_finetune"][name]}
+                    examples["torch_fl_llm_finetune"][name],
+                **{path: n[name] for path, n in sharded.items()}}
             row["lm_shapes"] = {
                 label: {"shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                         "library_ms": t[2], "bound_ms": t[3],
@@ -5684,4 +6025,5 @@ if __name__ == "__main__":
         if flag in sys.argv[:-1]:
             sys.exit(turns(sys.argv[sys.argv.index(flag) + 1], mode))
     sys.exit(k4_time() if "--k4-time" in sys.argv else
-             k1_time() if "--k1-time" in sys.argv else main())
+             k1_time() if "--k1-time" in sys.argv else
+             width_gap_main() if "--width-gap" in sys.argv else main())

@@ -12,6 +12,10 @@ round:
 * **control plane** — :meth:`sizes`, :meth:`label_histograms` and
   :meth:`label_entropy` are the per-client stats the selectors rank and
   weigh by, computed once on the host and cached.
+* **placement** — :meth:`ClientCorpus.shard` lays the client axis out
+  over a client mesh once, in equal blocks, zero rows padding an uneven
+  N (:func:`pad_client_axis`); :meth:`ClientCorpus.cohort_blocks` then
+  fills each block of a client fan-out on its shard's device.
 
 It is the *resident* plane. The streaming plane,
 :class:`repro_torch.data.stream.HostCorpus`, keeps the arrays on the host
@@ -33,7 +37,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import canonical_device, resolve_device
+
+CLIENT_AXIS = "clients"
 
 
 @dataclass(frozen=True)
@@ -153,17 +159,72 @@ def memory_report(corpus, *, host_mapped_bytes: int = 0,
     }
 
 
-def refuse_shard(corpus) -> None:
-    """The client axis over several cards is not ported: both planes'
-    ``shard`` raises."""
-    raise NotImplementedError(
-        f"{type(corpus).__name__}.shard (the client axis over several "
-        "GPUs) is not ported: ROADMAP queue 1, \"Several cards\"")
+def pad_client_axis(arrays: dict, pad: int) -> dict:
+    """Append ``pad`` zero rows to every array's client axis.
+
+    Zero rows (rather than edge repeats) make padded clients provably
+    inert: their ``w`` mask is all-zero, so even a stray gather of a
+    padded id contributes nothing to any weighted reduction. Real rows
+    are untouched — global client ids keep their positions. Identity
+    (the same tensors) at ``pad`` 0."""
+    if pad <= 0:
+        return dict(arrays)
+    return {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+            for k, v in arrays.items()}
+
+
+def mesh_devices(mesh, device) -> tuple:
+    """The devices of a client mesh (anything with ``devices``) for a
+    corpus, and its server, on ``device``: canonical, the same kind as
+    ``device`` and starting at it. Raises otherwise; nothing is moved to
+    make it fit."""
+    devs = tuple(canonical_device(d) for d in mesh.devices)
+    home = canonical_device(device)
+    if not devs or {d.type for d in devs} != {home.type}:
+        raise ValueError(
+            f"client mesh on {[str(d) for d in devs]} for {home}: a mesh "
+            "of cards serves a server on a card, a mesh of CPU shards one "
+            "on the CPU")
+    if devs[0] != home:
+        raise ValueError(f"client mesh starts at {devs[0]}, not at {home}: "
+                         "outputs are gathered on the mesh's first device, "
+                         "the server's")
+    return devs
+
+
+def group_by_device(devices, segments: list) -> list:
+    """``segments[i]`` (an int64 numpy vector) on ``devices[i]``, each
+    device's segments uploaded in one copy; returns the tensors in
+    order."""
+    slots: dict = {}
+    for i, d in enumerate(devices):
+        slots.setdefault(d, []).append(i)
+    out = [None] * len(segments)
+    for d, ids in slots.items():
+        sizes = [len(segments[i]) for i in ids]
+        flat = torch.as_tensor(np.concatenate([segments[i] for i in ids]),
+                               device=d)
+        for i, t in zip(ids, flat.split(sizes)):
+            out[i] = t
+    return out
 
 
 class ClientCorpus(Mapping):
     """Stacked client arrays resident on ``device``; see the module
-    docstring. A ``Mapping`` over its arrays."""
+    docstring. A ``Mapping`` over its arrays.
+
+    **Placement.** :meth:`shard` lays the client axis out over a client
+    mesh (:class:`repro_torch.fl.runtime.sharding.ClientMesh`): the real N
+    rows are padded with zero rows (:func:`pad_client_axis`) up to the
+    next multiple of the mesh size and split into equal blocks, block j
+    on the mesh's device j, so an uneven N (the paper's 100 on 3 or 8
+    shards) is a first-class layout, never a replicated one. The padding
+    is data-plane only — :attr:`num_clients`, :meth:`sizes`,
+    :meth:`label_histograms`, :meth:`label_entropy` and :meth:`as_numpy`
+    keep the real N, global client ids map through the padded layout
+    unchanged (padding appends), and :meth:`signature` keys captured
+    programs on the pad. The corpus's ``device`` is the mesh's first.
+    """
 
     plane = "resident"
 
@@ -175,11 +236,18 @@ class ClientCorpus(Mapping):
         if len(set(n.values())) != 1:
             raise ValueError(f"client axes disagree: {n}")
         self.device = resolve_device(device)
-        self._arrays = {k: torch.as_tensor(v, device=self.device)
-                        for k, v in arrays.items()}
+        self._blocks = [{k: torch.as_tensor(v, device=self.device)
+                         for k, v in arrays.items()}]
+        self._devices = (self.device,)
         self.transform = transform
+        self._n = int(next(iter(n.values())))   # real N
+        self._pad = 0                   # zero rows appended by shard()
+        self._mesh = None
         self._sizes: np.ndarray | None = None
         self._hists: dict = {}          # num_classes (or None) -> (N, C)
+        # bytes the cohort gathers copied from one shard block into
+        # another (a row whose corpus block is not its cohort block)
+        self.block_copy_nbytes = 0
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -188,7 +256,7 @@ class ClientCorpus(Mapping):
         """Wrap a ``stack_clients``-style dict; identity on a corpus that
         already lives on ``device``."""
         if isinstance(data, ClientCorpus):
-            if data.device != resolve_device(device):
+            if canonical_device(data.device) != canonical_device(device):
                 raise ValueError(f"corpus lives on {data.device}, "
                                  f"not {device}")
             return data
@@ -206,63 +274,159 @@ class ClientCorpus(Mapping):
 
     # ---------------------------------------------------- Mapping protocol
     def __getitem__(self, key):
-        return self._arrays[key]
+        """The (padded) array ``key``; on a sharded corpus its blocks
+        concatenated on the corpus's device (a copy)."""
+        if len(self._blocks) == 1:
+            return self._blocks[0][key]
+        return torch.cat([b[key].to(self.device) for b in self._blocks])
 
     def __iter__(self):
-        return iter(self._arrays)
+        return iter(self._blocks[0])
 
     def __len__(self):
-        return len(self._arrays)
+        return len(self._blocks[0])
 
     # ----------------------------------------------------------- metadata
     @property
     def num_clients(self) -> int:
-        return int(next(iter(self._arrays.values())).shape[0])
+        """The *real* client count N — control-plane surfaces never see
+        the padded rows :meth:`shard` may have appended."""
+        return self._n
+
+    @property
+    def padded_num_clients(self) -> int:
+        """Length of the resident client axis (N + shard pad)."""
+        return self._n + self._pad
+
+    @property
+    def client_valid(self) -> np.ndarray:
+        """(padded_N,) bool — True for real clients, False for pad rows."""
+        valid = np.zeros(self.padded_num_clients, bool)
+        valid[:self._n] = True
+        return valid
+
+    @property
+    def mesh(self):
+        """The client mesh the corpus is laid out over (None: one
+        device)."""
+        return self._mesh
 
     @property
     def samples_per_client(self) -> int:
-        return int(self._arrays["y"].shape[1]) if "y" in self._arrays \
-            else int(next(iter(self._arrays.values())).shape[1])
+        b = self._blocks[0]
+        return int(b["y"].shape[1]) if "y" in b \
+            else int(next(iter(b.values())).shape[1])
 
     def signature(self) -> tuple:
-        """Hashable (key, shape, dtype) + transform tuple."""
-        return (tuple((k, tuple(v.shape), str(v.dtype))
-                      for k, v in sorted(self._arrays.items())),
-                self.transform)
+        """Hashable (key, shape, dtype) + transform + pad tuple: a
+        padded-shard layout is never served a program captured for the
+        unpadded (or differently padded) one."""
+        shapes = tuple(
+            (k, (self.padded_num_clients,) + tuple(v.shape[1:]), str(v.dtype))
+            for k, v in sorted(self._blocks[0].items()))
+        return (shapes, self.transform, self._pad)
 
     @property
     def nbytes(self) -> int:
-        """Resident bytes of the stored corpus (storage dtype)."""
-        return storage_nbytes(self._arrays)
+        """Resident bytes of the stored corpus (storage dtype), summed
+        over every block (pad rows included)."""
+        return sum(self.block_nbytes())
+
+    def block_nbytes(self) -> list:
+        """Bytes of each shard block, in mesh order (one entry unsharded)."""
+        return [storage_nbytes(b) for b in self._blocks]
 
     def device_nbytes(self) -> int:
-        """Bytes the corpus holds on its device: all of it."""
-        return self.nbytes
+        """The most resident bytes of the corpus on any one device: the
+        whole corpus unsharded, about ``nbytes / mesh`` on a mesh of
+        distinct devices (blocks that share a device add up)."""
+        per: dict = {}
+        for d, nb in zip(self._devices, self.block_nbytes()):
+            per[d] = per.get(d, 0) + nb
+        return max(per.values())
 
     def cohort_nbytes(self, m: int) -> int:
         """Bytes a host-slice data plane would ship per round for a cohort
         of ``m`` clients (this plane ships only the ids)."""
-        return cohort_nbytes(self._arrays, self.transform, m)
+        return cohort_nbytes(self._blocks[0], self.transform, m)
+
+    def _host(self, key: str) -> np.ndarray:
+        """Host copy of the real rows of ``key``."""
+        return np.concatenate([b[key].cpu().numpy()
+                               for b in self._blocks])[:self._n]
 
     def as_numpy(self) -> dict:
-        """Host copy of the raw (untransformed) arrays, storage dtype."""
-        return {k: v.cpu().numpy() for k, v in self._arrays.items()}
+        """Host copy of the raw (untransformed) arrays, storage dtype,
+        real N rows only (shard pad rows are a placement detail)."""
+        return {k: self._host(k) for k in self._blocks[0]}
 
     def memory_report(self) -> dict:
-        """The whole corpus on the device, no host mapping or staging
-        buffers (:func:`memory_report`'s keys)."""
+        """The corpus on the device, no host mapping or staging buffers
+        (:func:`memory_report`'s keys; ``device_resident_bytes`` is
+        :meth:`device_nbytes`)."""
         return memory_report(self)
 
-    def shard(self, mesh, axis: str = "clients"):
-        refuse_shard(self)
+    # ------------------------------------------------------------ placement
+    def shard(self, mesh, axis: str = CLIENT_AXIS) -> "ClientCorpus":
+        """Lay the client axis over ``mesh`` once (idempotent; returns
+        self).
+
+        ``N % len(mesh) != 0`` is a first-class layout, not a fallback:
+        the real rows are padded with zero rows up to the next multiple
+        and split into equal blocks, block j on ``mesh.devices[j]``.
+        Re-sharding onto a mesh of another size re-derives the pad from
+        the real rows. The mesh's first device must be the corpus's, and
+        of its kind (a card or the CPU); anything else raises.
+        """
+        if axis != getattr(mesh, "axis_name", CLIENT_AXIS):
+            raise ValueError(f"mesh axis {mesh.axis_name!r}, not {axis!r}")
+        if self._mesh is not None and self._mesh == mesh:
+            return self
+        devs = mesh_devices(mesh, self.device)
+        real = {k: self._real(k) for k in self._blocks[0]}
+        size = len(devs)
+        pad = (-self._n) % size
+        padded = pad_client_axis(real, pad)
+        per = (self._n + pad) // size
+        self._blocks = [{k: v[j * per:(j + 1) * per].to(d, copy=True)
+                         for k, v in padded.items()}
+                        for j, d in enumerate(devs)]
+        self._devices = devs
+        self._pad = pad
+        self._mesh = mesh
+        return self
+
+    def laid_out(self, mesh) -> "ClientCorpus":
+        """This corpus if it is laid out over ``mesh``, else a copy laid
+        out over it (:meth:`shard`), this one untouched: a server that
+        fans out owns its layout, so servers sharing a corpus never lay it
+        out again under one another."""
+        if self._mesh is not None and self._mesh == mesh:
+            return self
+        new = object.__new__(ClientCorpus)
+        new.__dict__.update(self.__dict__)
+        new._hists, new.block_copy_nbytes = dict(self._hists), 0
+        return new.shard(mesh)
+
+    def _real(self, key: str) -> torch.Tensor:
+        """The real rows of ``key`` on the corpus's device."""
+        if len(self._blocks) == 1:
+            return self._blocks[0][key][:self._n]
+        return torch.cat([b[key].to(self.device)
+                          for b in self._blocks])[:self._n]
+
+    def put_index(self, v) -> torch.Tensor:
+        """Host index vector -> int64 tensor on the corpus's device (the
+        mesh's first); :meth:`cohort` takes it as it takes a host one."""
+        return torch.as_tensor(np.asarray(v, np.int64), device=self.device)
 
     # ------------------------------------------------- control-plane stats
     def sizes(self) -> np.ndarray:
         """Per-client real (unpadded) sample counts, from the w mask."""
         if self._sizes is None:
-            if "w" in self._arrays:
-                self._sizes = self._arrays["w"].sum(dim=1).cpu().numpy() \
-                    .astype(np.int64)
+            if "w" in self._blocks[0]:
+                self._sizes = torch.as_tensor(self._host("w")).sum(
+                    dim=1).numpy().astype(np.int64)
             else:
                 self._sizes = np.full(self.num_clients,
                                       self.samples_per_client, np.int64)
@@ -270,15 +434,13 @@ class ClientCorpus(Mapping):
 
     def label_histograms(self, num_classes: int | None = None) -> np.ndarray:
         """(N, C) weighted label counts, the ``queue`` selector's ranking
-        input: numpy over a host copy of ``y`` and ``w``, computed once
-        per ``num_classes`` and cached."""
+        input: numpy over a host copy of ``y`` and ``w`` (real rows),
+        computed once per ``num_classes`` and cached."""
         if num_classes not in self._hists:
             from ..core.pools import label_histograms
-            y = self._arrays["y"].cpu().numpy()
-            w = (self._arrays["w"].cpu().numpy() if "w" in self._arrays
-                 else None)
+            w = self._host("w") if "w" in self._blocks[0] else None
             self._hists[num_classes] = label_histograms(
-                y, w, num_classes=num_classes)
+                self._host("y"), w, num_classes=num_classes)
         return self._hists[num_classes]
 
     def label_entropy(self) -> np.ndarray:
@@ -295,9 +457,16 @@ class ClientCorpus(Mapping):
         ``active`` (optional, per-selected-client sample counts from a
         :class:`DataQueue`) masks each cohort row's ``w`` down to its
         first ``active[i]`` samples, in the same gather. Only ``idx`` and
-        ``active`` move host -> device, in one copy.
+        ``active`` move host -> device, in one copy. ``idx`` holds global
+        client ids in ``[0, N)``; on a sharded corpus each row is gathered
+        on its block's device and the cohort is assembled on the corpus's
+        device (:meth:`cohort_blocks` with one block).
         """
-        idx = np.asarray(idx, np.int64)
+        idx = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor)
+                         else idx, np.int64)
+        if len(self._blocks) > 1:
+            return self.cohort_blocks(idx, active, np.arange(len(idx))[None],
+                                      (self.device,))[0]
         if active is None:
             return self.traced_cohort(torch.as_tensor(idx,
                                                       device=self.device))
@@ -305,27 +474,104 @@ class ClientCorpus(Mapping):
                                device=self.device)
         return self.traced_cohort(both[0], both[1])
 
+    def cohort_blocks(self, idx, active, layout, devices) -> list:
+        """The cohort laid out in blocks for a client fan-out: block b
+        holds the cohort rows at positions ``layout[b]`` (an int array,
+        one row of positions in ``idx`` per block) and is filled on
+        ``devices[b]``, each row gathered on its corpus block's device and
+        copied over when the two differ (counted in
+        :attr:`block_copy_nbytes`). Each block is finished
+        (:func:`finish_cohort`) on its device; rows equal the host slice
+        bit for bit. The ids and counts cross host -> device in one copy a
+        device."""
+        idx = np.asarray(idx, np.int64)
+        layout = np.asarray(layout, np.int64)
+        ids = idx[layout]
+        if ids.size and (ids.min() < 0 or ids.max() >= self._n):
+            raise IndexError(f"client ids {idx.tolist()} out of bounds for "
+                             f"{self._n} clients")
+        act = None if active is None \
+            else np.asarray(active, np.int64)[layout]
+        per = self.padded_num_clients // len(self._blocks)
+        owner, local = ids // per, ids % per
+        devices = tuple(canonical_device(d) for d in devices)
+        # host plan: for block b, the corpus blocks its rows come from (in
+        # ascending order), the local rows each gives, and the order that
+        # puts the gathered rows back in the block's order
+        plan, segs, where = [], [], []
+        for b in range(len(layout)):
+            order = np.argsort(owner[b], kind="stable")
+            srcs = []
+            for j in np.unique(owner[b]):
+                rows = local[b][order][owner[b][order] == j]
+                srcs.append((int(j), len(segs)))
+                segs.append(rows)
+                where.append(self._devices[int(j)])
+            back = None
+            if not np.array_equal(order, np.arange(len(order))):
+                back = len(segs)
+                segs.append(np.argsort(order, kind="stable"))
+                where.append(devices[b])
+            a = None
+            if act is not None:
+                a = len(segs)
+                segs.append(act[b])
+                where.append(devices[b])
+            plan.append((srcs, back, a))
+        ts = group_by_device(where, segs)
+        row_bytes = {k: storage_nbytes({k: v}) // max(v.shape[0], 1)
+                     for k, v in self._blocks[0].items()}
+        out = []
+        for b, (srcs, back, a) in enumerate(plan):
+            dst = devices[b]
+            block = {}
+            for k in self._blocks[0]:
+                pieces = [self._blocks[j][k].index_select(0, ts[s]).to(dst)
+                          for j, s in srcs]
+                v = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+                block[k] = v if back is None else v.index_select(0, ts[back])
+            self.block_copy_nbytes += sum(
+                len(segs[s]) * sum(row_bytes.values())
+                for j, s in srcs if j != b)
+            out.append(finish_cohort(block, self.transform,
+                                     None if a is None else ts[a]))
+        return out
+
     def traced_cohort(self, idx: torch.Tensor, active=None) -> dict:
         """:meth:`cohort`'s gather on ``idx`` (and ``active``) already on
         the corpus's device: no upload and no host read, so a CUDA graph
         can capture it (the scan engine's block gathers each round's
-        cohort so). ``idx`` is int32 or int64."""
-        out = {k: v.index_select(0, idx) for k, v in self._arrays.items()}
+        cohort so). ``idx`` is int32 or int64. A sharded corpus has no
+        such one-device gather and raises."""
+        if len(self._blocks) > 1:
+            raise ValueError(
+                "a corpus sharded over a client mesh gathers through "
+                "cohort/cohort_blocks; the one-device traced gather (the "
+                "scan engine's) takes an unsharded corpus")
+        out = {k: v.index_select(0, idx) for k, v in self._blocks[0].items()}
         return finish_cohort(out, self.transform, active)
 
     def with_rows(self, clients, rows: dict) -> "ClientCorpus":
-        """A new corpus on the same device in which clients ``clients``
-        hold ``rows`` (a ``{x, y, w}`` subset of the same sample length)
-        in place of their own; keys the corpus lacks are ignored. The copy
-        and the replacement run on the device."""
-        ids = torch.as_tensor(np.asarray(clients, np.int64),
-                              device=self.device)
-        arrays = {}
-        for k, v in self._arrays.items():
-            if k in rows:
-                new = torch.as_tensor(np.asarray(rows[k]),
-                                      device=self.device).to(v.dtype)
-                v = v.index_copy(0, ids, new)
-            arrays[k] = v
-        return ClientCorpus(arrays, transform=self.transform,
-                            device=self.device)
+        """A new corpus on the same device, in the same layout (mesh and
+        pad), in which clients ``clients`` hold ``rows`` (a ``{x, y, w}``
+        subset of the same sample length) in place of their own; keys the
+        corpus lacks are ignored. The copy and the replacement run on each
+        block's device."""
+        ids = np.asarray(clients, np.int64)
+        per = self.padded_num_clients // len(self._blocks)
+        new = object.__new__(ClientCorpus)
+        new.__dict__.update(self.__dict__)
+        new._sizes, new._hists, new.block_copy_nbytes = None, {}, 0
+        new._blocks = []
+        for j, (blk, d) in enumerate(zip(self._blocks, self._devices)):
+            mine = np.nonzero(ids // per == j)[0]
+            at = torch.as_tensor(ids[mine] % per, device=d)
+            arrays = {}
+            for k, v in blk.items():
+                if k in rows and len(mine):
+                    src = np.asarray(rows[k])[mine]
+                    v = v.index_copy(0, at, torch.as_tensor(
+                        src, device=d).to(v.dtype))
+                arrays[k] = v
+            new._blocks.append(arrays)
+        return new

@@ -24,6 +24,8 @@ contract, as ``repro.data.stream`` does:
   the card) and copied to the device on a side stream while the round
   thread runs the float64 oracle. A misprediction discards it and the
   round gathers synchronously.
+* ``HostCorpus.shard(mesh)`` records a client mesh; a fan-out's cohort
+  blocks (``cohort_blocks``) are then each uploaded to its own device.
 
 Both planes key ``signature()`` on the plane, so a program captured for
 one is never replayed for the other, and both answer ``memory_report()``
@@ -43,9 +45,10 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from ..device import CAPTURE_LOCK, resolve_device
-from .corpus import (ClientCorpus, Normalize, cohort_nbytes, finish_cohort,
-                     memory_report, refuse_shard, storage_nbytes)
+from ..device import CAPTURE_LOCK, canonical_device, resolve_device
+from .corpus import (CLIENT_AXIS, ClientCorpus, Normalize, cohort_nbytes,
+                     finish_cohort, group_by_device, memory_report,
+                     mesh_devices, storage_nbytes)
 
 PLANES = ("resident", "streaming", "auto")
 
@@ -105,6 +108,9 @@ class HostCorpus(Mapping):
         self._stats_chunk = max(1, int(stats_chunk))
         self._prefetcher: CohortPrefetcher | None = None
         self._uploaded_nbytes = 0        # the latest cohort's device bytes
+        self._mesh = None
+        # bytes copied from the staged cohort's device into other blocks
+        self.block_copy_nbytes = 0
         self._hists: dict = {}
         self._sizes, self._hists[None], self._entropy = self._stream_stats()
 
@@ -115,7 +121,7 @@ class HostCorpus(Mapping):
         """Wrap a stacked dict or a resident corpus; identity on a
         ``HostCorpus`` whose cohorts go to ``device``."""
         if isinstance(data, HostCorpus):
-            if data.device != resolve_device(device):
+            if canonical_device(data.device) != canonical_device(device):
                 raise ValueError(f"corpus uploads to {data.device}, "
                                  f"not {device}")
             return data
@@ -224,8 +230,34 @@ class HostCorpus(Mapping):
                              for v in self._arrays.values()),
             staging_nbytes=0 if pf is None else pf.staging_nbytes)
 
-    def shard(self, mesh, axis: str = "clients"):
-        refuse_shard(self)
+    def shard(self, mesh, axis: str = CLIENT_AXIS) -> "HostCorpus":
+        """Record the client mesh cohort blocks are uploaded over
+        (:meth:`cohort_blocks`: each block to its own device). The corpus
+        itself never moves — streaming *is* the placement. The mesh's
+        first device must be the corpus's, and of its kind; anything else
+        raises. Returns self (idempotent)."""
+        if axis != getattr(mesh, "axis_name", CLIENT_AXIS):
+            raise ValueError(f"mesh axis {mesh.axis_name!r}, not {axis!r}")
+        mesh_devices(mesh, self.device)
+        self._mesh = mesh
+        return self
+
+    @property
+    def mesh(self):
+        """The recorded client mesh (None: one device)."""
+        return self._mesh
+
+    def laid_out(self, mesh) -> "HostCorpus":
+        """This corpus if it records ``mesh``, else a copy that does (the
+        host arrays shared, a prefetcher of its own), this one untouched;
+        see :meth:`~repro_torch.data.corpus.ClientCorpus.laid_out`."""
+        if self._mesh is not None and self._mesh == mesh:
+            return self
+        new = object.__new__(HostCorpus)
+        new.__dict__.update(self.__dict__)
+        new._prefetcher, new._uploaded_nbytes = None, 0
+        new._hists, new.block_copy_nbytes = dict(self._hists), 0
+        return new.shard(mesh)
 
     def with_rows(self, clients, rows: dict) -> "HostCorpus":
         """A new corpus in which clients ``clients`` hold ``rows`` (a
@@ -240,10 +272,12 @@ class HostCorpus(Mapping):
                 new = np.array(v)
                 new[ids] = np.asarray(rows[k], v.dtype)
                 arrays[k] = new
-        return HostCorpus(arrays, transform=self.transform,
-                          stats_chunk=self._stats_chunk,
-                          prefetch_depth=self.prefetch_depth,
-                          device=self.device)
+        new = HostCorpus(arrays, transform=self.transform,
+                         stats_chunk=self._stats_chunk,
+                         prefetch_depth=self.prefetch_depth,
+                         device=self.device)
+        new._mesh = self._mesh
+        return new
 
     # ------------------------------------------------- control-plane stats
     def _stream_stats(self):
@@ -357,6 +391,47 @@ class HostCorpus(Mapping):
             dict(staged), self.transform,
             None if act is None else torch.as_tensor(act,
                                                      device=self.device))
+
+
+    def cohort_blocks(self, idx, active, layout, devices) -> list:
+        """The cohort in blocks for a client fan-out (the resident plane's
+        :meth:`~repro_torch.data.corpus.ClientCorpus.cohort_blocks`): block
+        b holds the cohort rows at positions ``layout[b]``, gathered on the
+        host and uploaded to ``devices[b]``, then finished there. A
+        matching prefetch (of ``idx`` and ``active``) was staged on the
+        corpus's device: its blocks are copied from there instead (those
+        bound elsewhere counted in :attr:`block_copy_nbytes`)."""
+        idx = np.asarray(idx, np.int64)
+        layout = np.asarray(layout, np.int64)
+        act = None if active is None else np.asarray(active, np.int64)
+        devices = tuple(canonical_device(d) for d in devices)
+        staged = None
+        if self._prefetcher is not None:
+            staged = self._prefetcher.take(idx, act)
+        segs = [] if act is None else [act[row] for row in layout]
+        where = [] if act is None else list(devices)
+        home = canonical_device(self.device)
+        if staged is not None:
+            segs += list(layout)
+            where += [home] * len(layout)
+        ts = group_by_device(where, segs)
+        out, per_dev = [], {}
+        for b, (row, dst) in enumerate(zip(layout, devices)):
+            if staged is None:
+                host = self._gather_host(idx[row])
+                block = {k: torch.from_numpy(v).to(dst)
+                         for k, v in host.items()}
+            else:
+                at = ts[len(segs) - len(layout) + b]
+                block = {k: v.index_select(0, at).to(dst)
+                         for k, v in staged.items()}
+                if dst != home:
+                    self.block_copy_nbytes += storage_nbytes(block)
+            per_dev[dst] = per_dev.get(dst, 0) + storage_nbytes(block)
+            out.append(finish_cohort(block, self.transform,
+                                     None if act is None else ts[b]))
+        self._uploaded_nbytes = max(per_dev.values())
+        return out
 
 
 def _key(idx: np.ndarray, active: np.ndarray | None) -> tuple:

@@ -70,14 +70,16 @@ from .selectors import (CatGrouper, PoolCatGrouper, PoolSelector,
 from .server import Server, ServerConfig, total_uplink_bytes
 from .strategies import (CatChainStrategy, FedAvgStrategy, FedProxStrategy,
                          LMWindowStrategy, MoonStrategy, ScaffoldStrategy)
-from .runtime import (AsyncBufferedServer, AsyncConfig, PipelinedServer,
-                      ProcessCompileCache, RuntimeConfig, ScanConfig,
-                      ScanServer, SequentialEngine, disable_process_cache,
-                      enable_process_cache, process_cache)
+from .runtime import (AsyncBufferedServer, AsyncConfig, ClientMesh,
+                      PipelinedServer, ProcessCompileCache, RuntimeConfig,
+                      ScanConfig, ScanServer, SequentialEngine,
+                      disable_process_cache, enable_process_cache,
+                      make_client_mesh, process_cache)
 
 __all__ = [
     "Aggregator", "AsyncBufferedServer", "AsyncConfig", "BoundedGraphCache",
     "BudgetedJudge", "CatChainStrategy", "CatGrouper", "ClientCorpus",
+    "ClientMesh",
     "ClientStrategy", "ClusterAssigner", "Composition", "DataQueue",
     "DeviceConcatAggregator", "DriftEvent", "FeSEMAssigner", "FedAvgStrategy",
     "FedProxStrategy", "FusedAverageAggregator", "HostCorpus", "IFCAAssigner",
@@ -89,6 +91,7 @@ __all__ = [
     "ServerConfig", "TracedPoolSelector", "UniformSelector",
     "WeightedAverageAggregator", "argmin_assign", "as_data_plane", "build",
     "disable_capture", "disable_process_cache", "drift_schedule",
-    "enable_process_cache", "get", "names", "process_cache", "register",
+    "enable_process_cache", "get", "make_client_mesh", "names",
+    "process_cache", "register",
     "total_uplink_bytes",
 ]

@@ -75,8 +75,11 @@ def _clone(t):
 class CapturedProgram:
     """``fn`` captured into one CUDA graph at the shapes of ``args``.
 
-    ``args`` is a tuple of trees of CUDA tensors (``None`` leaves allowed);
-    ``fn`` must be pure in them — the warm-up runs change no state. Each
+    ``args`` is a tuple of trees of CUDA tensors (``None`` leaves allowed)
+    on one card, ``device`` (default: the card of the first tensor); the
+    warm-up, the capture and every replay run on that card's streams,
+    whichever card is current. ``fn`` must be pure in its arguments —
+    the warm-up runs change no state. Each
     call copies its arguments into the graph's static input buffers,
     replays the graph and returns the graph's static outputs: the next
     call overwrites them, so a caller clones whatever must outlive it.
@@ -85,19 +88,25 @@ class CapturedProgram:
     warm-up runs apart).
     """
 
-    def __init__(self, fn: Callable, args: tuple):
-        with CAPTURE_LOCK:
+    def __init__(self, fn: Callable, args: tuple, device=None):
+        if device is None:
+            device = next(t.device for t in pytree.tree_leaves(args)
+                          if isinstance(t, torch.Tensor))
+        self.device = torch.device(device)
+        with CAPTURE_LOCK, torch.cuda.device(self.device):
             self._capture(fn, args)
 
     def _capture(self, fn: Callable, args: tuple) -> None:
         inputs = pytree.tree_map(_clone, args)
         self._leaves, self._spec = pytree.tree_flatten(inputs)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        # the streams are this card's: the capture and its replays run on
+        # the device of the arguments, whichever card is current
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 fn(*inputs)
-        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.current_stream(self.device).wait_stream(side)
         counters = list(COUNTED)
         before = [c.launches for c in counters]
         t0 = time.perf_counter()
@@ -111,7 +120,8 @@ class CapturedProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(
+                    device=self.device)):
                 self._outputs = fn(*inputs)
         finally:
             if collecting:
@@ -137,7 +147,8 @@ class CapturedProgram:
                     f"argument {tuple(src.shape)} {src.dtype} does not fit "
                     f"the captured {tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for c, d in self._counted:
             c.launches += d
         return self._outputs

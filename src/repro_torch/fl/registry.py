@@ -78,7 +78,7 @@ def _instantiate(kind: str, spec: Any, config, local):
 def build(name: str, apply_fn, init_params, client_data, config,
           local=None, *, selector=None, strategy=None, judge=None,
           aggregator=None, cluster=None, engine=None, runtime=None,
-          data_plane="auto", drift=None, device="cuda"):
+          data_plane="auto", drift=None, device="cuda", mesh=None):
     """Construct a server (an *engine*) from a composition name.
 
     ``selector``/``strategy``/``judge``/``aggregator`` override single
@@ -124,7 +124,10 @@ def build(name: str, apply_fn, init_params, client_data, config,
     as in the reference). ``drift`` is a list of
     :class:`repro_torch.data.partition.DriftEvent`. ``device`` is where
     the params, the corpus and the round's tensor work live; it defaults
-    to the card and raises when there is none.
+    to the card and raises when there is none. ``mesh`` (pipelined and
+    async engines) is the client mesh ``shard=True`` fans the cohort out
+    over (:class:`repro_torch.fl.runtime.ClientMesh` or a sequence of
+    devices; default every visible card); its first device is ``device``.
     """
     from ..core.strategies import LocalSpec
     from . import runtime as _runtime  # registers engines
@@ -174,6 +177,8 @@ def build(name: str, apply_fn, init_params, client_data, config,
         kwargs["cluster"] = _instantiate("cluster", cl, config, local)
     if drift is not None:
         kwargs["drift"] = drift
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     return engine_cls(
         apply_fn, init_params, client_data, config,
         selector=_instantiate("selector", selector or comp.selector,

@@ -1,5 +1,5 @@
 """``repro_torch.fl.runtime`` — the round engines beyond the sequential
-``Server``, on one card.
+``Server``, and the client axis over several devices.
 
 The same four composition axes as :class:`repro_torch.fl.Server`, driven
 by (a) the pipelined engine, which overlaps the host-side float64
@@ -13,7 +13,10 @@ staleness-damped weights (:mod:`.async_engine`), (c) the scan engine,
 which runs blocks of R speculative rounds, each one captured CUDA graph
 on the card with K1's loop and K2 inside it, and replays the float64
 oracle once a block (:mod:`.scan_engine`), and (d) an opt-in process-wide
-cache that shares captured client programs across servers.
+cache that shares captured client programs across servers. The pipelined
+and async engines fan the cohort out over a client mesh with
+``shard=True`` (:mod:`.sharding`: one block a shard position, each on its
+own device, gathered on the server's).
 
 Build through the registry::
 
@@ -47,10 +50,16 @@ from .async_engine import (
     ArrivalClock, AsyncBufferedServer, AsyncConfig, staleness_weights,
 )
 from .scan_engine import ScanConfig, ScanServer
+from .sharding import (
+    CLIENT_AXIS, ClientMesh, client_mesh_from, make_client_mesh,
+    make_sharded_client_fn, pad_to_multiple,
+)
 
 __all__ = [
-    "ArrivalClock", "AsyncBufferedServer", "AsyncConfig",
-    "PipelinedServer", "ProcessCompileCache", "RuntimeConfig",
-    "ScanConfig", "ScanServer", "SequentialEngine", "disable_process_cache", "enable_process_cache",
-    "process_cache", "staleness_weights",
+    "ArrivalClock", "AsyncBufferedServer", "AsyncConfig", "CLIENT_AXIS",
+    "ClientMesh", "PipelinedServer", "ProcessCompileCache", "RuntimeConfig",
+    "ScanConfig", "ScanServer", "SequentialEngine", "client_mesh_from",
+    "disable_process_cache", "enable_process_cache", "make_client_mesh",
+    "make_sharded_client_fn", "pad_to_multiple", "process_cache",
+    "staleness_weights",
 ]

@@ -64,9 +64,10 @@ _CLOCKS = ("zero", "uniform", "straggler")
 class AsyncConfig:
     """Knobs for :class:`AsyncBufferedServer` (the ``engine="async"``
     counterpart of ``RuntimeConfig``); the defaults reduce to the
-    sequential ``Server`` exactly. ``shard=True`` (several cards) is not
-    ported and raises; ``donate_data`` has no counterpart in PyTorch and
-    changes nothing."""
+    sequential ``Server`` exactly. ``shard`` is forwarded to the inherited
+    pipelined fan-out (``True``, ``False`` or ``"auto"``, as
+    ``RuntimeConfig.shard``); ``donate_data`` has no counterpart in
+    PyTorch and changes nothing."""
     buffer_size: int = 0          # K screened arrivals per flush; 0=|cohort|
     staleness_alpha: float = 0.0  # (1+τ)^-α damping; 0 disables exactly
     clock: str = "zero"           # "zero" | "uniform" | "straggler"
@@ -75,7 +76,7 @@ class AsyncConfig:
     straggler_factor: float = 16.0  # stragglers' latency multiplier
     seed: int = 0                 # latency model stream (not the selector's)
     concurrency: int = 0          # in-flight update target; 0=|cohort|
-    shard: object = "auto"        # "auto" | False; True is not ported
+    shard: object = "auto"        # True | False | "auto" (>1 card)
     donate_data: bool = True      # accepted; no effect in PyTorch
 
     def __post_init__(self):
@@ -94,12 +95,7 @@ class AsyncConfig:
             raise ValueError("straggler_factor must be >= 1")
         if self.concurrency < 0:
             raise ValueError("concurrency must be >= 0 (0 = cohort size)")
-        if self.shard is True:
-            raise NotImplementedError(
-                "shard=True (the client axis over several GPUs) is not "
-                "ported: ROADMAP queue 1, \"Several cards\"; shard='auto' "
-                "runs on the server's device")
-        if self.shard not in ("auto", False):
+        if self.shard not in ("auto", False, True):
             raise ValueError(f"shard must be 'auto', False or True, got "
                              f"{self.shard!r}")
 

@@ -55,8 +55,29 @@ A drift event scheduled for round t+1 gates the speculative dispatch: the
 round keeps its speculated aggregation but feeds the oracle's verdict back
 directly, and round t+1 selects after the drift. A judge without
 ``traced()`` runs sequentially, as in the reference: that is the engine's
-semantics, not a fallback. Sharding over several cards (the reference's
-``shard_map`` fan-out) is not ported: ``shard=True`` raises.
+semantics, not a fallback.
+
+**Sharding** (``RuntimeConfig.shard``): the cohort fans out over a client
+mesh (:mod:`.sharding`), one block a shard position, each block's client
+program on its own device and the outputs gathered on the server's
+device, the mesh's first, where judgment, speculation, aggregation and the
+pools stay. The server lays its corpus out over the same mesh once, at
+construction (``corpus.laid_out``: a copy unless the corpus is laid out
+over that mesh already, so servers that share a corpus never re-lay it
+out), and each shard's block is gathered on its device. Every
+dispatch (round t+1's under speculation, and a miss's re-dispatch) goes
+through the same fan-out; the gathers are device copies ordered by stream
+events, so speculation keeps its overlap with the oracle. ``"auto"``
+shards only when more than one card is visible and the server is on a
+card; ``True`` shards over ``mesh=`` (a :class:`.sharding.ClientMesh`, a
+sequence of devices, or a :mod:`repro_torch.launch.mesh` grid reduced to
+its client rows), by default every visible card, the server's first. A
+sharded run changes the bits by the vmap's width (cuDNN and the batched
+products sum in another order over a shard's block than over the whole
+cohort), so bit-equality with the sequential server holds only
+unsharded; ``"auto"`` on several cards shards. A mesh of another kind
+of device than the server's, or not starting at the server's device,
+raises: nothing runs unsharded, or on another device, in its place.
 """
 from __future__ import annotations
 
@@ -69,9 +90,11 @@ from torch.utils import _pytree as pytree
 
 from ...core.aggregation import comm_bytes
 from ...core.judgment import JudgmentResult
+from ...device import canonical_device, visible_devices
 from ..judges import MaxEntropyJudge
 from ..registry import register
 from ..server import Server
+from .sharding import ClientMesh, client_mesh_from, make_client_mesh
 
 
 @dataclass(frozen=True)
@@ -80,14 +103,15 @@ class RuntimeConfig:
 
     ``spec_backend`` is the device judge of speculation: ``"cuda"`` (K1's
     loop, the default; on CPU tensors its plain version, as every kernel
-    wrapper) or ``"torch"`` (the plain loop). ``shard``: ``"auto"`` and
-    ``False`` run on the server's one device; ``True`` (a multi-GPU
-    client mesh) raises. ``donate_data`` has no counterpart in PyTorch
-    (the reference donates the cohort's buffers to XLA) and changes
-    nothing.
+    wrapper) or ``"torch"`` (the plain loop). ``shard``: ``True`` fans the
+    cohort out over the engine's client mesh, ``False`` runs it on the
+    server's one device, ``"auto"`` shards only when more than one card is
+    visible and the server is on a card. ``donate_data`` has no
+    counterpart in PyTorch (the reference donates the cohort's buffers to
+    XLA) and changes nothing.
     """
     speculate: bool = False        # overlap oracle judgment with round t+1
-    shard: object = "auto"         # "auto" | False; True is not ported
+    shard: object = "auto"         # True | False | "auto" (>1 card)
     spec_backend: str = "cuda"     # device judge for speculation
     donate_data: bool = True       # accepted; no effect in PyTorch
 
@@ -95,13 +119,7 @@ class RuntimeConfig:
         if self.spec_backend not in ("torch", "cuda"):
             raise ValueError(f"unknown spec_backend {self.spec_backend!r}; "
                              "expected 'torch' or 'cuda'")
-        if self.shard is True:
-            raise NotImplementedError(
-                "shard=True (the client axis over several GPUs) is not "
-                "ported: ROADMAP queue 1, \"Several cards\" (multi-GPU "
-                "shard=True on a DeviceMesh); shard='auto' runs on the "
-                "server's device")
-        if self.shard not in ("auto", False):
+        if self.shard not in ("auto", False, True):
             raise ValueError(f"shard must be 'auto', False or True, got "
                              f"{self.shard!r}")
 
@@ -163,15 +181,55 @@ class PipelinedServer(Server):
     runtime_cls = RuntimeConfig   # build() rejects mismatched configs
 
     def __init__(self, *args, runtime: RuntimeConfig | None = None,
-                 **kwargs):
+                 mesh=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.runtime = runtime or RuntimeConfig()
         if not isinstance(self.runtime, RuntimeConfig):
             raise ValueError(
                 f"{type(self).__name__} takes runtime=RuntimeConfig, got "
                 f"{type(self.runtime).__name__}")
+        self._mesh = mesh
         self._pending = None           # (sel, out) dispatched for round t+1
         self._redispatch_next = False  # previous speculation missed
+        # the corpus is laid out over the client mesh once, here (a drifted
+        # corpus keeps the layout): each cohort block is then gathered on
+        # its shard's device, and the signature the programs key on holds
+        # the pad. The server owns that layout; a caller's corpus laid out
+        # over another mesh, or none, is copied, never re-laid out. The
+        # corpus's check that the mesh starts at its device, on the same
+        # kind of device, is the server's: a mesh that cannot serve this
+        # server raises here, before a round.
+        self._fanout = None
+        if self._shard_enabled():
+            self._fanout = self.client_mesh()
+            self.corpus = self.corpus.laid_out(self._fanout)
+
+    # ---------------------------------------------------------- sharding
+    def _shard_enabled(self) -> bool:
+        if self.runtime.shard == "auto":
+            return self.device.type == "cuda" \
+                and torch.cuda.device_count() > 1
+        return bool(self.runtime.shard)
+
+    def client_mesh(self) -> ClientMesh:
+        """The client mesh sharded rounds run on: ``mesh=`` as given (a
+        sequence of devices made a mesh; a device grid of
+        :mod:`repro_torch.launch.mesh` reduced to its client rows, see
+        :func:`.sharding.client_mesh_from`), or every visible card once,
+        the server's first (the server alone on the CPU)."""
+        if self._mesh is None:
+            home = canonical_device(self.device)
+            self._mesh = make_client_mesh(
+                [home] + [d for d in visible_devices() if d != home]
+                if home.type == "cuda" else [home])
+        elif isinstance(self._mesh, (list, tuple)):
+            self._mesh = make_client_mesh(self._mesh)
+        elif not isinstance(self._mesh, ClientMesh):
+            self._mesh = client_mesh_from(self._mesh)
+        return self._mesh
+
+    def _shard_mesh(self):
+        return self._fanout
 
     # -------------------------------------------------------- speculation
     def _traced_judge_fn(self):

@@ -105,8 +105,10 @@ class ScanConfig:
 
     ``spec_backend`` is the block's device judge, ``"cuda"`` (K1's loop,
     the default) or ``"torch"`` (the plain loop, which runs the block
-    eagerly); ``shard`` and ``donate_data`` as in ``RuntimeConfig``
-    (``shard=True`` raises, ``donate_data`` changes nothing).
+    eagerly); ``shard`` and ``donate_data`` as in ``RuntimeConfig``, but
+    a block is one CUDA graph on one device, so ``shard=True`` raises
+    (ROADMAP queue 1, "the scan engine's shard=True") and ``"auto"`` runs
+    on the server's device; ``donate_data`` changes nothing.
     """
     rounds_per_scan: int = 4      # R rounds a block
     spec_backend: str = "cuda"    # the block's device judge
@@ -124,12 +126,21 @@ class ScanConfig:
         if self.params_mode not in _PARAMS_MODES:
             raise ValueError(f"unknown params_mode {self.params_mode!r}; "
                              f"expected one of {_PARAMS_MODES}")
+        if self.shard is True:
+            raise NotImplementedError(
+                "ScanConfig(shard=True): a scan block is one CUDA graph on "
+                "one device, and a block over several devices is not "
+                "ported: ROADMAP queue 1, \"the scan engine's shard=True\"; "
+                "the pipelined and async engines shard the client axis")
         self.runtime()          # spec_backend and shard, checked there
 
     def runtime(self) -> RuntimeConfig:
         """The inherited engine's config: speculation per round off (the
-        block speculates), the same device judge and shard setting."""
-        return RuntimeConfig(speculate=False, shard=self.shard,
+        block speculates), the same device judge; one device (a block is
+        one graph), so ``"auto"`` never shards."""
+        return RuntimeConfig(speculate=False,
+                             shard=False if self.shard == "auto"
+                             else self.shard,
                              spec_backend=self.spec_backend,
                              donate_data=self.donate_data)
 

@@ -200,7 +200,7 @@ class Server:
         # explicit None check: an empty cache is len() == 0, hence falsy
         return self._graphs if cache is None else cache
 
-    def _client_key(self, cohort: int, layout=None) -> tuple:
+    def _client_key(self, cohort: int, layout=None, shard=None) -> tuple:
         # a captured program fits any server with the same program and
         # argument shapes: the program (vmapped, or a strategy's own
         # chain program, tagged by the strategy's class as the reference
@@ -210,11 +210,18 @@ class Server:
         # layout. A drifted corpus keeps its signature, so its rounds
         # replay the same graph. The in-axes map the params slot on a
         # clustered server, so banked and broadcast graphs never alias.
+        # A shard's program (``shard``: its position and the mesh) keys
+        # on its position, the mesh size and its own device, so sharded
+        # and unsharded programs never alias either.
         tag = ("client" if getattr(self.strategy, "make_client_fn", None)
                is None else f"client-{type(self.strategy).__name__}")
+        where = str(self.device)
+        if shard is not None:
+            j, mesh = shard
+            where = ("shard", j, len(mesh), str(mesh.devices[j]))
         return (tag, self.apply_fn, self.strategy.spec,
                 self._client_in_axes(), self._param_sig,
-                str(self.device), self.corpus.signature(), cohort, layout)
+                where, self.corpus.signature(), cohort, layout)
 
     def _client_in_axes(self) -> tuple:
         """The strategy's vmap in-dims, with the params slot mapped (axis
@@ -224,24 +231,29 @@ class Server:
         ax = tuple(self.strategy.client_in_axes())
         return ((0,) + ax[1:]) if self.bank is not None else ax
 
-    def _capture(self, args) -> CapturedProgram:
-        program = CapturedProgram(self._eager_fn, args)
+    def _capture(self, args, device=None) -> CapturedProgram:
+        program = CapturedProgram(self._eager_fn, args, device)
         self._captures += 1
         return program
 
-    def _client_program(self, args, cohort: int, layout=None):
+    def _client_program(self, args, cohort: int, layout=None, shard=None):
         """The client program for ``args``: a captured graph on the card,
         the eager function on the CPU (shared under the same key while
-        the process cache is on) and inside ``disable_capture()``."""
-        key = self._client_key(cohort, layout)
-        if self.device.type != "cuda":
+        the process cache is on) and inside ``disable_capture()``.
+        ``shard`` (position, mesh): the program of one shard of a client
+        fan-out, on that shard's device."""
+        key = self._client_key(cohort, layout, shard)
+        device = self.device if shard is None \
+            else shard[1].devices[shard[0]]
+        if device.type != "cuda":
             cache = self._compile_cache()
             if cache is self._graphs:
                 return self._eager_fn
             return cache.get(key, lambda: self._eager_fn)
         if not capture_enabled():
             return self._eager_fn
-        return self._compile_cache().get(key, lambda: self._capture(args))
+        return self._compile_cache().get(
+            key, lambda: self._capture(args, device))
 
     def _run_cohort(self, sel, selector, global_params=None) -> dict:
         """Gather the cohort ``sel`` and run its client updates from
@@ -259,8 +271,11 @@ class Server:
         idx = np.asarray(sel)
         sched = getattr(selector, "data_schedule", None)
         active = None if sched is None else sched(sel)
-        data = self.corpus.cohort(idx, active=active)
         inputs = self.strategy.client_inputs(self.state, idx)
+        mesh = self._shard_mesh()
+        if mesh is not None:
+            return self._run_sharded(mesh, idx, selector, gp, active, inputs)
+        data = self.corpus.cohort(idx, active=active)
         prep = getattr(self.strategy, "prepare_round", None)
         if prep is None:
             args = (gp, data, *inputs)
@@ -269,6 +284,48 @@ class Server:
         args = (gp, gdata, *inputs, aux["valid"])
         out = self._client_program(args, len(idx),
                                    tuple(aux["valid"].shape))(*args)
+        return self.strategy.finish_round(out, aux)
+
+    # ------------------------------------------------------ client fan-out
+    def _shard_mesh(self):
+        """The client mesh the cohort fans out over, or None: one program
+        on the server's device (the sequential server always; the
+        pipelined engine under ``RuntimeConfig.shard``)."""
+        return None
+
+    def _run_sharded(self, mesh, idx, selector, gp, active, inputs) -> dict:
+        """The cohort over ``mesh``: padded to a multiple of the mesh
+        (last row, or last whole chain group, repeated), each block
+        gathered on its shard's device by the corpus, each shard's
+        program run there, the outputs gathered on the server's device
+        and cut back to the real cohort
+        (:func:`repro_torch.fl.runtime.sharding.make_sharded_client_fn`).
+        A chain strategy shards whole groups with their validity mask."""
+        from .runtime.sharding import (ShardBlocks, make_sharded_client_fn,
+                                       pad_to_multiple)
+        n, m = len(mesh), len(idx)
+        chain = getattr(self.strategy, "prepare_round", None) is not None
+        if chain:
+            lay = self.strategy.layout(m, selector)
+            g, k = lay["valid"].shape
+            rows = pad_to_multiple(lay["perm"], n).reshape(n, -1)
+            shape, length = (g, k), g
+        else:
+            rows = pad_to_multiple(np.arange(m), n).reshape(n, -1)
+            shape, length = None, m
+        blocks = self.corpus.cohort_blocks(idx, active, rows, mesh.devices)
+        if chain:
+            blocks = [{key: v.reshape((-1, k) + tuple(v.shape[1:]))
+                       for key, v in b.items()} for b in blocks]
+        fn = make_sharded_client_fn(
+            self.apply_fn, self.strategy.spec, self._client_in_axes(), mesh,
+            inner=self._eager_fn, inner_axes=(0,) if chain else (),
+            program=lambda j, args: self._client_program(
+                args, m, shape, (j, mesh)))
+        if not chain:
+            return fn(gp, ShardBlocks(blocks, length), *inputs)
+        aux = self.strategy.layout_aux(lay, self.device)
+        out = fn(gp, ShardBlocks(blocks, length), *inputs, aux["valid"])
         return self.strategy.finish_round(out, aux)
 
     @property

@@ -272,17 +272,13 @@ class CatChainStrategy(_Strategy):
     def from_config(cls, config, local):
         return cls(local, config.group_size)
 
-    def prepare_round(self, data: dict, selector) -> tuple[dict, dict]:
-        """Lay the gathered cohort out as (G, K, S, ...) chain groups.
-
-        The layout's indices are computed on the host from ``selector``'s
-        ``last_groups`` (in selection order when it has none) and cross to
-        the device in one copy; the relayout itself is a device
-        ``index_select``. ``aux`` carries the ``valid`` mask, the inverse
-        permutation ``inv`` and the per-device ``group_id``/``chain_pos``
-        (int32), all on the cohort's device.
-        """
-        n = data["x"].shape[0]
+    def layout(self, n: int, selector) -> dict:
+        """The chain layout of an ``n``-device cohort, on the host: the
+        groups of ``selector``'s ``last_groups`` (in selection order when
+        it has none) as ``perm`` (G, K) cohort positions (a short group
+        repeats its last member), ``valid`` (G, K), and each device's
+        ``inv`` (its place in the (G, K) layout), ``group_id`` and
+        ``chain_pos``, all int64 numpy."""
         groups = getattr(selector, "last_groups", None)
         if not groups:
             k = self.group_size
@@ -300,17 +296,41 @@ class CatChainStrategy(_Strategy):
                 valid[gi, j] = j < len(members)
             for j, m in enumerate(members):
                 gid[m], pos[m], inv[m] = gi, j, gi * k + j
-        dev = data["x"].device
+        return {"perm": perm, "valid": valid, "inv": inv, "group_id": gid,
+                "chain_pos": pos}
+
+    @staticmethod
+    def layout_aux(lay: dict, device) -> dict:
+        """A :meth:`layout` on ``device``, in one copy: ``perm`` flat,
+        ``valid`` (G, K) float32, ``inv``, and ``group_id``/``chain_pos``
+        int32."""
+        g, k = lay["valid"].shape
+        n = len(lay["inv"])
         ints = torch.as_tensor(np.concatenate(
-            [perm.reshape(-1), inv, gid, pos, valid.reshape(-1)]),
-            device=dev)
+            [lay["perm"].reshape(-1), lay["inv"], lay["group_id"],
+             lay["chain_pos"], lay["valid"].reshape(-1)]), device=device)
         flat, inv_t, gid_t, pos_t, valid_t = ints.split(
             [g * k, n, n, n, g * k])
+        return {"perm": flat, "valid": valid_t.reshape(g, k).to(
+                    torch.float32),
+                "inv": inv_t, "group_id": gid_t.to(torch.int32),
+                "chain_pos": pos_t.to(torch.int32)}
+
+    def prepare_round(self, data: dict, selector) -> tuple[dict, dict]:
+        """Lay the gathered cohort out as (G, K, S, ...) chain groups.
+
+        The layout's indices are computed on the host (:meth:`layout`) and
+        cross to the device in one copy; the relayout itself is a device
+        ``index_select``. ``aux`` carries the ``valid`` mask, the inverse
+        permutation ``inv`` and the per-device ``group_id``/``chain_pos``
+        (int32), all on the cohort's device.
+        """
+        lay = self.layout(data["x"].shape[0], selector)
+        g, k = lay["valid"].shape
+        aux = self.layout_aux(lay, data["x"].device)
+        flat = aux.pop("perm")
         gdata = {key: v.index_select(0, flat).reshape((g, k) + v.shape[1:])
                  for key, v in data.items()}
-        aux = {"valid": valid_t.reshape(g, k).to(torch.float32),
-               "inv": inv_t, "group_id": gid_t.to(torch.int32),
-               "chain_pos": pos_t.to(torch.int32)}
         return gdata, aux
 
     def make_client_fn(self, apply_fn):

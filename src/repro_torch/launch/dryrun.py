@@ -232,8 +232,9 @@ def fmt_row(r: dict) -> str:
             f"trace={r['trace_s']:.0f}s")
 
 
-SEVERAL_CARDS = ("the port runs on one card; sharding waits for several "
-                 "cards (ROADMAP queue 1, item 5)")
+SEVERAL_CARDS = ("the port runs on one card; sharding waits for the "
+                 "gradient-level mesh step over several cards (ROADMAP "
+                 "queue 1)")
 
 
 def main(argv=None) -> list:

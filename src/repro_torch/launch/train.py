@@ -7,8 +7,8 @@ Two execution paths, one composition API:
   (``core/distributed.py``): one train step a round, the judge run inside
   it on the round's full-vocabulary soft labels (``--judge-backend
   cuda``: one launch of K1's loop a step), the selector feeding the
-  step's client slots. On one card the mesh is the card: ``--mesh``
-  takes only ``host``.
+  step's client slots, on one card: ``--mesh`` takes only ``host`` (the
+  gradient-level mesh step over several cards is not ported).
 * ``--engine sequential | pipelined | async | scan``: the weights-level
   ``repro_torch.fl`` server (paper Alg. 2 with E local epochs) over the
   same token corpus, built with ``fl.build(..., engine=...)``;
@@ -16,7 +16,10 @@ Two execution paths, one composition API:
   (``--judge-backend cuda``: K1's loop), ``async`` streams updates under
   a simulated arrival clock, ``scan`` runs blocks of rounds as one CUDA
   graph. ``--judge-backend`` picks the device judge only, as the
-  reference's flag does; the aggregator is the composition's.
+  reference's flag does; the aggregator is the composition's. The
+  pipelined and async engines shard the client axis over every visible
+  card under their ``shard="auto"`` default when more than one is
+  visible, as the reference's do (``fl.runtime.sharding``).
 
 The model trains on the ``"torch"`` kernel route (the reference trains on
 its default ``"xla"`` route), or with ``--attn blockwise`` (dryrun's
@@ -523,8 +526,12 @@ def main(argv=None) -> list:
     args = parser().parse_args(argv)
     if args.mesh != "host":
         raise SystemExit(
-            f"--mesh {args.mesh}: the port runs on one card; only the "
-            "host mesh is ported (several cards: ROADMAP queue 1)")
+            f"--mesh {args.mesh}: the gradient-level step runs on one "
+            "card, only the host mesh is ported; the step over several "
+            "cards waits for "
+            "ROADMAP queue 1, \"the gradient-level mesh step over several "
+            "cards\" (the weights-level engines shard the client axis: "
+            "--engine pipelined or async)")
     cfg = train_config(args)
     device = resolve_device(args.device)
     model = build_model(cfg, device=device, kernels=args.attn,

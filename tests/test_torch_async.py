@@ -217,8 +217,10 @@ def test_async_config_validation():
                 dict(concurrency=-2), dict(shard="everywhere")):
         with pytest.raises(ValueError):
             AsyncConfig(**bad)
-    with pytest.raises(NotImplementedError, match="shard=True"):
-        AsyncConfig(shard=True)
+    for bad in ("yes", "everywhere"):
+        with pytest.raises(ValueError, match="shard must be"):
+            AsyncConfig(shard=bad)
+    assert AsyncConfig(shard=True).shard is True       # the client fan-out
     AsyncConfig(shard=False, donate_data=False)
 
 

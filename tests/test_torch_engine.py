@@ -277,10 +277,11 @@ def test_engine_registry(tiny):
 def test_runtime_config_checks():
     assert RuntimeConfig().spec_backend == "cuda"
     assert RuntimeConfig(shard=False, donate_data=False).shard is False
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        RuntimeConfig(shard=True)
+    assert RuntimeConfig(shard=True).shard is True     # the client fan-out
     with pytest.raises(ValueError, match="shard must be"):
         RuntimeConfig(shard="yes")
+    with pytest.raises(ValueError, match="shard must be"):
+        RuntimeConfig(shard="everywhere")
     with pytest.raises(ValueError, match="unknown spec_backend 'xla'"):
         RuntimeConfig(spec_backend="xla")
 

@@ -22,7 +22,9 @@ _PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert {"repro_torch.launch.dryrun",
-            "repro_torch.launch.cost_analysis"} <= set(names)
+            "repro_torch.launch.cost_analysis",
+            "repro_torch.launch.mesh",
+            "repro_torch.fl.runtime.sharding"} <= set(names)
     import chip_smoke
     import importlib.util
     for name in ("torch_quickstart", "torch_compare_strategies",

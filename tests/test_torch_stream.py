@@ -223,18 +223,25 @@ def test_save_open_memory_maps(tiny, tmp_path):
 
 
 def test_signature_keys_the_plane(tiny):
+    from repro_torch.fl.runtime import make_client_mesh
     data = tiny[1]
     dense = ClientCorpus(dict(data), device="cpu")
     host = HostCorpus(dict(data), device="cpu")
+    before = host.nbytes
     assert host.signature() != dense.signature()
     assert host.signature()[0] == "stream"
     assert as_data_plane(host, "resident", device="cpu").signature() \
         == dense.signature()
     assert plane_of(host) == "streaming" and plane_of(dense) == "resident"
     assert plane_of(dict(data)) == "resident"
+    mesh = make_client_mesh(["cpu"] * 3)
     for corpus in (host, dense):
-        with pytest.raises(NotImplementedError, match="Several cards"):
-            corpus.shard(None)
+        assert corpus.mesh is None
+        assert corpus.shard(mesh) is corpus and corpus.mesh == mesh
+    # the host corpus records the mesh and never moves; the resident one
+    # pads 8 clients to 9 on it, and its signature keys the pad
+    assert host.signature()[0] == "stream" and host.nbytes == before
+    assert dense.padded_num_clients == 9 and dense.signature()[2] == 1
 
 
 def test_as_data_plane_modes(tiny):
