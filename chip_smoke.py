@@ -412,6 +412,7 @@ from repro_torch.kernels.fused_aggregate import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     LAUNCHES_PER_CALL as K5_LAUNCHES_PER_CALL, ssd_chunked)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.cost_analysis import CostCounter  # noqa: E402
 from repro_torch.launch.dryrun import PARAM_COUNTS, count_call  # noqa: E402
 from repro_torch.launch.time_judge import judgment_ms  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -4008,7 +4009,7 @@ def lm_training_path() -> dict:
         else:
             raise AssertionError(f"{what} ran under autograd")
     return {"launches": launches, "kernels": kernel_times, **timed,
-            "peak_bytes": peak, "k1_err": k1_err}
+            "peak_bytes": peak, "k1_err": k1_err, "records": recs_k}
 
 
 # ------------------------------------------- 17. qwen3-moe-235b-a22b serve
@@ -5587,6 +5588,186 @@ def shard_path(params, corpus) -> dict:
     return out
 
 
+# ------------------------------------------ 23. the mesh step over a group
+
+MESH_RTOL = 1e-6        # the mesh step's loss and grad norm vs phase 16's
+
+
+def _mesh_moe(mesh) -> dict:
+    """(b) ``moe_block_shard_map`` on one qwen3-moe-235b-a22b layer at
+    its published widths over 4 x 1024 tokens (phase 17's prefill shape;
+    random, with a shared direction so that some are dropped) against
+    ``moe_block`` on the same module and input: every
+    assignment's kept flag equal, outputs within LOGITS_RTOL of max
+    |out|, the bytes through each all_to_all."""
+    cfg = _moe_config()
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    block = moe_mod.MoE(cfg, gen)
+    # a direction shared by every token, as hidden states share one:
+    # routing concentrates and the capacity drops assignments
+    x = torch.randn(MOE_B, MOE_S, cfg.d_model, generator=gen, device=DEV) \
+        + 3 * torch.randn(cfg.d_model, generator=gen, device=DEV)
+    kept, dispatch = [], moe_mod.dispatch
+
+    def recording(cfg_, top_i, cap):
+        row, k = dispatch(cfg_, top_i, cap)
+        kept.append(k)
+        return row, k
+
+    moe_mod.dispatch = recording
+    counter = CostCounter()
+    try:
+        with torch.no_grad():
+            want, aux_w = moe_mod.moe_block(cfg, block, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, aux_g = moe_mod.moe_block_shard_map(cfg, block, x, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with counter:
+                moe_mod.moe_block_shard_map(cfg, block, x, mesh)
+    finally:
+        moe_mod.dispatch = dispatch
+    ex = {"calls": counter.collective_counts.get("all-to-all", 0),
+          "bytes": counter.collective_bytes.get("all-to-all", 0)}
+    kept = kept[:2]
+    same = bool(torch.equal(kept[0], kept[1]))
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    aux_err = abs(float(aux_g) - float(aux_w))
+    cap = moe_mod.capacity(cfg, MOE_B * MOE_S)
+    one = cfg.num_experts * cap * cfg.d_model * 4
+    print(f"moe_block_shard_map on one {MOE_ARCH} layer (E "
+          f"{cfg.num_experts}, D {cfg.d_model}, F {cfg.d_ff}), {MOE_B} x "
+          f"{MOE_S} tokens on the (1, 1) mesh: kept assignments equal to "
+          f"moe_block's: {same} ({int(kept[0].sum())} of "
+          f"{kept[0].numel()} kept); outputs within {err:.3e} of max |out| "
+          f"(limit {LOGITS_RTOL:.0e}), bits equal "
+          f"{bool(torch.equal(got, want))}; aux gap {aux_err:.3e}; "
+          f"{ex['calls']} all_to_all of {ex['bytes'] // max(ex['calls'], 1)}"
+          f" bytes each (E x C x D x 4 = {one}); wall {wall:.4f} s")
+    if not same or err > LOGITS_RTOL or ex["calls"] != 2 or \
+            ex["bytes"] != 2 * one or aux_err > 1e-6:
+        raise AssertionError("moe_block_shard_map against moe_block")
+    return {"err": err, "a2a_bytes": one}
+
+
+def mesh_path(recs_16: list) -> dict:
+    """Phase 23: the gradient-level step over a process group of one
+    NCCL rank (a ``FileStore`` in a temporary directory), on the (1, 1)
+    ``("data", "model")`` mesh of the card. (a) ``train.main --engine
+    mesh`` at qwen3-0.6b's full width and depth, 3 steps, K1's loop
+    judging: the params replicated DTensors, the batch split on "data",
+    against phase 16's unsharded run of the same argv and seed (masks
+    equal, loss and grad norm within MESH_RTOL), K1 once a step, the
+    collectives a step counted; then one more step profiled (step s,
+    idle share) and the peak. (b) :func:`_mesh_moe`. The group is
+    destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.core.distributed import lay_out_params
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(store) / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_host_mesh()
+        print(f"process group: {dist.get_backend()}, world "
+              f"{dist.get_world_size()}; mesh {mesh}")
+        gc_collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        counter = CostCounter()
+        with counter:
+            recs = train.main(TRAIN_ARGV + ["--judge-backend", "cuda"] +
+                              _dev_argv())
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["entropy_judge_loop"] = TRAIN_STEPS
+        if launches != want:
+            raise AssertionError(f"mesh step launches {launches}")
+        worst, bits = 0.0, True
+        for a, b in zip(recs_16, recs):
+            if a["mask"] != b["mask"] or a["selected"] != b["selected"]:
+                raise AssertionError(f"step {b['step']}: mask {b['mask']}"
+                                     f", phase 16 {a['mask']}")
+            for key in ("loss", "grad_norm", "entropy"):
+                bits &= a[key] == b[key]
+                if key != "entropy":
+                    worst = max(worst, abs(a[key] - b[key]) /
+                                abs(a[key]))
+        if len(recs) != len(recs_16) or worst > MESH_RTOL:
+            raise AssertionError(f"mesh step vs phase 16: {worst:.3e}")
+        per_step = {k: v / TRAIN_STEPS
+                    for k, v in counter.collective_bytes.items()}
+        calls = {k: v / TRAIN_STEPS
+                 for k, v in counter.collective_counts.items()}
+        print(f"mesh step (train.main, 1 NCCL rank, (1, 1) mesh, params "
+              f"replicated): launches {launches}; masks and cohorts equal "
+              f"to phase 16's over {len(recs)} steps, loss and grad norm "
+              f"within {worst:.3e} relative (limit {MESH_RTOL:.0e}), loss, "
+              f"grad norm and entropy bits equal: {bits}; peak "
+              f"{_gib(peak)} ({_gib(peak - base)} above the {_gib(base)} "
+              f"held before); step s (cost counter on) "
+              f"{[round(r['seconds'], 4) for r in recs]}; collectives a "
+              f"step: bytes {per_step}, calls {calls}")
+        gc_collect()
+
+        # one more step, timed and profiled, outside train.main
+        cfg = _lm_config()
+        args = train.parser().parse_args(TRAIN_ARGV)
+        model = build_model(cfg, device=DEV, kernels="torch", seed=args.seed)
+        corpus, idx = train.build_fl_corpus(cfg, args.logical_clients,
+                                            args.case, args.seq_len,
+                                            args.seed)
+        rows = np.concatenate([corpus[idx[c][:args.per_client_batch]]
+                               for c in range(args.clients)])
+        batch = {"tokens": torch.from_numpy(rows).to(DEV)}
+        opt = sgd(lr=args.lr, momentum=0.5)
+        step = make_train_step(model, opt,
+                               FedSpec(num_clients=args.clients),
+                               judge_fn=fl.MaxEntropyJudge("cuda").traced(),
+                               donate=True)
+        from torch.profiler import ProfilerActivity, profile
+        with use_mesh(mesh):
+            params = lay_out_params({k: v.detach() for k, v in
+                                     model.params().items()}, mesh)
+            state = opt.init(params)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, _ = step(params, state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, state, _ = step(params, state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        busy = _busy_s(prof)
+        print(f"mesh step at full width outside train.main: "
+              f"{[round(w, 4) for w in walls]} s (median of the last 2 "
+              f"{statistics.median(walls[1:]):.4f} s); profiled: wall "
+              f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
+              f"{1 - busy / wall:.3f} (profiler on)")
+        del params, state, step, model
+        gc_collect()
+        moe = _mesh_moe(mesh)
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(store, ignore_errors=True)
+    return {"launches": {"lm mesh step (1-rank NCCL group)": launches},
+            "step_s": statistics.median(walls[1:]), "idle": 1 - busy / wall,
+            "peak_bytes": peak, "collective_bytes": per_step, **moe}
+
+
 def width_gap_main() -> int:
     """``--width-gap``: :func:`width_gap` on phase 4's seeded data, with
     the card settings of :func:`main`."""
@@ -5596,6 +5777,23 @@ def width_gap_main() -> int:
     _card_settings()
     params, corpus, _, _ = paper_setup()
     width_gap(params, corpus, _card_line())
+    return 0
+
+
+def mesh_step_main() -> int:
+    """``--mesh-step``: phase 23 alone, after phase 16's unsharded
+    ``train.main`` run of the same argv that it is held against, with
+    the card settings of :func:`main`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    _card_settings()
+    _build.build()
+    recs = train.main(TRAIN_ARGV + ["--judge-backend", "cuda"] +
+                      _dev_argv())
+    gc_collect()
+    mesh_path(recs)
+    print(_card_line())
     return 0
 
 
@@ -5747,6 +5945,15 @@ def main() -> int:
     sharded = shard_path(*setup)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s; phases 1-22 "
           f"{time.perf_counter() - _START:.1f} s")
+    _phase(f"23. the gradient-level step over a process group: one NCCL "
+           f"rank, the (1, 1) mesh of the card; train.main --engine mesh "
+           f"at qwen3-0.6b's full width and depth against phase 16's "
+           f"unsharded run, and moe_block_shard_map on one {MOE_ARCH} "
+           f"layer against moe_block")
+    t23 = time.perf_counter()
+    meshed = mesh_path(trained["records"])
+    print(f"phase 23 took {time.perf_counter() - t23:.1f} s; phases 1-23 "
+          f"{time.perf_counter() - _START:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5822,7 +6029,9 @@ def main() -> int:
                    fam_trained["launches"].items()},
                 "torch_fl_llm_finetune example":
                     examples["torch_fl_llm_finetune"][name],
-                **{path: n[name] for path, n in sharded.items()}}
+                **{path: n[name] for path, n in sharded.items()},
+                **{path: n[name] for path, n in
+                   meshed["launches"].items()}}
             row["lm_shapes"] = {
                 label: {"shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                         "library_ms": t[2], "bound_ms": t[3],
@@ -6026,4 +6235,5 @@ if __name__ == "__main__":
             sys.exit(turns(sys.argv[sys.argv.index(flag) + 1], mode))
     sys.exit(k4_time() if "--k4-time" in sys.argv else
              k1_time() if "--k1-time" in sys.argv else
-             width_gap_main() if "--width-gap" in sys.argv else main())
+             width_gap_main() if "--width-gap" in sys.argv else
+             mesh_step_main() if "--mesh-step" in sys.argv else main())

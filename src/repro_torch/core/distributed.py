@@ -1,5 +1,5 @@
 """FedEntropy at the gradient level: the paper's round as ONE train step —
-the one-card part of ``repro.core.distributed``.
+the port of ``repro.core.distributed``, on one card or over a mesh.
 
 The global batch is tiled into M client groups along the batch axis
 (client-major rows: rows ``[i * B/M, (i + 1) * B/M)`` are client i's).
@@ -23,16 +23,31 @@ autograd the detached soft labels are ordinary tensors. The reference
 calls its judge inside ``jax.grad`` under ``stop_gradient``.
 
 Soft labels stay full-vocabulary (paper Eq. 2), over the padded vocab:
-the masked slots carry probability 0. On one card the reference's
-``shard_act`` constraints are the identity; the logical-axis rules of its
-meshes wait for the several-card slice.
+the masked slots carry probability 0.
+
+Over a mesh (the step called under ``sharding.ctx.use_mesh(mesh)``, one
+process a rank of a ``torch.distributed`` group): the params are
+DTensors in whatever layout the caller gave (:func:`lay_out_params`:
+replicated, as the reference's ``run_mesh_engine`` leaves them, or by
+:func:`param_logical_axes`, the dry-run's), the batch is laid out on the
+``"batch"`` rule (``batch_logical_axes``), every op of the model runs on
+DTensors and the ``shard_act`` sites redistribute the hot activations,
+as the reference's ``with_sharding_constraint`` under pjit. The soft
+labels are gathered to a plain tensor on every rank, so the judge (K1's
+loop on the ``"cuda"`` route) reads raw device memory; every rank judges
+the same (M, V) and gets the same mask, which re-enters as a replicated
+DTensor. Each gradient is redistributed to its parameter's placement
+(an all-reduce or a reduce-scatter of the partial sums) before the
+update; the metrics come back as plain, replicated tensors. Outside a
+context the step is the one-card step above, op for op.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -40,6 +55,8 @@ from ..models.api import Model
 from ..models.layers import logits_apply
 from ..models.transformer import token_nll
 from ..optim import Optimizer
+from ..sharding.ctx import current, shard_act
+from ..sharding.specs import distribute_full, tree_shardings
 from .judgment import judge
 
 
@@ -91,14 +108,15 @@ def chunked_head_stats(cfg: ModelConfig, tok_params: dict, h: torch.Tensor,
         nll_sum, soft_sum = nll_sum + n, soft_sum + p
     per_client = nll_sum / ((s - 1) * (b // m))
     soft = soft_sum / (s * (b // m))
-    return per_client, soft
+    return per_client, shard_act(soft, ("fl_clients", "vocab"))
 
 
 def per_client_soft_labels(logits: torch.Tensor, m: int) -> torch.Tensor:
     """(B, S, V) -> (M, V) mean softmax per client group (paper Eq. 2)."""
     b, s, v = logits.shape
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    return probs.reshape(m, (b // m) * s, v).mean(dim=1)
+    soft = probs.reshape(m, (b // m) * s, v).mean(dim=1)
+    return shard_act(soft, ("fl_clients", "vocab"))
 
 
 def _per_client_loss(cfg: ModelConfig, logits, tokens, m: int):
@@ -110,6 +128,86 @@ def _per_client_loss(cfg: ModelConfig, logits, tokens, m: int):
 def _grad_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
                           for g in grads.values()))
+
+
+# ------------------------------------------------------------------ mesh
+
+def _full(x):
+    """The whole value of a DTensor as a plain tensor on every rank (a
+    gather or a reduction where it is sharded or partial); anything else
+    as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def replicated(x: torch.Tensor, mesh) -> DTensor:
+    """A plain tensor that every rank holds alike, as a replicated
+    DTensor (no collective)."""
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def placed_like(g, p):
+    """Gradient ``g`` in the placement of its parameter ``p`` (partial
+    sums all-reduced or reduce-scattered), never ``Partial``."""
+    if isinstance(p, DTensor) and tuple(g.placements) != \
+            tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def batch_logical_axes(batch: dict) -> dict:
+    """Logical axes of each batch input (the reference dry-run's
+    ``batch_logical``): the batch dim of ``tokens``, ``patches`` and
+    ``frames``, the cache's by :func:`cache_logical_axes`; anything else
+    (``client_sizes``) replicated."""
+    out = {}
+    for k, v in batch.items():
+        if k == "cache":
+            out[k] = cache_logical_axes(v)
+        elif k in ("tokens", "patches", "frames"):
+            out[k] = ("batch",) + (None,) * (v.ndim - 1)
+        else:
+            out[k] = (None,) * v.ndim
+    return out
+
+
+def distribute_batch(batch: dict, ctx) -> dict:
+    """The batch's plain tensors as DTensors on their logical axes under
+    ``ctx`` (each rank holds the whole batch; DTensors stay as they are);
+    ``client_sizes`` stays plain, the judge's input."""
+    axes = batch_logical_axes(batch)
+
+    def put(v, ax):
+        if isinstance(v, dict):
+            return {k: put(v[k], ax[k]) for k in v}
+        if isinstance(v, list):
+            return [put(x, a) for x, a in zip(v, ax)]
+        if not isinstance(v, torch.Tensor) or isinstance(v, DTensor):
+            return v
+        return distribute_full(v, ctx.mesh, ctx.placements(ax, v.shape))
+
+    return {k: (v if k == "client_sizes" else put(v, axes[k]))
+            for k, v in batch.items()}
+
+
+LAYOUTS = ("replicated", "logical")
+
+
+def lay_out_params(params: dict, mesh, layout: str = "replicated",
+                   rules: dict | None = None) -> dict:
+    """A ``Model.params()`` dict (every rank holding the same values) as
+    DTensors on ``mesh``: ``"replicated"`` on every rank, as the
+    reference's ``run_mesh_engine`` leaves its params, or ``"logical"``,
+    each leaf by :func:`param_logical_axes` under the rule table (the
+    reference dry-run's ``in_shardings``)."""
+    if layout == "replicated":
+        pl = {k: (Replicate(),) * mesh.ndim for k in params}
+    elif layout == "logical":
+        pl = tree_shardings(param_logical_axes(params), params, mesh, rules)
+    else:
+        raise ValueError(f"layout {layout!r}; expected one of {LAYOUTS}")
+    return {k: distribute_full(v.detach(), mesh, pl[k])
+            for k, v in params.items()}
 
 
 def _judged(fed: FedSpec, judge_fn, soft, sizes, device):
@@ -174,6 +272,9 @@ def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
         judge_fn = judge
 
     def train_step(params, opt_state, batch):
+        ctx = current()
+        if ctx is not None:
+            batch = distribute_batch(batch, ctx)
         tokens = batch["tokens"]
         m = fed.num_clients
         leaves = {k: v.detach().requires_grad_(True)
@@ -191,14 +292,18 @@ def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
                 client_loss = _per_client_loss(cfg, logits, tokens, m)
                 soft = (per_client_soft_labels(logits.detach(), m)
                         if fed.enabled else None)
-            mask, ent, ent0 = _judged(fed, judge_fn, soft, sizes,
+            mask, ent, ent0 = _judged(fed, judge_fn, _full(soft), sizes,
                                       tokens.device)
+            if ctx is not None:
+                mask = replicated(mask, ctx.mesh)
             w = mask * sizes
             loss = (w * client_loss).sum() / w.sum().clamp(min=1e-9)
             loss = loss + cfg.router_aux_weight * aux
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
         del leaves
+        if ctx is not None:
+            grads = {k: placed_like(g, params[k]) for k, g in grads.items()}
         metrics = {
             "loss": loss.detach(),
             "aux_loss": aux.detach(),
@@ -209,6 +314,8 @@ def make_train_step(model: Model, opt: Optimizer, fed: FedSpec,
             "per_client_loss": client_loss.detach(),
             "grad_norm": _grad_norm(grads),
         }
+        if ctx is not None:
+            metrics = {k: _full(v) for k, v in metrics.items()}
         if donate:
             new_params, new_state = _update_donated(opt, grads, opt_state,
                                                     params)
@@ -307,3 +414,84 @@ def make_serve_steps(model: Model, *, window: int | None = None):
         return model.decode_step(cache, tokens, window=window)
 
     return prefill_step, decode_step
+
+
+# ---------------------------------------------------------------- specs
+
+# logical axes for the trailing dims of each param, keyed by path suffix
+_PARAM_RULES: list[tuple[tuple[str, ...], tuple]] = [
+    (("tok", "embed"), ("vocab", "embed")),
+    (("tok", "head"), ("embed", "vocab")),
+    (("patch_proj", "w"), ("embed", None)),
+    (("attn", "w_q", "w"), ("embed", "heads")),
+    (("attn", "w_k", "w"), ("embed", "kv_heads")),
+    (("attn", "w_v", "w"), ("embed", "kv_heads")),
+    (("attn", "w_o", "w"), ("heads", "embed")),
+    (("xattn", "w_q", "w"), ("embed", "heads")),
+    (("xattn", "w_k", "w"), ("embed", "kv_heads")),
+    (("xattn", "w_v", "w"), ("embed", "kv_heads")),
+    (("xattn", "w_o", "w"), ("heads", "embed")),
+    (("mlp", "w_in", "w"), ("embed", "ffn")),
+    (("mlp", "w_gate", "w"), ("embed", "ffn")),
+    (("mlp", "w_out", "w"), ("ffn", "embed")),
+    (("moe", "router", "w"), ("embed", "experts")),
+    (("moe", "w_in"), ("experts", "embed", "ffn")),
+    (("moe", "w_gate"), ("experts", "embed", "ffn")),
+    (("moe", "w_out"), ("experts", "ffn", "embed")),
+    (("ssm", "in_proj", "w"), ("embed", "ssm_inner")),
+    (("ssm", "out_proj", "w"), ("ssm_inner", "embed")),
+    (("ssm", "conv_w"), (None, "ssm_inner")),
+    (("ssm", "conv_b"), ("ssm_inner",)),
+    (("ssm", "norm_scale"), ("ssm_inner",)),
+]
+
+
+def param_logical_axes(params: dict) -> dict:
+    """{name: logical-axis tuple} for a ``Model.params()``-shaped dict
+    (tensors, or anything with ``.shape``). Rules match suffixes of the
+    dotted name (``layers.3.attn.w_q.w``); a rule's axes bind to the
+    trailing dims, any leading dim gets None. Unmatched leaves (norms,
+    biases, scalars) replicate. The reference's leading layer-stacking
+    dims have no counterpart: the port keeps one module a layer."""
+    out = {}
+    for name, leaf in params.items():
+        names, ndim = tuple(name.split(".")), len(leaf.shape)
+        out[name] = (None,) * ndim
+        for suffix, axes in _PARAM_RULES:
+            if names[-len(suffix):] == suffix:
+                pad = ndim - len(axes)
+                if pad >= 0:       # rank-reduced: replicate
+                    out[name] = (None,) * pad + tuple(axes)
+                break
+    return out
+
+
+def _cache_axes(name: str, ndim: int) -> tuple:
+    if name in ("k", "v"):          # (B, T, K, hd)
+        return (None,) * (ndim - 4) + ("batch", "kv_time", "kv_heads",
+                                       None)
+    if name == "state":             # (B, H, P, N)
+        return (None,) * (ndim - 4) + ("batch", "ssm_inner", None, None)
+    if name == "conv":              # (B, K-1, C)
+        return (None,) * (ndim - 3) + ("batch", None, "ssm_inner")
+    return (None,) * ndim
+
+
+def cache_logical_axes(cache: Any) -> Any:
+    """The decode cache's tree (dicts and lists, as ``init_cache``
+    builds it) with a logical-axis tuple at each tensor, keyed by the
+    leaf's name: the batch dim and the KV heads or SSM heads shard; the
+    KV time dim is ``"kv_time"``, which maps to no mesh axis unless a
+    rule says so (architectures whose kv heads do not divide the model
+    axis: chatglm3's 2, kimi-k2's 8 on a 16-way axis). A non-tensor leaf
+    (the cache's ``index``) gets ``()``."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if isinstance(node, torch.Tensor):
+            return _cache_axes(name, node.ndim)
+        return ()
+
+    return walk(cache, "")

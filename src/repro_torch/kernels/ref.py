@@ -12,6 +12,8 @@ import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.ctx import splittable
+
 NEG_INF = -1e30          # score of a masked key, as in the JAX package
 BLOCK_K = 512            # keys a step of :func:`mha_blockwise`
 
@@ -39,7 +41,9 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = d ** -0.5 if scale is None else scale
     dev = q.device
     f = _acc_dtype(q)
-    qq = q.reshape(b, s, kh, g, d).to(f)
+    # a DTensor whose heads are split over ranks that do not divide the
+    # kv heads is gathered on them first
+    qq = splittable(q, 2, kh).reshape(b, s, kh, g, d).to(f)
     logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(f)) * scale
     q_pos = _query_positions(s, q_offset, dev)                   # (1|B, S)
     if kv_positions is None:
@@ -253,7 +257,7 @@ def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_pos = (torch.arange(t, device=dev)[None, :] if kv_positions is None
               else kv_positions.to(dev))
     kv_pos = F.pad(kv_pos, (0, pad), value=-1).expand(b, t + pad)
-    qq = q.reshape(b, s, kh, g, d).to(f) * scale
+    qq = splittable(q, 2, kh).reshape(b, s, kh, g, d).to(f) * scale
     carry = (torch.full((b, kh, g, s), NEG_INF, dtype=f, device=dev),
              torch.zeros((b, kh, g, s), dtype=f, device=dev),
              torch.zeros((b, kh, g, s, d), dtype=f, device=dev))

@@ -21,11 +21,20 @@ among them, and records, per op and in total:
                       arguments included: each storage an op makes
                       counts from that op until it is freed (a finaliser
                       on the storage);
-  * ``collective_bytes`` — 0 on one card; the key keeps the reference's
-                      record shape.
+  * ``collective_bytes`` / ``collective_counts`` — per collective kind
+                      (the reference's HLO names: all-reduce,
+                      all-gather, reduce-scatter, all-to-all), the
+                      operand bytes and the calls of the ``c10d`` ops
+                      (functional or not) that DTensor's redistributions
+                      and the expert-parallel block issue; none on one
+                      card. A collective moves no HBM bytes here.
 
-``track`` registers the call's arguments (weights, batch, cache) before
-the call, so the peak holds them; ``memory_analysis`` gives the
+On DTensors the mode lets DTensor take each op and counts the local
+ops and collectives it runs (not the shape inference of its sharding
+propagation), so every count is per device (the dry-run's ranks under
+the ``"fake"`` group all run the same program). ``track`` registers the call's arguments (weights, batch,
+cache; a DTensor by its local block) before the call, so the peak holds
+them; ``memory_analysis`` gives the
 reference's ``argument_size_in_bytes``, ``output_size_in_bytes`` and
 ``temp_size_in_bytes`` (the peak above the arguments).
 """
@@ -35,6 +44,7 @@ import weakref
 from collections import defaultdict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -47,8 +57,26 @@ _NO_TRAFFIC = {aten.empty.memory_format, aten.empty_strided.default,
                aten.new_empty_strided.default}
 
 
+# collective kind of each c10d op (functional, autograd-functional or
+# in place), by the op's name
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+}
+_C10D = ("_c10d_functional", "_c10d_functional_autograd", "c10d")
+
+
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, a DTensor as its local block."""
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _bytes(t: torch.Tensor) -> int:
@@ -68,6 +96,8 @@ class CostCounter(TorchDispatchMode):
         self.hbm_bytes = 0
         self.by_op: dict[str, dict] = defaultdict(
             lambda: {"calls": 0, "flops": 0, "hbm_bytes": 0})
+        self.collective_bytes: dict[str, int] = defaultdict(int)
+        self.collective_counts: dict[str, int] = defaultdict(int)
         self.argument_bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -96,6 +126,15 @@ class CostCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs the op as each rank's local ops and
+            # collectives, which come back here to be counted
+            return NotImplemented
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation infers shapes on fake
+            # tensors of the global shapes: no rank runs these
+            return func(*args, **kwargs)
         packet = func.overloadpacket
         if packet not in flop_registry:
             # a composite op (``matmul``, ``einsum``) reaches the mode
@@ -111,6 +150,13 @@ class CostCounter(TorchDispatchMode):
             self._add(t.untyped_storage())
         rec = self.by_op[str(packet.__name__)]
         rec["calls"] += 1
+        kind = (COLLECTIVE_KINDS.get(packet.__name__)
+                if func.namespace in _C10D else None)
+        if kind is not None:
+            self.collective_counts[kind] += 1
+            self.collective_bytes[kind] += _bytes(
+                _tensors((args, kwargs))[0])
+            return out
         if packet in flop_registry:
             f = int(flop_registry[packet](*args, **kwargs, out_val=out))
             rec["flops"] += f
@@ -138,7 +184,10 @@ class CostCounter(TorchDispatchMode):
         return {"flops": float(self.flops),
                 "hbm_bytes": float(self.hbm_bytes),
                 "peak_bytes": self.peak_bytes,
-                "collective_bytes": {},
-                "collective_bytes_total": 0.0,
-                "collective_counts": {},
+                "collective_bytes": {k: float(v) for k, v in
+                                     sorted(self.collective_bytes.items())},
+                "collective_bytes_total": float(
+                    sum(self.collective_bytes.values())),
+                "collective_counts": dict(sorted(
+                    self.collective_counts.items())),
                 "by_op": {k: dict(v) for k, v in sorted(self.by_op.items())}}

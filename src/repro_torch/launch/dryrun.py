@@ -28,40 +28,65 @@ The step's judge runs one iteration of Alg. 1's loop (:func:`judge_once`):
 a meta tensor has no value to decide a second, as the reference's HLO
 walk counts a ``while`` body with no known trip count once.
 
-One card holds the whole global batch and the port has no sharding rules;
-``--multi-pod``, ``--seq-rule`` and ``--kv-time-rule`` wait for several
-cards.
+By default one card holds the whole global batch (``num_devices`` 1).
+``--multi-pod``, ``--seq-rule`` and ``--kv-time-rule`` run the
+reference's sharded dry-run instead: the production mesh ((16, 16), or
+(2, 16, 16) with ``--multi-pod``) over the ranks of a ``"fake"`` process
+group (:func:`fake_world`: 256 or 512 ranks in this one process, whose
+collectives move nothing), the weights, optimizer state, batch and cache
+laid out by ``tree_shardings`` under the rule table (``--seq-rule``:
+attention activations' ``"seq"`` over ``"model"``; ``--kv-time-rule``:
+the cache's time dim over ``"model"``), the step under
+``sharding.ctx.use_mesh``. The counter then sees one rank's local ops:
+every column is per device, ``param_bytes_per_device`` among them, and
+``collective_bytes`` / ``collective_counts`` are the ``c10d`` ops that
+DTensor's redistributions and the expert-parallel block issue (the
+reference reads them off the HLO), ``collective_s`` their bytes at one
+NVLink port's rate.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape prefill_32k
   python -m repro_torch.launch.dryrun --out results.json
+  python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k \\
+      --multi-pod
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 import traceback
 from typing import Any
 
 import torch
+import torch.distributed as dist
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ..configs import ARCHS, ASSIGNED, SHAPES
 from ..configs.base import ModelConfig, ShapeConfig
-from ..core.distributed import FedSpec, make_serve_steps, make_train_step
+from ..core.distributed import (FedSpec, distribute_batch,
+                                lay_out_params, make_serve_steps,
+                                make_train_step)
 from ..core.entropy import group_entropy, leave_one_out_entropies
 from ..core.judgment import _TOL, JudgmentResult
 from ..models.api import (Model, build_model, decode_window, input_specs,
                           supported)
 from ..models.layers import dtype_of
 from ..optim import sgd
+from ..sharding.ctx import current, use_mesh
+from ..sharding.specs import DEFAULT_RULES, mesh_shape
 from .cost_analysis import CostCounter
+from .mesh import fl_clients_for, make_production_mesh, world_mesh
 
 # NVIDIA H100 80GB HBM3 (SXM) peaks from its data sheet, the card that
 # nvidia-smi names "NVIDIA H100 80GB HBM3" at a 700.00 W power limit:
 # dense tensor-core bfloat16, float32 on the CUDA cores, HBM3's rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12             # bytes/s
+# one direction of one card's NVLink 4 (18 links, 900 GB/s both ways);
+# the reference's ICI_BW is one link's
+NVLINK_BW = 450e9            # bytes/s
 NUM_CLIENTS = 16             # the reference's fl_clients_for(single pod)
 
 # Each config's parameter count at full width and depth: the reference's
@@ -134,30 +159,101 @@ def count_call(fn, arguments) -> tuple[CostCounter, Any, float]:
 
 
 def step_call(model: Model, shape: ShapeConfig, specs: dict, *,
-              chunked_head: bool = False, window: int = 0):
+              chunked_head: bool = False, window: int = 0,
+              params: dict | None = None,
+              num_clients: int = NUM_CLIENTS):
     """(call, arguments) of the step of ``shape``'s kind on ``model``: the
-    donated train step, the prefill or the decode step."""
-    params = {k: v.detach() for k, v in model.params().items()}
+    donated train step, the prefill or the decode step. ``params``
+    (default the model's own) are the weights it runs on; DTensor ones
+    are put into the model's modules for a serving step."""
+    sharded = params is not None
+    if not sharded:
+        params = {k: v.detach() for k, v in model.params().items()}
     if shape.kind == "train":
         opt = sgd(lr=0.01, momentum=0.5)
-        fed = FedSpec(num_clients=NUM_CLIENTS, chunked_head=chunked_head)
+        fed = FedSpec(num_clients=num_clients, chunked_head=chunked_head)
         step = make_train_step(model, opt, fed, judge_once, donate=True)
         state = opt.init(params)
         return (lambda: step(params, state, specs),
                 (params, state, specs))
-    prefill_step, decode_step = make_serve_steps(model, window=window)
+    if not sharded:
+        prefill_step, decode_step = make_serve_steps(model, window=window)
+    else:
+        # the model's own serving functions with the DTensor weights put
+        # into its modules, under no_grad: DTensor's ops refuse
+        # inference_mode's tensors (Model.prefill / decode_step's mode)
+        def prefill_step(batch):
+            with torch.no_grad(), _reparametrize_module(model.net, params):
+                return model.mod.prefill(model.net, batch, window=window)
+
+        def decode_step(cache, tokens):
+            with torch.no_grad(), _reparametrize_module(model.net, params):
+                return model.mod.decode_step(model.net, cache, tokens,
+                                             window=window)
+
     if shape.kind == "prefill":
         return lambda: prefill_step(specs), (params, specs)
     return (lambda: decode_step(specs["cache"], specs["tokens"]),
             (params, specs))
 
 
+@contextlib.contextmanager
+def fake_world(size: int):
+    """A ``"fake"`` process group of ``size`` ranks in this process, this
+    process rank 0: meshes and DTensors of that many ranks, whose
+    collectives move nothing (on meta tensors nothing is computed
+    anyway). Destroyed at exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialized already; the "
+                           "sharded dry-run makes its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _dtensor_mesh(mesh):
+    """The mesh the DTensors live on: ``mesh`` itself, or for the
+    (2, 16, 16) multi-pod mesh the same 512 ranks as (32, 16) ``("data",
+    "model")``, its ``("pod", "data")`` merged major first. DTensor's
+    sharding propagation on a three-dim mesh (torch 2.13) took over 300
+    s on the CPU for the reduced qwen3-0.6b train step that the two-dim
+    one decides in about 6 s. The merged dim is the reference's layout
+    wherever the rules take both axes together (every dim of the
+    configs' params, batches and caches that 32 divides); a dim that
+    only ``"pod"`` divides replicates here where the reference splits
+    it two ways."""
+    names = mesh.mesh_dim_names or ()
+    if "pod" not in names:
+        return mesh
+    return world_mesh((mesh.size(0) * mesh.size(1), mesh.size(2)),
+                      ("data", "model"))
+
+
+def _merged_rules(seq_rule: bool, kv_time_rule: bool) -> dict:
+    rules = dict(DEFAULT_RULES)
+    if seq_rule:        # sequence-parallel attention activations
+        rules["seq"] = ("model",)
+    if kv_time_rule:    # the KV cache's time dim (kv heads % model != 0)
+        rules["kv_time"] = ("model",)
+    return rules
+
+
 def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
               chunked_head: bool = False, remat: str | None = None,
               capacity_factor: float | None = None,
-              reduced: bool = False) -> dict[str, Any]:
+              reduced: bool = False, mesh=None,
+              seq_rule: bool = False,
+              kv_time_rule: bool = False) -> dict[str, Any]:
     """One (arch, shape) record. attn/chunked_head/remat/capacity_factor
-    are the reference's knobs; ``reduced`` runs ``cfg.reduced()``."""
+    are the reference's knobs; ``reduced`` runs ``cfg.reduced()``.
+    ``mesh`` (a ``DeviceMesh`` of a process group's ranks, as
+    ``make_production_mesh`` gives under :func:`fake_world`) runs the
+    sharded dry-run on it, with ``seq_rule`` and ``kv_time_rule``'s
+    rules; without one, the one-card dry-run."""
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
@@ -166,14 +262,18 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
     if capacity_factor is not None:
         cfg = cfg.replace(moe_capacity_factor=capacity_factor)
     shape = SHAPES[shape_name]
+    n_dev = 1 if mesh is None else mesh.size()
     rec: dict[str, Any] = {"arch": arch, "shape": shape_name,
-                           "multi_pod": False,
+                           "multi_pod": mesh is not None and
+                           "pod" in (mesh.mesh_dim_names or ()),
                            "variant": {"attn": attn,
                                        "chunked_head": chunked_head,
                                        "remat": cfg.remat,
                                        "cf": cfg.moe_capacity_factor,
-                                       "seq_rule": False,
-                                       "kv_time_rule": False}}
+                                       "seq_rule": seq_rule,
+                                       "kv_time_rule": kv_time_rule}}
+    if mesh is None and (seq_rule or kv_time_rule):
+        raise ValueError("the seq and kv_time rules shard over a mesh")
     ok, why = supported(cfg, shape)
     if not ok:
         rec["status"] = "skipped"
@@ -183,10 +283,22 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta", kernels=attn)
     specs = input_specs(cfg, shape)
-    call, arguments = step_call(model, shape, specs,
-                                chunked_head=chunked_head,
-                                window=decode_window(cfg, shape))
-    counter, out, _ = count_call(call, arguments)
+    params, context = None, contextlib.nullcontext()
+    num_clients = NUM_CLIENTS
+    if mesh is not None:
+        rules = _merged_rules(seq_rule, kv_time_rule)
+        dmesh = _dtensor_mesh(mesh)
+        params = lay_out_params(model.params(), dmesh, "logical", rules)
+        context = use_mesh(dmesh, rules)
+        num_clients = fl_clients_for(mesh)
+    with context:
+        if mesh is not None:
+            specs = distribute_batch(specs, current())
+        call, arguments = step_call(model, shape, specs,
+                                    chunked_head=chunked_head,
+                                    window=decode_window(cfg, shape),
+                                    params=params, num_clients=num_clients)
+        counter, out, _ = count_call(call, arguments)
     trace_s = time.perf_counter() - t0
     cost = counter.summary()
 
@@ -194,11 +306,15 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
     flops = cost["flops"]
     terms = {"compute_s": flops / PEAK_FLOPS[dtype_of(cfg)],
              "memory_s": cost["hbm_bytes"] / HBM_BW,
-             "collective_s": 0.0}
+             "collective_s": cost["collective_bytes_total"] / NVLINK_BW}
     rec.update({
         "status": "ok",
-        "num_devices": 1,
+        "num_devices": n_dev,
+        "mesh": mesh_shape(mesh) if mesh is not None else {},
         "num_params": model.num_params(),
+        "param_bytes_per_device": sum(
+            _local(v).numel() * _local(v).element_size()
+            for v in (params or model.params()).values()),
         "trace_s": round(trace_s, 1),
         "memory_analysis": counter.memory_analysis(out, arguments),
         "peak_bytes": cost["peak_bytes"],
@@ -208,11 +324,15 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
         "collective_counts": cost["collective_counts"],
         "collective_bytes_total": cost["collective_bytes_total"],
         "model_flops_global": mf,
-        "useful_flops_ratio": mf / max(flops, 1.0),
+        "useful_flops_ratio": mf / max(flops * n_dev, 1.0),
         "roofline": dict(terms, dominant=max(terms, key=terms.get)),
         "ops": cost["by_op"],
     })
     return rec
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def fmt_row(r: dict) -> str:
@@ -232,18 +352,13 @@ def fmt_row(r: dict) -> str:
             f"trace={r['trace_s']:.0f}s")
 
 
-SEVERAL_CARDS = ("the port runs on one card; sharding waits for the "
-                 "gradient-level mesh step over several cards (ROADMAP "
-                 "queue 1)")
-
-
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="all",
                     help="architecture id or 'all'")
     ap.add_argument("--shape", default="all", help="input shape or 'all'")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: " + SEVERAL_CARDS)
+                    help="use the 2x16x16 (512-rank) mesh")
     ap.add_argument("--out", default="", help="write JSON records here")
     ap.add_argument("--attn", default="torch",
                     choices=["torch", "blockwise"],
@@ -255,16 +370,21 @@ def main(argv=None) -> list:
                     choices=[None, "none", "full", "dots"])
     ap.add_argument("--capacity-factor", type=float, default=None)
     ap.add_argument("--seq-rule", action="store_true",
-                    help="refused: " + SEVERAL_CARDS)
+                    help="shard attention activations' seq dim over model")
     ap.add_argument("--kv-time-rule", action="store_true",
-                    help="refused: " + SEVERAL_CARDS)
+                    help="shard KV-cache time dim over model (decode)")
     ap.add_argument("--reduced", action="store_true",
                     help="the configs' reduced() variants")
     args = ap.parse_args(argv)
-    for flag in ("multi_pod", "seq_rule", "kv_time_rule"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')}: {SEVERAL_CARDS}")
+    sharded = args.multi_pod or args.seq_rule or args.kv_time_rule
+    with (fake_world(512 if args.multi_pod else 256) if sharded
+          else contextlib.nullcontext()):
+        mesh = (make_production_mesh(multi_pod=args.multi_pod) if sharded
+                else None)
+        return _run_all(args, mesh)
 
+
+def _run_all(args, mesh) -> list:
     archs = ASSIGNED if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
 
@@ -276,10 +396,12 @@ def main(argv=None) -> list:
                               chunked_head=args.chunked_head,
                               remat=args.remat,
                               capacity_factor=args.capacity_factor,
-                              reduced=args.reduced)
+                              reduced=args.reduced, mesh=mesh,
+                              seq_rule=args.seq_rule,
+                              kv_time_rule=args.kv_time_rule)
             except Exception as e:  # a failure here is a bug in the system
                 r = {"arch": arch, "shape": shape, "status": "error",
-                     "multi_pod": False,
+                     "multi_pod": args.multi_pod,
                      "error": f"{type(e).__name__}: {e}",
                      "trace": traceback.format_exc()[-2000:]}
             records.append(r)

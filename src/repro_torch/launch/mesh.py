@@ -1,33 +1,36 @@
-"""Device grids for the launchers (functions only — importing this module
-touches no device state).
+"""Device meshes for the launchers (functions only — importing this
+module touches no device state).
 
-The counterpart of ``repro.launch.mesh``. A :class:`DeviceGrid` is an
-ndarray of ``torch.device`` with one name per axis:
+The counterpart of ``repro.launch.mesh``. Under an initialized
+``torch.distributed`` process group (one process a rank: ``torchrun``,
+or the dry-run's ``"fake"`` group) a mesh is a ``DeviceMesh`` of the
+world's ranks with named dims, the gradient-level mesh step's
+(``core/distributed.py`` under ``sharding.ctx.use_mesh``); in one process
+without a group it is a :class:`DeviceGrid`, an ndarray of
+``torch.device`` with one name per axis, the single controller's:
 
-* ``make_host_mesh(model_axis=1)``: a ``("data", "model")`` grid of the
-  visible devices (every card, or the CPU alone where there is none);
-* ``fl_clients_for(grid)``: one FL client group per ``("pod", "data")``
+* ``make_host_mesh(model_axis=1)``: a ``("data", "model")`` mesh of the
+  world's ranks (one card a rank, or the CPU under gloo), or without a
+  group a grid of the visible devices (every card, or the CPU alone);
+* ``fl_clients_for(mesh)``: one FL client group per ``("pod", "data")``
   row;
 * ``make_production_mesh(multi_pod=...)``: the reference's (16, 16) and
-  (2, 16, 16) production shapes, which need 256 and 512 visible devices.
+  (2, 16, 16) production shapes over a group of 256 or 512 ranks.
 
 The weights-level client fan-out
 (:func:`repro_torch.fl.runtime.sharding.client_mesh_from`) takes the first
-device of each row. The gradient-level mesh step over these grids
-(``core/distributed.py`` with sharded parameters) is not ported: ROADMAP
-queue 1, "the gradient-level mesh step over several cards".
+device of each row of a grid.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
+import torch.distributed as dist
 
 from ..device import visible_devices
-
-MESH_STEP = ("the gradient-level mesh step over several cards is not "
-             "ported: ROADMAP queue 1, \"the gradient-level mesh step "
-             "over several cards\"")
+from ..sharding.specs import mesh_shape
 
 
 @dataclass(frozen=True, eq=False)
@@ -54,23 +57,49 @@ def _grid(devices: list, shape: tuple, axes: tuple) -> DeviceGrid:
     return DeviceGrid(arr.reshape(shape), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceGrid:
-    """The reference's production grid: (16, 16) ``("data", "model")``
-    or (2, 16, 16) ``("pod", "data", "model")``. Raises unless that many
-    devices are visible (one host shows 1-8 cards)."""
+def world_mesh(shape: tuple, axes: tuple):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialized
+    process group's ranks: on the cards under ``nccl``, else on the CPU
+    (gloo, and the ``"fake"`` group of the dry-run). Raises unless the
+    group has exactly that many ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise RuntimeError(f"a {shape} mesh needs {math.prod(shape)} "
+                           f"ranks; the process group has {world}")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: (16, 16) ``("data", "model")``
+    or (2, 16, 16) ``("pod", "data", "model")``, over an initialized
+    process group of 256 or 512 ranks (the dry-run's ``"fake"`` group
+    stands in for them). Raises otherwise: one host shows 1-8 cards."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    devs = visible_devices()
-    want = int(np.prod(shape))
-    if len(devs) != want:
+    want = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != want:
         raise RuntimeError(
             f"make_production_mesh(multi_pod={multi_pod}) needs {want} "
-            f"devices, {len(devs)} visible; {MESH_STEP}")
-    return _grid(devs, shape, axes)
+            f"devices, one a rank of an initialized process group; "
+            f"{have} ranks (the dry-run's --multi-pod runs them under "
+            "the fake group)")
+    return world_mesh(shape, axes)
 
 
-def make_host_mesh(model_axis: int = 1) -> DeviceGrid:
-    """A ``("data", "model")`` grid over the visible devices."""
+def make_host_mesh(model_axis: int = 1):
+    """A ``("data", "model")`` mesh of the process group's ranks where a
+    group is initialized (``DeviceMesh``), else a grid of the visible
+    devices (:class:`DeviceGrid`)."""
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if model_axis < 1 or world % model_axis:
+            raise ValueError(f"model_axis {model_axis} does not divide "
+                             f"the {world} ranks")
+        return world_mesh((world // model_axis, model_axis),
+                          ("data", "model"))
     devs = visible_devices()
     if model_axis < 1 or len(devs) % model_axis:
         raise ValueError(f"model_axis {model_axis} does not divide the "
@@ -81,5 +110,5 @@ def make_host_mesh(model_axis: int = 1) -> DeviceGrid:
 
 def fl_clients_for(mesh) -> int:
     """One FL client group per ("pod", "data") mesh row."""
-    m = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
-    return max(m, 1)
+    shape = mesh_shape(mesh)
+    return max(shape.get("data", 1) * shape.get("pod", 1), 1)

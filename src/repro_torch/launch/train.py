@@ -1,5 +1,5 @@
 """FL training entry point over the ``repro_torch.fl`` registry — the port of
-``repro.launch.train``, on one card.
+``repro.launch.train``.
 
 Two execution paths, one composition API:
 
@@ -7,8 +7,15 @@ Two execution paths, one composition API:
   (``core/distributed.py``): one train step a round, the judge run inside
   it on the round's full-vocabulary soft labels (``--judge-backend
   cuda``: one launch of K1's loop a step), the selector feeding the
-  step's client slots, on one card: ``--mesh`` takes only ``host`` (the
-  gradient-level mesh step over several cards is not ported).
+  step's client slots. In one process it runs on one card. Under
+  ``torchrun --nproc-per-node N`` (or a process group the caller
+  initialized) it runs over the world's ranks: ``nccl`` on the cards,
+  one a rank (``cuda:<LOCAL_RANK>``), ``gloo`` with ``--device cpu``;
+  ``--mesh host`` (the only mesh the reference defines) is then the
+  ``("data", "model")`` mesh of the ranks, the params replicated on it
+  and the batch split on ``"data"``, the step under
+  ``sharding.ctx.use_mesh``. Every rank draws the same cohort from the
+  same seed and keeps its shard; rank 0 prints the step lines.
 * ``--engine sequential | pipelined | async | scan``: the weights-level
   ``repro_torch.fl`` server (paper Alg. 2 with E local epochs) over the
   same token corpus, built with ``fl.build(..., engine=...)``;
@@ -19,7 +26,9 @@ Two execution paths, one composition API:
   reference's flag does; the aggregator is the composition's. The
   pipelined and async engines shard the client axis over every visible
   card under their ``shard="auto"`` default when more than one is
-  visible, as the reference's do (``fl.runtime.sharding``).
+  visible, as the reference's do (``fl.runtime.sharding``). They are a
+  single controller: one process drives every card, and they refuse a
+  world of several ranks.
 
 The model trains on the ``"torch"`` kernel route (the reference trains on
 its default ``"xla"`` route), or with ``--attn blockwise`` (dryrun's
@@ -43,23 +52,31 @@ well as printing them. Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch whisper-large-v3 --steps 3 --per-client-batch 1 \\
       --attn blockwise --judge-backend cuda
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --engine mesh --device cpu --reduced --steps 3 --clients 4 \\
+      --logical-clients 8 --seq-len 32
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import fl
 from ..checkpoint import save
 from ..configs import ARCHS
-from ..core.distributed import FedSpec, make_train_step
+from ..core.distributed import FedSpec, lay_out_params, make_train_step
 from ..data.synthetic import make_token_dataset
 from ..device import resolve_device
 from ..models.api import build_model
 from ..optim import adamw, sgd
+from ..sharding.ctx import use_mesh
+from .mesh import make_host_mesh
 
 
 def build_fl_corpus(cfg, num_clients: int, case: str, seq_len: int,
@@ -351,12 +368,40 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
     step = make_train_step(model, opt, fed,
                            judge_fn=judge_fn or judge.traced(), donate=True)
     params = _init_params(model)
+    mesh = make_host_mesh() if dist.is_initialized() else None
+    if mesh is not None:
+        params = lay_out_params(params, mesh, "replicated")
     opt_state = opt.init(params)
     stub = stub_frontend(cfg, args.extras, args.seed, model.device)
     rng = np.random.default_rng(args.seed)
     records = []
+    say = mesh is None or dist.get_rank() == 0
     _sync(model.device)
     t0 = time.perf_counter()
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        params = _mesh_steps(args, cfg, model, corpus, client_idx, step,
+                             params, opt_state, selector, stub, rng,
+                             records, say)
+    _sync(model.device)
+    dt = time.perf_counter() - t0
+    if say:
+        print(f"done: {args.steps} rounds in {dt:.1f}s "
+              f"({dt / max(args.steps, 1):.2f}s/round); "
+              f"selector={selector.stats()}")
+    if args.ckpt_dir:
+        if mesh is not None:           # every rank gathers; rank 0 saves
+            params = {k: v.full_tensor() for k, v in params.items()}
+        if say:
+            path = save(args.ckpt_dir, args.steps, params,
+                        meta={"arch": cfg.name, "selector": selector.stats()})
+            print("checkpoint:", path)
+    return records
+
+
+def _mesh_steps(args, cfg, model, corpus, client_idx, step, params,
+                opt_state, selector, stub, rng, records, say) -> dict:
+    """The rounds of :func:`run_mesh_engine`; returns the last params."""
+    m = args.clients
     for it in range(args.steps):
         t_step = time.perf_counter()
         sel = selector.select(m)                    # logical clients
@@ -383,18 +428,10 @@ def run_mesh_engine(args, cfg, model, corpus, client_idx,
                         "loss": loss, "num_positive": int(npos),
                         "entropy": ent, "grad_norm": gnorm,
                         "aux_loss": aux, "seconds": seconds})
-        print(f"step {it:4d} loss={loss:.4f} pos={int(npos)}/{m} "
-              f"ent={ent:.4f} gnorm={gnorm:.3f}", flush=True)
-    _sync(model.device)
-    dt = time.perf_counter() - t0
-    print(f"done: {args.steps} rounds in {dt:.1f}s "
-          f"({dt / max(args.steps, 1):.2f}s/round); "
-          f"selector={selector.stats()}")
-    if args.ckpt_dir:
-        path = save(args.ckpt_dir, args.steps, params,
-                    meta={"arch": cfg.name, "selector": selector.stats()})
-        print("checkpoint:", path)
-    return records
+        if say:
+            print(f"step {it:4d} loss={loss:.4f} pos={int(npos)}/{m} "
+                  f"ent={ent:.4f} gnorm={gnorm:.3f}", flush=True)
+    return params
 
 
 def parser() -> argparse.ArgumentParser:
@@ -496,8 +533,9 @@ def parser() -> argparse.ArgumentParser:
                          "encoder and decoder each); 0 keeps the "
                          "config's depth")
     ap.add_argument("--mesh", default="host",
-                    help="the mesh of the gradient-level step: host (the "
-                         "one card) is the only one ported")
+                    help="the mesh of the gradient-level step: host, the "
+                         "(data, model) mesh of the ranks (one rank "
+                         "without torchrun), the only one there is")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -521,19 +559,44 @@ def train_config(args):
     return cfg
 
 
+def join_world(device: str) -> torch.device:
+    """This rank's device in the process group, which is joined from
+    torchrun's environment (``env://``) unless the caller initialized it:
+    ``nccl`` and ``cuda:<LOCAL_RANK>`` on the cards, ``gloo`` and the CPU
+    with ``device`` ``"cpu"``. Raises if the group fails to form or a
+    rank's card is not visible; never runs as one rank instead."""
+    kind = torch.device(device).type
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if kind == "cpu" else "nccl",
+                                init_method="env://")
+    if kind == "cpu":
+        return torch.device("cpu")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    dev = resolve_device(f"cuda:{local}")
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def main(argv=None) -> list:
     """Runs the training; returns the step or round records."""
     args = parser().parse_args(argv)
     if args.mesh != "host":
         raise SystemExit(
-            f"--mesh {args.mesh}: the gradient-level step runs on one "
-            "card, only the host mesh is ported; the step over several "
-            "cards waits for "
-            "ROADMAP queue 1, \"the gradient-level mesh step over several "
-            "cards\" (the weights-level engines shard the client axis: "
-            "--engine pipelined or async)")
+            f"--mesh {args.mesh}: the only mesh is host, the "
+            "(\"data\", \"model\") mesh of the process group's ranks "
+            "(one rank without torchrun), as the reference defines no "
+            "other; the production meshes are the dry-run's "
+            "(repro_torch.launch.dryrun --multi-pod)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    ranks = dist.get_world_size() if dist.is_initialized() else world
+    if ranks > 1 and args.engine != "mesh":
+        raise SystemExit(
+            f"--engine {args.engine} is a single controller (one process "
+            f"drives every card); it does not run as {ranks} ranks: "
+            "launch it without torchrun, or use --engine mesh")
+    device = join_world(args.device) if world > 1 or \
+        dist.is_initialized() else resolve_device(args.device)
     cfg = train_config(args)
-    device = resolve_device(args.device)
     model = build_model(cfg, device=device, kernels=args.attn,
                         seed=args.seed)
 

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.ctx import merge_last, shard_act, splittable
 from .layers import Dense, apply_rope, constant, pdtype_of, rms_norm
 
 
@@ -42,7 +43,8 @@ class Attention(nn.Module):
 
 def _project_q(cfg: ModelConfig, p: Attention, x: torch.Tensor):
     b, s, _ = x.shape
-    q = p.w_q(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = splittable(p.w_q(x), -1, cfg.num_heads).reshape(
+        b, s, cfg.num_heads, cfg.head_dim)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
     return q
@@ -53,8 +55,9 @@ def _project_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     """K of ``x`` and V of ``x_v`` (default ``x``)."""
     b, s, _ = x.shape
     x_v = x if x_v is None else x_v
-    k = p.w_k(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = p.w_v(x_v).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = splittable(p.w_k(x), -1, kh).reshape(b, s, kh, hd)
+    v = splittable(p.w_v(x_v), -1, kh).reshape(b, s, kh, hd)
     if p.k_norm is not None:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return k, v
@@ -73,9 +76,14 @@ def self_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     k, v = _project_kv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
+    q = shard_act(q, ("batch", "seq", "heads", None))
+    k = shard_act(k, ("batch", "seq", "kv_heads", None))
+    v = shard_act(v, ("batch", "seq", "kv_heads", None))
     out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                         causal=causal, window=window, backend=kernels)
-    return p.w_o(out.reshape(b, s, -1)), {"k": k, "v": v}
+    out = shard_act(out, ("batch", "seq", "heads", None))
+    out = p.w_o(merge_last(out))
+    return shard_act(out, ("batch", "seq", "embed")), {"k": k, "v": v}
 
 
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int,
@@ -113,7 +121,7 @@ def decode_self_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         window=window, q_offset=positions[:, 0],
         kv_positions=pos_tags[None].expand(b, cache_len).contiguous(),
         backend=kernels)
-    return p.w_o(out.reshape(b, 1, -1))
+    return p.w_o(merge_last(out))
 
 
 def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -124,7 +132,7 @@ def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     q = _project_q(cfg, p, x)
     out = ops.attention(q.contiguous(), enc_kv["k"], enc_kv["v"],
                         causal=False, backend=kernels)
-    return p.w_o(out.reshape(b, s, -1))
+    return p.w_o(merge_last(out))
 
 
 def cross_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor,

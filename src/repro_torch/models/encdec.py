@@ -29,8 +29,10 @@ from typing import Any
 
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..sharding.ctx import shard_act
 from . import attention as attn
 from .layers import MLP, Embed, Norm, dtype_of, remat
 from .transformer import _place, _pos_tags
@@ -110,6 +112,7 @@ def encode(model: EncDec, frames: torch.Tensor) -> torch.Tensor:
     t = x.shape[1]
     x = x + sinusoidal(torch.arange(t, device=x.device),
                        cfg.d_model).to(x.dtype)[None]
+    x = shard_act(x, ("batch", "frames", "embed"))
     for lp in model.enc_layers:
         a, _ = attn.self_attention(cfg, lp.attn, lp.ln1(x), causal=False,
                                    kernels=model.kernels)
@@ -196,17 +199,26 @@ def prefill(model: EncDec, batch: dict, *, window: int | None = None,
     b, s = tokens.shape
     cache_len = max(cache_len or s, s)
     x = _dec_embed(model, tokens)
-    cross = _cross_init(cfg, b, dtype_of(cfg), x.device, fill=torch.empty)
-    kvs = []
+    # a DTensor (over a mesh) cannot be written into a plain buffer: the
+    # layers' cross K and V are stacked at the end instead
+    sharded = isinstance(enc, DTensor)
+    cross = None if sharded else _cross_init(cfg, b, dtype_of(cfg),
+                                             x.device, fill=torch.empty)
+    kvs, ckvs = [], []
     for i, lp in enumerate(model.dec_layers):
         a, kv = attn.self_attention(cfg, lp.attn, lp.ln1(x), causal=True,
                                     window=window, kernels=model.kernels)
         kvs.append({n: _place(t, cache_len) for n, t in kv.items()})
         ckv = attn.cross_kv(cfg, lp.xattn, enc)
-        for n in ("k", "v"):
-            cross[n][i] = ckv[n]
-        x = _cross_and_mlp(model, lp, x + a, {n: cross[n][i]
-                                              for n in ("k", "v")})
+        if sharded:
+            ckvs.append(ckv)
+        else:
+            for n in ("k", "v"):
+                cross[n][i] = ckv[n]
+            ckv = {n: cross[n][i] for n in ("k", "v")}
+        x = _cross_and_mlp(model, lp, x + a, ckv)
+    if sharded:
+        cross = {n: torch.stack([c[n] for c in ckvs]) for n in ("k", "v")}
     cache: dict[str, Any] = {"index": s,
                              "pos": _pos_tags(s, cache_len, x.device),
                              "layers": kvs, "cross": cross}

@@ -18,12 +18,15 @@ from functools import partial
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..kernels.ref import recomputed, recording
+from ..sharding.ctx import shard_act
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -147,6 +150,7 @@ class MLP(nn.Module):
             h = F.gelu(self.w_gate(x), approximate="tanh") * h
         else:
             h = F.gelu(h, approximate="tanh")
+        h = shard_act(h, ("batch", "seq", "ffn"))
         return self.w_out(h)
 
 
@@ -183,6 +187,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 # ------------------------------------------------------------------ embed
 
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``. On DTensors the lookup runs on each
+    rank's ids against the table's whole rows (``local_map``): DTensor's
+    own vocab-sharded lookup (``MaskPartial``) mis-shapes its mask for
+    batch-sharded ids and its backward cannot join a tied head's partial
+    gradient, so the vocab dim is gathered first, as GSPMD gathers around
+    a gather it cannot shard. The output keeps the ids' sharding and the
+    table's embed-dim sharding on the mesh dims the ids leave free; the
+    table's gradient is a partial sum over the mesh dims the ids split."""
+    if not isinstance(tokens, DTensor):
+        return F.embedding(tokens, table)
+    mesh = tokens.device_mesh
+    t_pl = tuple(tokens.placements)
+    w_pl = tuple(q if q.is_shard(1) and not t_pl[i].is_shard() else
+                 Replicate() for i, q in enumerate(table.placements))
+    out_pl = tuple(t if t.is_shard() else
+                   (Shard(tokens.ndim) if w.is_shard() else Replicate())
+                   for t, w in zip(t_pl, w_pl))
+    g_pl = tuple(w if w.is_shard() else
+                 (Partial() if t.is_shard() else Replicate())
+                 for t, w in zip(t_pl, w_pl))
+    fn = local_map(F.embedding, out_placements=list(out_pl),
+                   in_placements=(t_pl, w_pl),
+                   in_grad_placements=(t_pl, g_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(tokens, table)
+
+
 class Embed(nn.Module):
     """Token embedding (padded vocabulary) and the output logits."""
 
@@ -198,10 +230,10 @@ class Embed(nn.Module):
         # F.embedding, not ``embed[tokens]``: under ``vmap(grad(...))`` the
         # indexing's backward adds repeated tokens' rows in a varying
         # order on the CPU, and a round must repeat to the bit
-        x = F.embedding(tokens, self.embed.to(dtype_of(self.cfg)))
+        x = embed_lookup(tokens, self.embed.to(dtype_of(self.cfg)))
         if self.cfg.embed_scale:
             x = x * self.cfg.d_model ** 0.5
-        return x
+        return shard_act(x, ("batch", "seq", "embed"))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return logits_apply(self.cfg, {"embed": self.embed,
@@ -217,6 +249,7 @@ def logits_apply(cfg: ModelConfig, tok: dict,
         logits = x @ tok["embed"].to(x.dtype).T
     else:
         logits = x @ tok["head"].to(x.dtype)
+    logits = shard_act(logits, ("batch", "seq", "vocab"))
     v = cfg.padded_vocab
     if v != cfg.vocab_size:                 # mask padded vocab slots
         real = torch.arange(v, device=x.device) < cfg.vocab_size

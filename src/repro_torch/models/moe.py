@@ -25,16 +25,27 @@ same values up to float summation order, the same bits on every run.
 Writes into the buffer go through a dump row past its end, so no step
 reads the device's data back to the host.
 
-The expert-parallel ``moe_block_shard_map`` (several cards) is not
-ported.
+Over a mesh (``sharding.ctx.use_mesh``) ``moe_block`` takes the
+expert-parallel :func:`moe_block_shard_map`, the reference's GShard-style
+path, where the mesh has a ``"model"`` axis that divides the experts and
+the batch divides the batch axes; otherwise the single-device block
+above, on DTensors replicated around its sort and scatters (GSPMD
+replicates that scatter too).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..sharding.ctx import current, shard_act
+from ..sharding.specs import distribute_full, mesh_shape, placements
 from .layers import Dense, normal, pdtype_of
 
 
@@ -131,9 +142,16 @@ def scatter(xt: torch.Tensor, row: torch.Tensor, num_experts: int,
 def experts(p: MoE, buf: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU on their (E, C, D) buffers: three batched
     products over all E experts."""
-    h = torch.bmm(buf, p.w_in.to(buf.dtype))
-    g = torch.bmm(buf, p.w_gate.to(buf.dtype))
-    return torch.bmm(F.silu(g) * h, p.w_out.to(buf.dtype))
+    return expert_products(p.w_in, p.w_gate, p.w_out, buf)
+
+
+def expert_products(w_in: torch.Tensor, w_gate: torch.Tensor,
+                    w_out: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of each expert of ``w_*`` (E, D, F) / (E, F, D) on its
+    (E, C, D) buffer."""
+    h = torch.bmm(buf, w_in.to(buf.dtype))
+    g = torch.bmm(buf, w_gate.to(buf.dtype))
+    return torch.bmm(F.silu(g) * h, w_out.to(buf.dtype))
 
 
 def combine(y: torch.Tensor, row: torch.Tensor, kept: torch.Tensor,
@@ -148,14 +166,196 @@ def combine(y: torch.Tensor, row: torch.Tensor, kept: torch.Tensor,
     return contrib.reshape(t, k, d).sum(1)
 
 
+def _batch_axes(shape: dict) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in shape)
+
+
 def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux loss ()), over the B * S
-    tokens of the call (capacity counted on them, as the reference's)."""
+    """x: (B, S, D) -> (out (B, S, D), aux loss ()).
+
+    The expert-parallel :func:`moe_block_shard_map` when a mesh context
+    with a ``"model"`` axis that divides the experts is active and the
+    batch divides the batch axes; otherwise :func:`moe_block_pjit`."""
+    c = current()
+    if c is not None:
+        shape = mesh_shape(c.mesh)
+        n_batch = math.prod(shape[a] for a in _batch_axes(shape))
+        if "model" in shape and cfg.num_experts % shape["model"] == 0 \
+                and x.shape[0] % n_batch == 0:
+            return moe_block_shard_map(cfg, p, x, c.mesh)
+    return moe_block_pjit(cfg, p, x)
+
+
+def _moe_local(cfg: ModelConfig, router_w, w_in, w_gate, w_out,
+               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     cap = capacity(cfg, b * s)
     xt = x.reshape(b * s, d)
-    top_p, top_i, aux, _ = route(cfg, p.router.w, xt)
+    top_p, top_i, aux, _ = route(cfg, router_w, xt)
     row, kept = dispatch(cfg, top_i, cap)
-    y = experts(p, scatter(xt, row, cfg.num_experts, cap))
+    buf = shard_act(scatter(xt, row, cfg.num_experts, cap),
+                    ("experts", "capacity", None))
+    y = shard_act(expert_products(w_in, w_gate, w_out, buf),
+                  ("experts", "capacity", None))
     return combine(y, row, kept, top_p).reshape(b, s, d), aux
+
+
+def moe_block_pjit(cfg: ModelConfig, p: MoE, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-device block over the B * S tokens of the call
+    (capacity counted on them, as the reference's). On DTensors every
+    rank runs it whole on replicated inputs: its sort, ``searchsorted``
+    and index copies have no sharding rule, and the reference's GSPMD
+    replicates this scatter as well."""
+    w = (p.router.w, p.w_in, p.w_gate, p.w_out)
+    if not isinstance(x, DTensor):
+        out, aux = _moe_local(cfg, *w, x)
+        return shard_act(out, ("batch", "seq", "embed")), aux
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    fn = local_map(lambda *a: _moe_local(cfg, *a),
+                   out_placements=(rep, rep), in_placements=(rep,) * 5,
+                   device_mesh=mesh, redistribute_inputs=True)
+    out, aux = fn(*w, x)
+    return shard_act(out, ("batch", "seq", "embed")), aux
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _replicas(pl: tuple, mesh) -> int:
+    """How many ranks hold each block of a tensor in placements ``pl``:
+    the product of the mesh dims it is not sharded on."""
+    return math.prod(mesh.size(i) for i, q in enumerate(pl)
+                     if not q.is_shard())
+
+
+def _exchange(buf: torch.Tensor, group, ep: int) -> torch.Tensor:
+    """(E, C, D) -> (E / ep, ep * C, D): each rank of the ``"model"``
+    group gets its experts' slots from every rank, concatenated on the
+    capacity axis in rank order (the reference's tiled
+    ``all_to_all(split_axis=0, concat_axis=1)``)."""
+    e, c, d = buf.shape
+    got = funcol.all_to_all_single_autograd(buf.contiguous(), None, None,
+                                            group)
+    return got.reshape(ep, e // ep, c, d).transpose(0, 1).reshape(
+        e // ep, ep * c, d)
+
+
+def _exchange_back(y: torch.Tensor, group, ep: int) -> torch.Tensor:
+    """(E / ep, ep * C, D) -> (E, C, D), the inverse of
+    :func:`_exchange`: each rank's slots back from every expert."""
+    el, epc, d = y.shape
+    c = epc // ep
+    send = y.reshape(el, ep, c, d).transpose(0, 1).contiguous()
+    got = funcol.all_to_all_single_autograd(send, None, None, group)
+    return got.reshape(ep * el, c, d)
+
+
+def token_split(bsz: int, s: int, mesh) -> tuple[tuple, int, tuple]:
+    """(the tokens' spec (B, S, D), tokens a rank, the mesh axes they
+    split over): the sequence over ``"model"`` where it divides, else
+    the batch, else the tokens replicate over ``"model"`` (tiny decode
+    batches), the reference's three cases."""
+    shape = mesh_shape(mesh)
+    batch_axes = _batch_axes(shape)
+    n_batch = math.prod(shape[a] for a in batch_axes)
+    ep = shape["model"]
+    b_loc = bsz // n_batch
+    lead = batch_axes if batch_axes else None
+    if s % ep == 0:
+        return (lead, "model", None), b_loc * (s // ep), \
+            batch_axes + ("model",)
+    if b_loc % ep == 0:
+        return (batch_axes + ("model",), None, None), (b_loc // ep) * s, \
+            batch_axes + ("model",)
+    return (lead, None, None), b_loc * s, batch_axes
+
+
+def moe_block_shard_map(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+                        mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over ``mesh`` (a ``DeviceMesh`` with a
+    ``"model"`` axis), the reference's ``moe_block_shard_map``:
+    ``local_map`` of one rank's block with explicit collectives (the
+    functional ``all_to_all_single_autograd``, through which gradients
+    flow).
+
+    Experts live on ``"model"``; their weights enter all-gathered over
+    the batch axes (the input's redistribution). Each rank routes its own
+    tokens (:func:`token_split`) with the capacity of its share,
+    ``capacity(cfg, t_loc)``; packs its (E, C_loc, D) buffer; one
+    ``all_to_all`` over ``"model"`` hands each rank its experts' slots
+    from every rank, (E / ep, ep * C_loc, D); the expert products run
+    locally; the ``all_to_all`` back returns each rank's slots; the
+    combine is local. ``aux`` is the mean of the ranks' over the ranks
+    the tokens split over. Capacity, and so what is dropped, is per
+    shard: the result is the reference's shard_map path's, not
+    ``moe_block``'s.
+
+    The gradient follows the reference's ``shard_map`` with
+    ``check_rep=False``: an input's gradient is a partial sum over the
+    mesh dims it is replicated on, and an output's incoming gradient is
+    divided by the number of ranks holding each of its blocks. A plain
+    ``x`` (every rank holding the same whole batch) is split here and
+    the outputs come back whole; a DTensor comes back a DTensor."""
+    bsz, s, d = x.shape
+    shape = mesh_shape(mesh)
+    ep = shape["model"]
+    model_dim = list(shape).index("model")
+    spec, t_loc, tok_axes = token_split(bsz, s, mesh)
+    cap = capacity(cfg, t_loc)
+    group = mesh.get_group("model")
+    x_pl = placements(spec, mesh)
+    rep = (Replicate(),) * mesh.ndim
+    w_pl = tuple(Shard(0) if i == model_dim else Replicate()
+                 for i in range(mesh.ndim))
+    # each rank's aux, one entry a rank of the token split: a DTensor
+    # (n_tok,) whose mean is the reference's pmean over the token axes
+    aux_pl = tuple(Shard(0) if a in tok_axes else Replicate()
+                   for a in shape)
+    out_scale = 1.0 / _replicas(x_pl, mesh)
+    aux_scale = 1.0 / _replicas(aux_pl, mesh)
+    grad_pl = [tuple(q if q.is_shard() else Partial() for q in pl)
+               for pl in (x_pl, rep, w_pl, w_pl, w_pl)]
+
+    def local(xb, router_w, w_in, w_gate, w_out):
+        xt = xb.reshape(-1, d)                          # (T_loc, D)
+        top_p, top_i, aux, _ = route(cfg, router_w, xt)
+        row, kept = dispatch(cfg, top_i, cap)
+        buf = _exchange(scatter(xt, row, cfg.num_experts, cap), group, ep)
+        y = _exchange_back(expert_products(w_in, w_gate, w_out, buf),
+                           group, ep)                   # (E, C, D)
+        out = combine(y, row, kept, top_p).reshape(xb.shape)
+        aux = aux.reshape(1)
+        if out_scale != 1.0:
+            out = _ScaleGrad.apply(out, out_scale)
+        if aux_scale != 1.0:
+            aux = _ScaleGrad.apply(aux, aux_scale)
+        return out, aux
+
+    fn = local_map(local, out_placements=(x_pl, aux_pl),
+                   in_placements=(x_pl, rep, w_pl, w_pl, w_pl),
+                   in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    plain = not isinstance(x, DTensor)
+    if plain:
+        x = distribute_full(x, mesh, x_pl)
+    w = [t if isinstance(t, DTensor) else
+         DTensor.from_local(t, mesh, rep, run_check=False)
+         for t in (p.router.w, p.w_in, p.w_gate, p.w_out)]
+    out, aux = fn(x, *w)
+    aux = aux.mean()
+    if plain:
+        return out.full_tensor(), aux.full_tensor()
+    return out, aux

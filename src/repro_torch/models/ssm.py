@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.ctx import merge_last, shard_act, splittable
 from .layers import (Dense, constant, generator_of, normal, pdtype_of,
                      rms_norm)
 
@@ -91,9 +92,10 @@ def ssm_block(cfg: ModelConfig, p: SSM, u: torch.Tensor, *,
     z, xc_raw, dt = _split_proj(cfg, p.in_proj(u))
     xc = _causal_conv(p.conv_w, p.conv_b, xc_raw)
     x, b_mat, c_mat = _split_conv(cfg, xc)
-    x = x.reshape(bsz, l, heads, cfg.ssm_headdim)
-    b_mat = b_mat.reshape(bsz, l, g, n)
-    c_mat = c_mat.reshape(bsz, l, g, n)
+    x = shard_act(splittable(x, -1, heads).reshape(
+        bsz, l, heads, cfg.ssm_headdim), ("batch", "seq", "ssm_inner", None))
+    b_mat = splittable(b_mat, -1, g).reshape(bsz, l, g, n)
+    c_mat = splittable(c_mat, -1, g).reshape(bsz, l, g, n)
     # torch's softplus is the identity above 20, jax.nn.softplus is not;
     # the two differ there by less than 2e-9
     dtf = F.softplus(dt.to(torch.float32) + p.dt_bias)
@@ -101,10 +103,9 @@ def ssm_block(cfg: ModelConfig, p: SSM, u: torch.Tensor, *,
     y, h_t = ops.ssd(x.contiguous(), dtf.contiguous(), a,
                      b_mat.contiguous(), c_mat.contiguous(),
                      chunk=cfg.ssm_chunk, backend=kernels)
-    y = y + x * p.D[None, None, :, None].to(x.dtype)
-    y = y.reshape(bsz, l, d_in)
+    y = merge_last(y + x * p.D[None, None, :, None].to(x.dtype))
     y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    out = p.out_proj(y)
+    out = shard_act(p.out_proj(y), ("batch", "seq", "embed"))
     if not with_state:
         return out
     return out, {"conv": xc_raw[:, -(cfg.ssm_conv - 1):, :], "state": h_t}

@@ -59,8 +59,8 @@ def sgd(lr: float = 0.01, momentum: float = 0.5,
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+        # zeros_like: a DTensor param's state is a DTensor of its layout
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"m": pytree.tree_map(z, params),
                 "v": pytree.tree_map(z, params),
                 "count": _count(params)}

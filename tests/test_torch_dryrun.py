@@ -20,7 +20,7 @@ against the live JAX reference, on the CPU.
 * ``build_model(cfg, device="meta")``: no storage, the CPU build's
   parameter names and shapes, and the CPU build's bits unchanged;
 * ``dryrun.main`` over every (arch x shape) at ``reduced()`` with no
-  error, and the several-card flags refused.
+  error, and the several-card flags run on the fake group.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_dryrun.py
 """
@@ -332,5 +332,18 @@ def test_full_width_prefill_record(capsys):
 @pytest.mark.parametrize("flag", ["--multi-pod", "--seq-rule",
                                   "--kv-time-rule"])
 def test_several_card_flags_refused(flag):
-    with pytest.raises(SystemExit, match="several cards"):
-        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "train_4k", flag])
+    """The several-card flags, refused until the mesh step was ported,
+    now run the sharded dry-run on the fake group's production mesh:
+    per-device memory below the one-card run's, collectives counted."""
+    argv = ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--reduced"]
+    (one,) = dryrun.main(argv)
+    (rec,) = dryrun.main(argv + [flag])
+    assert rec["status"] == "ok"
+    assert rec["num_devices"] == (512 if flag == "--multi-pod" else 256)
+    assert rec["variant"]["seq_rule"] == (flag == "--seq-rule")
+    assert rec["variant"]["kv_time_rule"] == (flag == "--kv-time-rule")
+    mem, mem1 = rec["memory_analysis"], one["memory_analysis"]
+    assert mem["argument_size_in_bytes"] < mem1["argument_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] < mem1["temp_size_in_bytes"]
+    assert rec["collective_bytes_total"] > 0
+    assert one["collective_bytes_total"] == 0 and one["num_devices"] == 1

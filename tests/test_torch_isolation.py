@@ -24,7 +24,9 @@ _PROBE = textwrap.dedent("""
     assert {"repro_torch.launch.dryrun",
             "repro_torch.launch.cost_analysis",
             "repro_torch.launch.mesh",
-            "repro_torch.fl.runtime.sharding"} <= set(names)
+            "repro_torch.fl.runtime.sharding",
+            "repro_torch.sharding.specs",
+            "repro_torch.sharding.ctx"} <= set(names)
     import chip_smoke
     import importlib.util
     for name in ("torch_quickstart", "torch_compare_strategies",

@@ -516,7 +516,7 @@ def test_client_mesh_from_host_mesh(tiny):
     assert len(rec["positive"]) + len(rec["negative"]) == 4
     with pytest.raises(RuntimeError, match="needs 256 devices"):
         make_production_mesh()
-    with pytest.raises(RuntimeError, match="gradient-level mesh step"):
+    with pytest.raises(RuntimeError, match="needs 512 devices"):
         make_production_mesh(multi_pod=True)
 
 

@@ -150,7 +150,7 @@ def test_refusals_match_reference(jtrain, monkeypatch, name):
 
 
 def test_mesh_other_than_host_is_refused():
-    with pytest.raises(SystemExit, match="one card"):
+    with pytest.raises(SystemExit, match="the only mesh is host"):
         train.main(_BASE + ["--mesh", "pod", "--device", "cpu"])
 
 
