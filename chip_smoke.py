@@ -303,6 +303,27 @@ Phases, each of which raises on failure (exit code non-zero):
    above the memory allocated before the plain-route prefill; K3 and K4
    at the three models' shapes in turns with their plain versions and
    SDPA, beside their bounds.
+23. the gradient-level step over a process group of one NCCL rank (the
+   (1, 1) mesh of the card): ``train.main --engine mesh`` at qwen3-0.6b's
+   full width and depth against phase 16's unsharded run, and
+   ``moe_block_shard_map`` on one qwen3-moe-235b-a22b layer against
+   ``moe_block``.
+24. the scan engine over the client axis at the main path's width
+   (``ScanConfig(shard=True)`` on a mesh of three shard positions of the
+   card; a sharded server lays out its own copy of phase 4's corpus,
+   102 rows): fedavg and fedentropy-traced in blocks of 4 rounds, each
+   step's cohort gathered on the device in one block a shard position
+   (``ClientCorpus.traced_blocks``), the client program run on each, the
+   outputs gathered on the card's first position where K1's loop
+   speculates and K2 aggregates; each block one captured graph (K1's
+   loop and K2 once a round in a replay); records and params bit for
+   bit the pipelined engine's ``shard=True`` rounds on the same mesh,
+   integer records equal to the unsharded scan's; one block with misses
+   on one-removal verdicts (``MissOnOneRemoval``) in ``"stack"`` and
+   ``"remat"``, cut after confirmed rounds, both bit for bit the
+   sequential sharded rounds and each other; then a block of 4 against 4
+   of phase 22's three-shard pipelined rounds in turns, beside the
+   card's name and power limit.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.
@@ -329,8 +350,9 @@ pipelined+miss``, and phase 16's ``lm mesh step``, ``lmstep sequential``,
 mesh step``, ``internvl2 lmstep sequential``, ``internvl2 lmstep
 pipelined`` and ``qwen3-moe mesh step``, and phase 21's
 ``torch_fl_llm_finetune example``, and phase 22's ``shard one-card
-mesh``, ``shard three shards`` and ``fedcat+maxent three shards``; they
-also
+mesh``, ``shard three shards`` and ``fedcat+maxent three shards``, and
+phase 24's ``scan shard fedavg``, ``scan shard fedentropy-traced``,
+``scan shard stack+rewind`` and ``scan shard remat+rewind``; they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
 phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18,
@@ -354,6 +376,8 @@ in turns (this, DIR, DIR, this), each in a process of its own
 152,064), (4, 152,064) and (10, 151,936), and the sweep at (10, 10), µs
 a call queued on the device and host µs; it fails unless the warp
 route's packed output equals DIR's bit for bit at each of its shapes.
+``python3 chip_smoke.py --scan-shard`` runs phase 24 alone after phase
+4's seeded set-up.
 ``python3 chip_smoke.py --width-gap`` shows what the vmap's width alone
 does to the bits at phase 4's width (:func:`width_gap`): the client
 program on 4 and on 1 of a cohort's rows against its 10-client run, and
@@ -5797,6 +5821,168 @@ def mesh_step_main() -> int:
     return 0
 
 
+# ------------------------------------- 24. the scan engine over the shards
+
+SCAN_SHARD_TURNS = 3     # timed blocks, and timed runs of 4 rounds
+
+
+def _scan_shard_integers(plain, sharded, label: str) -> None:
+    """Raises unless ``sharded``'s integer records (cohort, verdict, comm
+    bytes) equal ``plain``'s round for round."""
+    for a, b in zip(plain.history, sharded.history, strict=True):
+        for key in ("selected", "positive", "negative", "comm"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{label}: round {a['round']} {key}: "
+                                     f"{b[key]} != {a[key]}")
+    print(f"{label}: integer records equal to the unsharded scan's over "
+          f"{len(plain.history)} rounds")
+
+
+def time_scan_shard(scan, rounds, card: str) -> None:
+    """A block of SCAN_R rounds of the warm sharded scan server ``scan``
+    against SCAN_R rounds of ``rounds`` (phase 22's three-shard pipelined
+    fedentropy server, speculating), in turns (block, rounds; rounds,
+    block; block, rounds), each timed by the host clock from a
+    synchronise to a synchronise; the medians and each turn's flags.
+    One block and SCAN_R rounds run untimed first: round 9 of the block
+    misses (F5), and its cut captures a depth of its own."""
+    for server in (scan, rounds):
+        for _ in range(SCAN_R):
+            server.round()
+    times = {"block": [], "rounds": []}
+    for order in (("block", "rounds"), ("rounds", "block"),
+                  ("block", "rounds"))[:SCAN_SHARD_TURNS]:
+        for route in order:
+            server = scan if route == "block" else rounds
+            start = len(server.history)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCAN_R):
+                server.round()
+            torch.cuda.synchronize()
+            times[route].append(time.perf_counter() - t0)
+            hits = [r.get("spec_hit") for r in server.history[start:]]
+            print(f"[{card}] {route}: rounds {start}-{start + SCAN_R - 1} "
+                  f"{times[route][-1]:.5f} s, spec_hit {hits}", flush=True)
+    block = statistics.median(times["block"])
+    four = statistics.median(times["rounds"])
+    print(f"[{card}] three shard positions: a sharded scan block of "
+          f"{SCAN_R} rounds (fedentropy-traced) median {block:.5f} s of "
+          f"{times['block']}, {SCAN_R} of phase 22's three-shard pipelined "
+          f"fedentropy rounds median {four:.5f} s of {times['rounds']}; "
+          f"block / rounds {block / four:.4f}")
+
+
+def scan_shard_path(params, corpus) -> dict:
+    """Phase 24: the scan engine's blocks fanned out over three shard
+    positions of the card at the main path's width. Returns the launches
+    by path."""
+    card = _card_line()
+    mesh = [_server_device(corpus)] * 3
+    sharded_seq = fl.RuntimeConfig(shard=True, spec_backend="cuda")
+    out, timed = {}, None
+    for name in ("fedavg", "fedentropy-traced"):
+        plain = build_scan(name, params, corpus, runtime=scan_config())
+        for _ in range(SCAN_ROUNDS):
+            plain.round()
+        pip = build_scan(name, params, corpus, runtime=sharded_seq,
+                         mesh=mesh)
+        for _ in range(SCAN_ROUNDS):
+            pip.round()
+        scan = build_scan(name, params, corpus,
+                          runtime=scan_config(shard=True), mesh=mesh)
+        label = f"scan shard {name}"
+        t0 = time.perf_counter()
+        got = run_scan(scan, SCAN_ROUNDS, label)
+        stats = scan.stats()
+        progs = _block_programs(scan)
+        print(f"[{card}] {label}: {stats['shards']} shard positions, "
+              f"{stats['blocks']} blocks, {stats['mismatch_rounds']} "
+              f"natural misses, captured_block={stats['captured_block']}, "
+              f"corpus {scan.corpus.padded_num_clients} rows, launches "
+              f"{got}, {time.perf_counter() - t0:.2f} s in all; graphs: "
+              + _graphs_line(scan))
+        if not stats["captured_block"] or SCAN_R not in progs or \
+                stats["fallback_reasons"] or stats["shards"] != 3:
+            raise AssertionError(f"{label}: {stats}")
+        k1 = name != "fedavg"
+        for r, p in progs.items():
+            want = {"masked_weighted_sum": r,
+                    **({"entropy_judge_loop": r} if k1 else {})}
+            if p.launches != want:
+                raise AssertionError(f"{label}: depth {r} graph launches "
+                                     f"{p.launches} a replay, not {want}")
+        equal_to_sequential(pip, scan, f"{label}: captured block vs the "
+                            "pipelined shard=True rounds on the same mesh")
+        _scan_shard_integers(plain, scan, label)
+        out[label] = got
+        if k1:
+            timed = scan
+        del plain, pip
+        gc_collect()
+
+    # a forced miss after confirmed rounds (round 2 of the first block):
+    # the cut rewinds inside its block, to ys["params"][1] in stack and to
+    # a depth-2 sharded block's output in remat; both must be the sharded
+    # sequential rounds. One block: each depth a sharded block runs at is
+    # a capture of 2-10 s
+    pip = build_scan("fedentropy-traced", params, corpus,
+                     runtime=sharded_seq, mesh=mesh)
+    for _ in range(SCAN_SHORT):
+        pip.round()
+    runs = {}
+    for mode in ("stack", "remat"):
+        label = f"scan shard {mode}+rewind"
+        scan = build_scan("fedentropy-traced", params, corpus,
+                          judge=MissOnOneRemoval(),
+                          runtime=scan_config(shard=True, params_mode=mode),
+                          mesh=mesh)
+        got = run_scan(scan, SCAN_SHORT, label)
+        equal_to_sequential(pip, scan, f"{label}: captured vs the "
+                            "pipelined shard=True rounds")
+        misses = [r["round"] for r in scan.history if not r["spec_hit"]]
+        inside = [r["round"] for r, prev in zip(scan.history[1:],
+                                                scan.history)
+                  if not r["spec_hit"] and prev["spec_hit"]
+                  and r["round"] % SCAN_R]
+        print(f"[{card}] {label}: misses at rounds {misses}, cut after "
+              f"confirmed rounds of a block at {inside}; launches {got}; "
+              "graphs: " + _graphs_line(scan))
+        if not inside:
+            raise AssertionError(f"{label}: no block was cut after a "
+                                 "confirmed round")
+        runs[mode] = scan
+        out[label] = got
+    equal_to_sequential(runs["stack"], runs["remat"], "scan shard remat "
+                        "rewinds vs stack's", flags=False)
+    del runs, pip
+    gc_collect()
+
+    rounds = build_fl("fedentropy", params, corpus, runtime=SHARD,
+                      mesh=mesh)
+    for _ in range(SCAN_R):
+        rounds.round()
+    time_scan_shard(timed, rounds, card)
+    return out
+
+
+def scan_shard_main() -> int:
+    """``--scan-shard``: phase 24 alone, after phase 4's seeded set-up
+    (phase 22's), with the card settings of :func:`main`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    _card_settings()
+    _build.build()
+    params, corpus, _, _ = paper_setup()
+    t0 = time.perf_counter()
+    launches = scan_shard_path(params, corpus)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    print(_card_line())
+    return 0
+
+
 def _card_settings() -> None:
     """TF32 off for matmul and cuDNN, cuDNN deterministic."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5954,6 +6140,15 @@ def main() -> int:
     meshed = mesh_path(trained["records"])
     print(f"phase 23 took {time.perf_counter() - t23:.1f} s; phases 1-23 "
           f"{time.perf_counter() - _START:.1f} s")
+    _phase("24. the scan engine over the client axis at the main path's "
+           "width: blocks of 4 rounds of fedavg and fedentropy-traced, "
+           "each step's cohort gathered on the device and fanned out over "
+           "three shard positions of the card, one captured graph with "
+           "K1's loop and K2 inside it")
+    t24 = time.perf_counter()
+    scan_sharded = scan_shard_path(*setup)
+    print(f"phase 24 took {time.perf_counter() - t24:.1f} s; phases 1-24 "
+          f"{time.perf_counter() - _START:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6031,7 +6226,8 @@ def main() -> int:
                     examples["torch_fl_llm_finetune"][name],
                 **{path: n[name] for path, n in sharded.items()},
                 **{path: n[name] for path, n in
-                   meshed["launches"].items()}}
+                   meshed["launches"].items()},
+                **{path: n[name] for path, n in scan_sharded.items()}}
             row["lm_shapes"] = {
                 label: {"shape": list(t[6]), "ms": t[0], "plain_ms": t[1],
                         "library_ms": t[2], "bound_ms": t[3],
@@ -6236,4 +6432,5 @@ if __name__ == "__main__":
     sys.exit(k4_time() if "--k4-time" in sys.argv else
              k1_time() if "--k1-time" in sys.argv else
              width_gap_main() if "--width-gap" in sys.argv else
-             mesh_step_main() if "--mesh-step" in sys.argv else main())
+             mesh_step_main() if "--mesh-step" in sys.argv else
+             scan_shard_main() if "--scan-shard" in sys.argv else main())

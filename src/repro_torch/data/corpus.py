@@ -542,14 +542,63 @@ class ClientCorpus(Mapping):
         the corpus's device: no upload and no host read, so a CUDA graph
         can capture it (the scan engine's block gathers each round's
         cohort so). ``idx`` is int32 or int64. A sharded corpus has no
-        such one-device gather and raises."""
+        such one-device gather and raises: its traced gather is
+        :meth:`traced_blocks`."""
         if len(self._blocks) > 1:
             raise ValueError(
                 "a corpus sharded over a client mesh gathers through "
-                "cohort/cohort_blocks; the one-device traced gather (the "
-                "scan engine's) takes an unsharded corpus")
+                "cohort/cohort_blocks, or traced_blocks inside a captured "
+                "graph; the one-device traced gather takes an unsharded "
+                "corpus")
         out = {k: v.index_select(0, idx) for k, v in self._blocks[0].items()}
         return finish_cohort(out, self.transform, active)
+
+    def traced_blocks(self, idx: torch.Tensor, layout: torch.Tensor,
+                      active=None) -> list:
+        """:meth:`cohort_blocks` with no host step, so a CUDA graph can
+        capture it (the scan engine's sharded block gathers each round's
+        cohort so).
+
+        ``idx`` (m,) holds the cohort's global ids in ``[0, N)`` and
+        ``layout`` (n, per) the cohort positions of each block, both int
+        tensors on the corpus's device; ``layout`` is
+        :func:`repro_torch.fl.runtime.sharding.device_layout`'s, one row a
+        corpus block (n is the mesh's size). ``active`` (m,), if given,
+        are the queue's counts on that device. Block b is filled on the
+        corpus's device b and equals the host slice of its positions bit
+        for bit, pad rows included. For each block, every corpus block j
+        gathers the block's rows at their local ids (``id % per``) on its
+        own device and sends them to block b's; a select chain on the
+        owner (``id // per == j``) keeps each row's own. So it reads n
+        times the cohort's bytes, fixed shapes whatever the ids, and never
+        sums (a -0.0 or NaN row stays its bits). Each block is finished
+        (:func:`finish_cohort`) on its device."""
+        if len(layout) != len(self._blocks):
+            raise ValueError(f"{len(layout)} layout rows for "
+                             f"{len(self._blocks)} corpus blocks")
+        per = self.padded_num_clients // len(self._blocks)
+        out = []
+        for b, dst in enumerate(self._devices):
+            ids = idx.index_select(0, layout[b])
+            owner, local = ids // per, ids % per
+            block = {}
+            for j, (blk, src) in enumerate(zip(self._blocks, self._devices)):
+                at = local.to(src)
+                mine = None if j == 0 else (owner == j).to(dst)
+                for k, v in blk.items():
+                    rows = v.index_select(0, at).to(dst)
+                    block[k] = rows if mine is None else torch.where(
+                        mine.reshape((-1,) + (1,) * (rows.dim() - 1)),
+                        rows, block[k])
+            act = None if active is None \
+                else active.index_select(0, layout[b]).to(dst)
+            out.append(finish_cohort(block, self.transform, act))
+        return out
+
+    def block(self, j: int = 0) -> dict:
+        """Shard block ``j``'s arrays on its device, pad rows included (the
+        whole corpus unsharded); no copy."""
+        return self._blocks[j]
 
     def with_rows(self, clients, rows: dict) -> "ClientCorpus":
         """A new corpus on the same device, in the same layout (mesh and

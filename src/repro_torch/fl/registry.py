@@ -124,8 +124,8 @@ def build(name: str, apply_fn, init_params, client_data, config,
     as in the reference). ``drift`` is a list of
     :class:`repro_torch.data.partition.DriftEvent`. ``device`` is where
     the params, the corpus and the round's tensor work live; it defaults
-    to the card and raises when there is none. ``mesh`` (pipelined and
-    async engines) is the client mesh ``shard=True`` fans the cohort out
+    to the card and raises when there is none. ``mesh`` (pipelined, async
+    and scan engines) is the client mesh ``shard=True`` fans the cohort out
     over (:class:`repro_torch.fl.runtime.ClientMesh` or a sequence of
     devices; default every visible card); its first device is ``device``.
     """

@@ -24,6 +24,27 @@ whose plain loop reads a stop flag on the host every iteration.
 ``stats()["captured_block"]`` says which route ran. A capture that fails
 raises.
 
+**The client axis** (``ScanConfig(shard=True)``, or ``"auto"`` on
+several visible cards, the pipelined engine's rule): each step fans its
+cohort out over the server's :class:`~.sharding.ClientMesh`, as the
+reference's ``lax.scan`` does over its ``"clients"`` mesh. The server
+lays the corpus out over the mesh once, at construction
+(``ClientCorpus.laid_out``); each step gathers one block a shard position
+on its device from the cohort's ids on the device
+(:meth:`repro_torch.data.corpus.ClientCorpus.traced_blocks`, no host
+read), runs the eager client program on each shard
+(:func:`~.sharding.make_sharded_client_fn`) and gathers the outputs on the
+mesh's first device, the server's, cut to the real cohort. K1's loop, the
+aggregation, the pools' refile and the per-round outputs run there, and
+the params reach each shard's device at the next step's fan-out. On a
+mesh whose positions all name the server's card the block is one captured
+graph, as above. On a mesh over distinct cards it runs eagerly (a CUDA
+graph is captured on one card's streams), decided from the mesh before
+any launch and shown in ``stats()["captured_block"]``. The records are
+the sequential server's; the params equal the pipelined engine's
+``shard=True`` rounds on the same mesh bit for bit (the same per-shard
+programs), and part from the unsharded engine's only by the vmap's width.
+
 **Selection** (``ScanConfig.selection``):
 
 * ``"replay"`` (default): the host draws all R cohorts from the real
@@ -89,6 +110,7 @@ from ..graph_cache import BoundedGraphCache, CapturedProgram, capture_enabled
 from ..registry import register
 from ..selectors import TracedPoolSelector, UniformSelector
 from .engine import PipelinedServer, RuntimeConfig
+from .sharding import ShardBlocks, device_layout, make_sharded_client_fn
 
 log = logging.getLogger(__name__)
 
@@ -105,10 +127,11 @@ class ScanConfig:
 
     ``spec_backend`` is the block's device judge, ``"cuda"`` (K1's loop,
     the default) or ``"torch"`` (the plain loop, which runs the block
-    eagerly); ``shard`` and ``donate_data`` as in ``RuntimeConfig``, but
-    a block is one CUDA graph on one device, so ``shard=True`` raises
-    (ROADMAP queue 1, "the scan engine's shard=True") and ``"auto"`` runs
-    on the server's device; ``donate_data`` changes nothing.
+    eagerly). ``shard`` as in ``RuntimeConfig``: ``True`` fans each block
+    step's cohort out over the server's client mesh (``fl.build(...,
+    mesh=...)``, default every visible card), ``"auto"`` does so on
+    several visible cards and never on the CPU, ``False`` never.
+    ``donate_data`` changes nothing.
     """
     rounds_per_scan: int = 4      # R rounds a block
     spec_backend: str = "cuda"    # the block's device judge
@@ -126,21 +149,13 @@ class ScanConfig:
         if self.params_mode not in _PARAMS_MODES:
             raise ValueError(f"unknown params_mode {self.params_mode!r}; "
                              f"expected one of {_PARAMS_MODES}")
-        if self.shard is True:
-            raise NotImplementedError(
-                "ScanConfig(shard=True): a scan block is one CUDA graph on "
-                "one device, and a block over several devices is not "
-                "ported: ROADMAP queue 1, \"the scan engine's shard=True\"; "
-                "the pipelined and async engines shard the client axis")
         self.runtime()          # spec_backend and shard, checked there
 
     def runtime(self) -> RuntimeConfig:
         """The inherited engine's config: speculation per round off (the
-        block speculates), the same device judge; one device (a block is
-        one graph), so ``"auto"`` never shards."""
-        return RuntimeConfig(speculate=False,
-                             shard=False if self.shard == "auto"
-                             else self.shard,
+        block speculates), the same device judge, ``shard`` unchanged (the
+        inherited constructor lays the corpus out over the mesh)."""
+        return RuntimeConfig(speculate=False, shard=self.shard,
                              spec_backend=self.spec_backend,
                              donate_data=self.donate_data)
 
@@ -294,15 +309,20 @@ class ScanServer(PipelinedServer):
     def _capture_block(self) -> bool:
         """True when the block runs as one captured graph: on the card,
         outside ``disable_capture()``, with K1's loop as the device judge
-        (the plain loop reads the host)."""
+        (the plain loop reads the host), unsharded or on a mesh whose
+        positions all name the server's card (a graph is captured on one
+        card's streams; a mesh over distinct cards runs eagerly)."""
+        mesh = self._fanout
         return (self.device.type == "cuda" and capture_enabled()
-                and self.runtime.spec_backend == "cuda")
+                and self.runtime.spec_backend == "cuda"
+                and (mesh is None or set(mesh.devices) == {mesh.home}))
 
     def stats(self) -> dict:
         """The engine's state: the effective R, why a fold was refused
         (empty when folding), the modes, the block and mismatch counts,
-        and whether the last block ran as a captured graph (None before
-        any block)."""
+        whether the last block ran as a captured graph (None before any
+        block), and the shard positions a step fans out over (1
+        unsharded)."""
         self.scan_rounds()
         sel_stats = getattr(self.selector, "stats", dict)()
         return {
@@ -317,6 +337,7 @@ class ScanServer(PipelinedServer):
             "blocks": self._blocks,
             "mismatch_rounds": self._mismatch_rounds,
             "captured_block": self._captured_block,
+            "shards": 1 if self._fanout is None else len(self._fanout),
             "selector": sel_stats,
         }
 
@@ -335,8 +356,14 @@ class ScanServer(PipelinedServer):
         where one is carried, and in ``"stack"`` mode the params after the
         round. Pure in its inputs: the warm-up before a capture changes
         nothing.
+
+        Sharded, each step gathers its cohort in one block a shard
+        position (``ClientCorpus.traced_blocks`` on the layout
+        :func:`~.sharding.device_layout` builds on the device) and fans
+        the eager client program out over the mesh
+        (:func:`~.sharding.make_sharded_client_fn`), whose outputs come
+        back to the server's device cut to the m real rows.
         """
-        client = self._eager_fn
         spec_fn = self._traced_judge_fn()
         agg = self.aggregator
         corpus = self.corpus
@@ -345,6 +372,17 @@ class ScanServer(PipelinedServer):
                          and not pool_fold)
         n = self.config.num_clients
         m = min(self.config.cohort_size(), n)
+        mesh = self._fanout
+        if mesh is None:
+            client, gather = self._eager_fn, corpus.traced_cohort
+        else:
+            client = make_sharded_client_fn(
+                self.apply_fn, self.strategy.spec, self._client_in_axes(),
+                mesh, inner=self._eager_fn, inner_axes=())
+
+            def gather(sel):
+                return ShardBlocks(corpus.traced_blocks(
+                    sel, device_layout(m, len(mesh), sel.device)), m)
         eps = self.selector.eps if pool_fold else 0.0
         shapes = self.block_ys_shapes(r)
 
@@ -362,8 +400,7 @@ class ScanServer(PipelinedServer):
                         .to(torch.int32)
                 else:
                     sel = rows[j]
-                out = client(params, corpus.traced_cohort(sel),
-                             None, None, None)
+                out = client(params, gather(sel), None, None, None)
                 sizes32 = out["size"].to(torch.float32)
                 jr = spec_fn(out["soft_label"].to(torch.float32), sizes32)
                 params = agg(params, out, sizes32, jr.mask)
@@ -395,13 +432,15 @@ class ScanServer(PipelinedServer):
         """The cache key of a depth-``r`` block graph. The graph gathers
         from this corpus's tensors, so the corpus is in the key, pinned:
         the entry keeps it alive, and a later corpus never takes its
-        address while the entry lives."""
+        address while the entry lives. The mesh's devices (None
+        unsharded) keep sharded and unsharded blocks apart."""
         m = min(self.config.cohort_size(), self.config.num_clients)
+        mesh = None if self._fanout is None else self._fanout.devices
         return (("scan-block", r, self.scan_config.selection,
                  self.scan_config.params_mode, self._pool_fold(),
                  self.selector.eps if self._pool_fold() else 0.0,
                  self.runtime.spec_backend, self.aggregator, self.judge,
-                 _Pinned(self.corpus)) + self._client_key(m))
+                 _Pinned(self.corpus), mesh) + self._client_key(m))
 
     def _block_program(self, r: int, args: tuple):
         """The depth-``r`` block for ``args``: a captured graph from
@@ -418,13 +457,16 @@ class ScanServer(PipelinedServer):
     def _soft_label_dtypes(self) -> tuple[int, torch.dtype, torch.dtype]:
         """(classes, soft-label dtype, size dtype) of the client program's
         outputs, from the model's forward on meta tensors (nothing
-        runs)."""
-        x = torch.as_tensor(self.corpus["x"][:1, :1]).to("meta")[0]
+        runs). It reads one row of the corpus's first block (a laid-out
+        corpus's ``corpus["x"]`` concatenates every block)."""
+        block = getattr(self.corpus, "block", None)
+        arrays = self.corpus if block is None else block(0)
+        x = torch.as_tensor(arrays["x"][:1, :1]).to("meta")[0]
         if self.corpus.transform is not None:
             x = self.corpus.transform(x)
         params = pytree.tree_map(lambda t: t.to("meta"), self.global_params)
         logits = self.apply_fn(params, x)[0]
-        w = torch.as_tensor(self.corpus["w"][:1, :1]).dtype
+        w = torch.as_tensor(arrays["w"][:1, :1]).dtype
         return (int(logits.shape[-1]), torch.promote_types(logits.dtype, w),
                 w)
 
@@ -432,7 +474,9 @@ class ScanServer(PipelinedServer):
         """A depth-``r`` block's per-round outputs as meta tensors (shape
         and dtype; nothing runs). A ``"remat"`` block has no ``"params"``:
         its footprint is O(cohort x classes) a round, whatever the model's
-        size."""
+        size. A sharded block's are the same: the fan-out's outputs are
+        cut to the m real rows on the server's device before they are
+        written."""
         R = int(r) if r is not None else self.scan_rounds()
         m = min(self.config.cohort_size(), self.config.num_clients)
         c, soft_dtype, size_dtype = self._soft_label_dtypes()

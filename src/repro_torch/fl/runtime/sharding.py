@@ -20,8 +20,10 @@ ClientCorpus.shard` pads the *resident* client axis with zero rows so an
 uneven N splits into equal blocks, while this module pads the *gathered
 cohort* so an uneven |S_t| does — two independent axes of the same
 uneven-mesh contract. A corpus laid out over the same mesh fills each
-cohort block on that block's device (``cohort_blocks``), and the fan-out
-takes the blocks as they are (:class:`ShardBlocks`).
+cohort block on that block's device (``cohort_blocks``, from host ids;
+``traced_blocks``, from ids on the device, inside the scan engine's
+captured block), and the fan-out takes the blocks as they are
+(:class:`ShardBlocks`).
 
 A mesh may name one device more than once: that is how the CPU tests and
 a one-card run form several shards (the counterpart of the reference's
@@ -44,7 +46,8 @@ from ..server import _make_client_fn
 
 __all__ = [
     "CLIENT_AXIS", "ClientMesh", "ShardBlocks", "client_mesh_from",
-    "make_client_mesh", "make_sharded_client_fn", "pad_to_multiple",
+    "device_layout", "make_client_mesh", "make_sharded_client_fn",
+    "pad_to_multiple",
 ]
 
 
@@ -117,6 +120,16 @@ def pad_to_multiple(tree, multiple: int):
     the caller afterwards, so repeating real rows keeps every op
     well-conditioned."""
     return pytree.tree_map(lambda x: _pad_leaf(x, multiple), tree)
+
+
+def device_layout(m: int, n: int, device) -> torch.Tensor:
+    """``pad_to_multiple(np.arange(m), n).reshape(n, -1)`` made on
+    ``device`` by one fill and one clamp, with no upload, so a captured
+    graph can build it: the cohort positions of each of n blocks, the
+    last position repeated into the pad (int64)."""
+    per = -(-m // n)
+    return torch.arange(n * per, device=device).clamp(max=m - 1) \
+        .reshape(n, per)
 
 
 class ShardBlocks:

@@ -325,9 +325,8 @@ def test_scan_config_validation():
         ScanConfig(rounds_per_scan=4, params_mode="checkpoint")
     with pytest.raises(ValueError, match="unknown spec_backend 'xla'"):
         ScanConfig(spec_backend="xla")
-    with pytest.raises(NotImplementedError,
-                       match="the scan engine's shard=True"):
-        ScanConfig(shard=True)
+    assert ScanConfig(shard=True).runtime().shard is True
+    assert ScanConfig().runtime().shard == "auto"     # the pipelined rule
     with pytest.raises(ValueError, match="shard must be"):
         ScanConfig(shard="yes")
     cfg = ScanConfig(shard=False, donate_data=False)
