@@ -305,7 +305,10 @@ Phases, each of which raises on failure (exit code non-zero):
    SDPA, beside their bounds.
 23. the gradient-level step over a process group of one NCCL rank (the
    (1, 1) mesh of the card): ``train.main --engine mesh`` at qwen3-0.6b's
-   full width and depth against phase 16's unsharded run, and
+   full width and depth against phase 16's unsharded run; the
+   microbatched step (2 microbatches, 3 steps, K1's loop judging once a
+   step) on the mesh bit for bit its unsharded run, its masks those of
+   the unbatched mesh step on the same batch; and
    ``moe_block_shard_map`` on one qwen3-moe-235b-a22b layer against
    ``moe_block``.
 24. the scan engine over the client axis at the main path's width
@@ -352,7 +355,10 @@ pipelined`` and ``qwen3-moe mesh step``, and phase 21's
 ``torch_fl_llm_finetune example``, and phase 22's ``shard one-card
 mesh``, ``shard three shards`` and ``fedcat+maxent three shards``, and
 phase 24's ``scan shard fedavg``, ``scan shard fedentropy-traced``,
-``scan shard stack+rewind`` and ``scan shard remat+rewind``; they also
+``scan shard stack+rewind`` and ``scan shard remat+rewind``, and phase
+23's ``lm mesh step (1-rank NCCL group)``, ``lm microbatched step
+(unsharded)`` and ``lm microbatched mesh step (1-rank NCCL group)``;
+they also
 carry ``lm_shapes``, phase 16's times at the LM shapes. K3 and K4 carry
 ``launches_by_path`` (``zamba2 serve``, phase 7, ``qwen3-moe serve``,
 phase 17, ``whisper serve`` and ``internvl2 serve``, phase 18,
@@ -5615,10 +5621,11 @@ def shard_path(params, corpus) -> dict:
 # ------------------------------------------ 23. the mesh step over a group
 
 MESH_RTOL = 1e-6        # the mesh step's loss and grad norm vs phase 16's
+MESH_MICRO = 2          # microbatches of the microbatched mesh step
 
 
 def _mesh_moe(mesh) -> dict:
-    """(b) ``moe_block_shard_map`` on one qwen3-moe-235b-a22b layer at
+    """(d) ``moe_block_shard_map`` on one qwen3-moe-235b-a22b layer at
     its published widths over 4 x 1024 tokens (phase 17's prefill shape;
     random, with a shared direction so that some are dropped) against
     ``moe_block`` on the same module and input: every
@@ -5685,8 +5692,8 @@ def mesh_path(recs_16: list) -> dict:
     against phase 16's unsharded run of the same argv and seed (masks
     equal, loss and grad norm within MESH_RTOL), K1 once a step, the
     collectives a step counted; then one more step profiled (step s,
-    idle share) and the peak. (b) :func:`_mesh_moe`. The group is
-    destroyed at the end."""
+    idle share) and the peak. (c) :func:`_mesh_micro`, the microbatched
+    step. (d) :func:`_mesh_moe`. The group is destroyed at the end."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding.ctx import use_mesh
@@ -5761,13 +5768,14 @@ def mesh_path(recs_16: list) -> dict:
             params = lay_out_params({k: v.detach() for k, v in
                                      model.params().items()}, mesh)
             state = opt.init(params)
-            walls = []
+            walls, unbatched = [], []
             for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                params, state, _ = step(params, state, batch)
+                params, state, met = step(params, state, batch)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
+                unbatched.append(met)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -5782,14 +5790,133 @@ def mesh_path(recs_16: list) -> dict:
               f"{1 - busy / wall:.3f} (profiler on)")
         del params, state, step, model
         gc_collect()
+        micro = _mesh_micro(mesh, cfg, args, batch, unbatched)
+        gc_collect()
         moe = _mesh_moe(mesh)
     finally:
         dist.destroy_process_group()
         import shutil
         shutil.rmtree(store, ignore_errors=True)
-    return {"launches": {"lm mesh step (1-rank NCCL group)": launches},
+    return {"launches": {"lm mesh step (1-rank NCCL group)": launches,
+                         **micro.pop("launches")},
             "step_s": statistics.median(walls[1:]), "idle": 1 - busy / wall,
-            "peak_bytes": peak, "collective_bytes": per_step, **moe}
+            "peak_bytes": peak, "collective_bytes": per_step,
+            "micro": micro, **moe}
+
+
+def _micro_run(mesh, cfg, args, batch) -> dict:
+    """TRAIN_STEPS steps of the donated microbatched step
+    (MESH_MICRO microbatches, K1's loop judging) from the seeded init on
+    ``batch``: plain tensors, or with ``mesh`` under ``use_mesh`` with
+    the params replicated. Each step's metrics, the final params (plain
+    tensors), K1's launches, each step's seconds, one more step profiled
+    (wall, busy) and the peak above the memory held before."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.distributed import (lay_out_params,
+                                              make_microbatched_train_step)
+    from repro_torch.sharding.ctx import use_mesh
+    gc_collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEV, kernels="torch", seed=args.seed)
+    opt = sgd(lr=args.lr, momentum=0.5)
+    step = make_microbatched_train_step(
+        model, opt, FedSpec(num_clients=args.clients), MESH_MICRO,
+        judge_fn=fl.MaxEntropyJudge("cuda").traced(), donate=True)
+    params = {k: v.detach() for k, v in model.params().items()}
+    mets, walls = [], []
+    with (use_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        if mesh is not None:
+            params = lay_out_params(params, mesh)
+        state = opt.init(params)
+        _reset_counts()
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            mets.append(met)
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        final = {k: (v.full_tensor() if mesh is not None else v).clone()
+                 for k, v in params.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    del params, state, step, model
+    return {"mets": mets, "params": final, "launches": launches,
+            "walls": walls, "wall": wall, "busy": _busy_s(prof),
+            "peak": peak}
+
+
+def _mesh_micro(mesh, cfg, args, batch, unbatched: list) -> dict:
+    """(c) the microbatched step at qwen3-0.6b's full width and depth:
+    MESH_MICRO microbatches, TRAIN_STEPS steps, K1's loop judging once a
+    step, unsharded and on the (1, 1) mesh (params replicated) from the
+    same seed on phase 23's batch. The mesh run bit for bit the unsharded
+    one (every metric and param); its masks equal to phase 23's unbatched
+    mesh step on the same batch and init (``unbatched``), loss and grad
+    norm within MESH_RTOL; K1's loop once a step in both; each run's step
+    seconds, idle share and peak."""
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        runs[name] = _micro_run(m, cfg, args, batch)
+        gc_collect()
+    plain, meshed = runs["plain"], runs["mesh"]
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["entropy_judge_loop"] = TRAIN_STEPS
+    for name, r in runs.items():
+        if r["launches"] != want:
+            raise AssertionError(f"microbatched step ({name}) launches "
+                                 f"{r['launches']}")
+    for i, (a, b) in enumerate(zip(plain["mets"], meshed["mets"])):
+        if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k])
+                                             for k in a):
+            raise AssertionError(f"microbatched step {i}: the mesh run's "
+                                 "metrics are not the unsharded run's bits")
+    differ = [k for k, v in plain["params"].items()
+              if not torch.equal(v, meshed["params"][k])]
+    if differ:
+        raise AssertionError(f"microbatched step: {len(differ)} params "
+                             f"differ from the unsharded run's: {differ[:3]}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(unbatched, meshed["mets"])):
+        if not torch.equal(a["mask"], b["mask"]):
+            raise AssertionError(f"microbatched step {i}: mask "
+                                 f"{b['mask'].tolist()}, the unbatched "
+                                 f"step's {a['mask'].tolist()}")
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(float(a[key]) - float(b[key])) /
+                        abs(float(a[key])))
+    if worst > MESH_RTOL:
+        raise AssertionError(f"microbatched step vs unbatched: loss or grad "
+                             f"norm {worst:.3e} apart (limit {MESH_RTOL})")
+    out = {"launches": {
+        "lm microbatched step (unsharded)": plain["launches"],
+        "lm microbatched mesh step (1-rank NCCL group)":
+            meshed["launches"]}}
+    for name, r in runs.items():
+        idle = 1 - r["busy"] / r["wall"]
+        out[name] = {"step_s": statistics.median(r["walls"][1:]),
+                     "idle": idle, "peak_bytes": r["peak"]}
+        print(f"microbatched step ({name}, {MESH_MICRO} microbatches, "
+              f"donated): launches {r['launches']['entropy_judge_loop']} "
+              f"of K1's loop in {TRAIN_STEPS} steps; step s "
+              f"{[round(w, 4) for w in r['walls']]} (median of the last 2 "
+              f"{out[name]['step_s']:.4f} s); profiled: wall "
+              f"{r['wall']:.4f} s, device busy {r['busy']:.4f} s, idle share "
+              f"{idle:.3f} (profiler on); peak {_gib(r['peak'])} above the "
+              f"memory held before")
+    print(f"microbatched mesh step: every metric and all "
+          f"{len(plain['params'])} params bit for bit the unsharded "
+          f"microbatched step's over {TRAIN_STEPS} steps; masks equal to "
+          f"the unbatched mesh step's, loss and grad norm within "
+          f"{worst:.3e} relative (limit {MESH_RTOL:.0e})")
+    return out
 
 
 def width_gap_main() -> int:
@@ -6134,7 +6261,8 @@ def main() -> int:
     _phase(f"23. the gradient-level step over a process group: one NCCL "
            f"rank, the (1, 1) mesh of the card; train.main --engine mesh "
            f"at qwen3-0.6b's full width and depth against phase 16's "
-           f"unsharded run, and moe_block_shard_map on one {MOE_ARCH} "
+           f"unsharded run, the microbatched step on the mesh against "
+           f"its unsharded run, and moe_block_shard_map on one {MOE_ARCH} "
            f"layer against moe_block")
     t23 = time.perf_counter()
     meshed = mesh_path(trained["records"])

@@ -32,14 +32,19 @@ replicated, as the reference's ``run_mesh_engine`` leaves them, or by
 :func:`param_logical_axes`, the dry-run's), the batch is laid out on the
 ``"batch"`` rule (``batch_logical_axes``), every op of the model runs on
 DTensors and the ``shard_act`` sites redistribute the hot activations,
-as the reference's ``with_sharding_constraint`` under pjit. The soft
-labels are gathered to a plain tensor on every rank, so the judge (K1's
-loop on the ``"cuda"`` route) reads raw device memory; every rank judges
-the same (M, V) and gets the same mask, which re-enters as a replicated
-DTensor. Each gradient is redistributed to its parameter's placement
-(an all-reduce or a reduce-scatter of the partial sums) before the
-update; the metrics come back as plain, replicated tensors. Outside a
-context the step is the one-card step above, op for op.
+as the reference's ``with_sharding_constraint`` under pjit. The
+products run on each rank's blocks after the FSDP weight's gather
+(``sharding.ctx.sharded_matmul``), so the logits and their gradient
+stay split over the batch and the vocabulary, and the softmax,
+log-softmax and target pick are vocab-parallel (``sharding.vocab``).
+The soft labels are gathered to a plain tensor on every rank, so the
+judge (K1's loop on the ``"cuda"`` route) reads raw device memory; every
+rank judges the same (M, V) and gets the same mask, which re-enters as a
+replicated DTensor. Each gradient is redistributed to its parameter's
+placement (an all-reduce or a reduce-scatter of the partial sums) before
+the update; the metrics come back as plain, replicated tensors. The
+microbatched step runs under a mesh the same way. Outside a context the
+steps are the one-card steps above, op for op.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from typing import Any, Callable
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -55,6 +61,7 @@ from ..models.api import Model
 from ..models.layers import logits_apply
 from ..models.transformer import token_nll
 from ..optim import Optimizer
+from ..sharding import vocab
 from ..sharding.ctx import current, shard_act
 from ..sharding.specs import distribute_full, tree_shardings
 from .judgment import judge
@@ -114,7 +121,7 @@ def chunked_head_stats(cfg: ModelConfig, tok_params: dict, h: torch.Tensor,
 def per_client_soft_labels(logits: torch.Tensor, m: int) -> torch.Tensor:
     """(B, S, V) -> (M, V) mean softmax per client group (paper Eq. 2)."""
     b, s, v = logits.shape
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    probs = vocab.softmax(logits)
     soft = probs.reshape(m, (b // m) * s, v).mean(dim=1)
     return shard_act(soft, ("fl_clients", "vocab"))
 
@@ -148,7 +155,8 @@ def replicated(x: torch.Tensor, mesh) -> DTensor:
 
 def placed_like(g, p):
     """Gradient ``g`` in the placement of its parameter ``p`` (partial
-    sums all-reduced or reduce-scattered), never ``Partial``."""
+    sums all-reduced or reduce-scattered), never ``Partial``; a plain
+    ``g`` as it is."""
     if isinstance(p, DTensor) and tuple(g.placements) != \
             tuple(p.placements):
         g = g.redistribute(p.device_mesh, p.placements)
@@ -338,10 +346,21 @@ def _split(batch: dict, m: int, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _zeros_placed(p, device) -> torch.Tensor:
+    """A float32 gradient accumulator for parameter ``p``: zeros of its
+    shape, a DTensor in its placements where it is one (on ``device``
+    otherwise)."""
+    if isinstance(p, DTensor):
+        return dtensor_zeros(p.shape, dtype=torch.float32,
+                             device_mesh=p.device_mesh,
+                             placements=p.placements)
+    return torch.zeros(p.shape, dtype=torch.float32, device=device)
+
+
 def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
                                  num_microbatches: int,
-                                 judge_fn: Callable | None = None
-                                 ) -> Callable:
+                                 judge_fn: Callable | None = None, *,
+                                 donate: bool = False) -> Callable:
     """The two-phase microbatched round — the paper's two-stage protocol
     made literal, and the memory lever when a full global batch's
     activations do not fit:
@@ -352,7 +371,17 @@ def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
     gradients accumulated over the same microbatches with the judged mask
     weighting each client's loss.
 
-    ``judge_fn`` as in :func:`make_train_step`.
+    ``judge_fn`` and ``donate`` as in :func:`make_train_step`; the
+    metrics are the reference's (loss, mask, num_positive, entropy,
+    entropy_initial, per_client_loss) and ``grad_norm``, the norm of the
+    averaged gradient.
+
+    Under ``sharding.ctx.use_mesh`` it runs as :func:`make_train_step`
+    does: the batch laid out on the ``"batch"`` rule, each microbatch
+    keeping each client's rows on their shard; phase 1's soft labels
+    gathered once a step for the judge and the mask replicated; the
+    gradient accumulators DTensors placed like their params, each
+    microbatch's gradient brought to that placement before it is added.
     """
     cfg = model.cfg
     if judge_fn is None:
@@ -360,6 +389,9 @@ def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
     n = num_microbatches
 
     def train_step(params, opt_state, batch):
+        ctx = current()
+        if ctx is not None:
+            batch = distribute_batch(batch, ctx)
         m = fed.num_clients
         mbs = _split({k: v for k, v in batch.items()
                       if k != "client_sizes"}, m, n)
@@ -370,12 +402,13 @@ def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
             with torch.no_grad():
                 soft = sum(per_client_soft_labels(model.apply(params, mb)[0],
                                                   m) for mb in mbs) / n
-        mask, ent, ent0 = _judged(fed, judge_fn, soft, sizes, dev)
+        mask, ent, ent0 = _judged(fed, judge_fn, _full(soft), sizes, dev)
+        if ctx is not None:
+            mask = replicated(mask, ctx.mesh)
         w = mask * sizes
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        grads = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
-                 for k, v in params.items()}
+        grads = {k: _zeros_placed(v, dev) for k, v in params.items()}
         loss_sum, cl_sum = 0.0, 0.0
         for mb in mbs:
             with torch.enable_grad():
@@ -385,11 +418,11 @@ def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
                 total = loss + cfg.router_aux_weight * aux
             for k, g in zip(leaves, torch.autograd.grad(
                     total, list(leaves.values()))):
-                grads[k] += g
+                grads[k] += placed_like(g, params[k])
             loss_sum = loss_sum + loss.detach()
             cl_sum = cl_sum + cl.detach()
+        del leaves
         grads = {k: g / n for k, g in grads.items()}
-        new_params, new_state = opt.update(grads, opt_state, params)
         metrics = {
             "loss": loss_sum / n,
             "mask": mask,
@@ -397,7 +430,15 @@ def make_microbatched_train_step(model: Model, opt: Optimizer, fed: FedSpec,
             "entropy": ent,
             "entropy_initial": ent0,
             "per_client_loss": cl_sum / n,
+            "grad_norm": _grad_norm(grads),
         }
+        if ctx is not None:
+            metrics = {k: _full(v) for k, v in metrics.items()}
+        if donate:
+            new_params, new_state = _update_donated(opt, grads, opt_state,
+                                                    params)
+        else:
+            new_params, new_state = opt.update(grads, opt_state, params)
         return new_params, new_state, metrics
 
     return train_step

@@ -36,6 +36,14 @@ def entropy_np(p: np.ndarray, axis: int = -1) -> np.ndarray:
     return -np.sum(plogp, axis=axis)
 
 
+def soft_label(logits: torch.Tensor) -> torch.Tensor:
+    """Device soft label from per-sample logits (paper Eq. 2).
+
+    logits: (num_samples, num_classes) -> (num_classes,) mean softmax.
+    """
+    return torch.softmax(logits, dim=-1).mean(dim=0)
+
+
 def masked_soft_label_mean(soft_labels: torch.Tensor, sizes: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Size-weighted mean soft label over the active device set (Eq. 4 inner).
@@ -77,6 +85,13 @@ def leave_one_out_entropies(soft_labels: torch.Tensor, sizes: torch.Tensor,
 
 
 # ---------------------------------------------------------------- numpy refs
+
+def soft_label_np(logits: np.ndarray) -> np.ndarray:
+    z = logits - logits.max(axis=-1, keepdims=True)
+    p = np.exp(z)
+    p /= p.sum(axis=-1, keepdims=True)
+    return p.mean(axis=0)
+
 
 def group_entropy_np(soft_labels: np.ndarray, sizes: np.ndarray,
                      mask: np.ndarray) -> float:

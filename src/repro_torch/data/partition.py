@@ -126,6 +126,13 @@ def stack_clients(x, y, parts, batch_multiple: int = 1):
     return {"x": xs, "y": ys, "w": ws}
 
 
+def label_histogram(y, parts, num_classes):
+    """(num_clients, num_classes) label counts of each client's ``parts``
+    indices into ``y``."""
+    return np.stack([np.bincount(y[p], minlength=num_classes)
+                     for p in parts])
+
+
 # --------------------------------------------------------------- drift
 
 @dataclass(frozen=True)

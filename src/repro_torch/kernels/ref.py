@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.ctx import splittable
+from ..sharding.ctx import attention_on_ranks
 
 NEG_INF = -1e30          # score of a masked key, as in the JAX package
 BLOCK_K = 512            # keys a step of :func:`mha_blockwise`
@@ -35,15 +35,45 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     all values uniformly. Accumulates in float32 (float64 for float64
     inputs); returns q's dtype.
     """
+    split = attention_on_ranks(mha_reference, log_sum_exp, q, k, v,
+                               causal=causal, window=window,
+                               q_offset=q_offset, kv_positions=kv_positions,
+                               scale=scale)
+    if split is not None:
+        return split
+    b, s, h, d = q.shape
+    logits = _masked_logits(q, k, causal, window, q_offset, kv_positions,
+                            scale)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(logits.dtype))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def log_sum_exp(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                window: int = 0, q_offset: torch.Tensor | int = 0,
+                kv_positions: torch.Tensor | None = None,
+                scale: float | None = None, **_) -> torch.Tensor:
+    """(B, S, H): the log-sum-exp of each query's masked scores in
+    :func:`mha_reference` (the arguments its own), in float32 (float64
+    for float64 inputs). Two blocks of keys attended apart merge through
+    it (``sharding.ctx.attention_on_ranks``)."""
+    b, s, h, _ = q.shape
+    lse = torch.logsumexp(_masked_logits(q, k, causal, window, q_offset,
+                                         kv_positions, scale), dim=-1)
+    return lse.permute(0, 3, 1, 2).reshape(b, s, h)
+
+
+def _masked_logits(q, k, causal, window, q_offset, kv_positions, scale
+                   ) -> torch.Tensor:
+    """(B, KH, G, S, T): :func:`mha_reference`'s scaled scores in the
+    accumulation dtype, -1e30 where a key is masked."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = d ** -0.5 if scale is None else scale
     dev = q.device
     f = _acc_dtype(q)
-    # a DTensor whose heads are split over ranks that do not divide the
-    # kv heads is gathered on them first
-    qq = splittable(q, 2, kh).reshape(b, s, kh, g, d).to(f)
+    qq = q.reshape(b, s, kh, g, d).to(f)
     logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(f)) * scale
     q_pos = _query_positions(s, q_offset, dev)                   # (1|B, S)
     if kv_positions is None:
@@ -53,11 +83,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_pos = kv_positions.to(dev)
         valid = kv_pos >= 0
     mask = _key_mask(q_pos, kv_pos, valid, causal, window)       # (B,S,T)
-    logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.full((), NEG_INF, device=dev))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(f))
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return torch.where(mask[:, None, None, :, :], logits,
+                       torch.full((), NEG_INF, device=dev))
 
 
 def _query_positions(s: int, q_offset, dev) -> torch.Tensor:
@@ -244,6 +271,12 @@ def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that sees no key at all, which averages the padded values too, as
     the reference's does. Queries are scaled before the product, as
     there. Accumulates in float32 (float64 for float64 inputs)."""
+    split = attention_on_ranks(mha_blockwise, log_sum_exp, q, k, v,
+                               causal=causal, window=window,
+                               q_offset=q_offset, kv_positions=kv_positions,
+                               scale=scale, block_k=block_k)
+    if split is not None:
+        return split
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -257,7 +290,7 @@ def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_pos = (torch.arange(t, device=dev)[None, :] if kv_positions is None
               else kv_positions.to(dev))
     kv_pos = F.pad(kv_pos, (0, pad), value=-1).expand(b, t + pad)
-    qq = splittable(q, 2, kh).reshape(b, s, kh, g, d).to(f) * scale
+    qq = q.reshape(b, s, kh, g, d).to(f) * scale
     carry = (torch.full((b, kh, g, s), NEG_INF, dtype=f, device=dev),
              torch.zeros((b, kh, g, s), dtype=f, device=dev),
              torch.zeros((b, kh, g, s, d), dtype=f, device=dev))

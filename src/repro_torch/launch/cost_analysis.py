@@ -37,6 +37,15 @@ cache; a DTensor by its local block) before the call, so the peak holds
 them; ``memory_analysis`` gives the
 reference's ``argument_size_in_bytes``, ``output_size_in_bytes`` and
 ``temp_size_in_bytes`` (the peak above the arguments).
+
+With ``log=True`` the counter also keeps one row a counted op, in call
+order (:data:`LOG_COLUMNS`; :meth:`write_log` writes them as
+tab-separated lines), what the port has in place of the reference's
+compiled HLO text: the sums of its ``flops``, ``hbm_bytes`` and
+``collective_bytes`` columns are the totals, and the largest
+``live_bytes`` is ``peak_bytes`` (the first row, ``<arguments>``, holds
+the arguments alone). The op at which ``live_bytes`` peaks is where a
+call's memory goes.
 """
 from __future__ import annotations
 
@@ -73,6 +82,10 @@ COLLECTIVE_KINDS = {
 _C10D = ("_c10d_functional", "_c10d_functional_autograd", "c10d")
 
 
+LOG_COLUMNS = ("op", "out_shapes", "dtype", "flops", "hbm_bytes",
+               "live_bytes", "collective", "collective_bytes")
+
+
 def _tensors(tree) -> list[torch.Tensor]:
     """The tensors of ``tree``, a DTensor as its local block."""
     return [t._local_tensor if isinstance(t, DTensor) else t
@@ -90,8 +103,9 @@ class CostCounter(TorchDispatchMode):
     (see the module's docstring). Use as a context manager around one
     call, after :meth:`track` of its arguments."""
 
-    def __init__(self):
+    def __init__(self, log: bool = False):
         super().__init__()
+        self.log: list[tuple] | None = [] if log else None
         self.flops = 0
         self.hbm_bytes = 0
         self.by_op: dict[str, dict] = defaultdict(
@@ -122,7 +136,31 @@ class CostCounter(TorchDispatchMode):
         returns their bytes (each storage once)."""
         n = sum(self._add(t.untyped_storage()) for t in _tensors(tree))
         self.argument_bytes += n
+        if self.log is not None:
+            self.log.append(("<arguments>", "", "", 0, 0, self.live_bytes,
+                             "", 0))
         return n
+
+    def _row(self, packet, outs, flops=0, hbm=0, kind=None, coll=0):
+        if self.log is None:
+            return
+        shapes = ";".join("x".join(map(str, t.shape)) for t in outs)
+        dtype = ";".join(sorted({str(t.dtype).replace("torch.", "")
+                                 for t in outs}))
+        self.log.append((packet.__name__, shapes, dtype, flops, hbm,
+                         self.live_bytes, kind or "", coll))
+
+    def write_log(self, path: str) -> int:
+        """Writes the op log (``log=True``) to ``path``, a header line of
+        :data:`LOG_COLUMNS` and one tab-separated line a row; returns the
+        rows written."""
+        if self.log is None:
+            raise ValueError("the counter was made without log=True")
+        with open(path, "w") as f:
+            f.write("\t".join(LOG_COLUMNS) + "\n")
+            for row in self.log:
+                f.write("\t".join(map(str, row)) + "\n")
+        return len(self.log)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -153,10 +191,12 @@ class CostCounter(TorchDispatchMode):
         kind = (COLLECTIVE_KINDS.get(packet.__name__)
                 if func.namespace in _C10D else None)
         if kind is not None:
+            n = _bytes(_tensors((args, kwargs))[0])
             self.collective_counts[kind] += 1
-            self.collective_bytes[kind] += _bytes(
-                _tensors((args, kwargs))[0])
+            self.collective_bytes[kind] += n
+            self._row(packet, outs, kind=kind, coll=n)
             return out
+        f = n = 0
         if packet in flop_registry:
             f = int(flop_registry[packet](*args, **kwargs, out_val=out))
             rec["flops"] += f
@@ -165,6 +205,7 @@ class CostCounter(TorchDispatchMode):
             n = sum(_bytes(t) for t in _tensors((args, kwargs)) + outs)
             rec["hbm_bytes"] += n
             self.hbm_bytes += n
+        self._row(packet, outs, f, n)
         return out
 
     def memory_analysis(self, outputs, arguments) -> dict:

@@ -44,6 +44,10 @@ DTensor's redistributions and the expert-parallel block issue (the
 reference reads them off the HLO), ``collective_s`` their bytes at one
 NVLink port's rate.
 
+``--save-hlo DIR`` writes each combination's op log (one line an op:
+its output shapes and dtype, FLOPs, bytes, live bytes after it, its
+collective) to ``DIR/{arch}_{shape}[_mp].ops.tsv``.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape prefill_32k
   python -m repro_torch.launch.dryrun --out results.json
@@ -55,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 import traceback
 from typing import Any
@@ -147,10 +152,12 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig,
         tokens
 
 
-def count_call(fn, arguments) -> tuple[CostCounter, Any, float]:
+def count_call(fn, arguments, log: bool = False
+               ) -> tuple[CostCounter, Any, float]:
     """(counter, output, seconds) of ``fn()`` run once under a
-    :class:`CostCounter` that holds ``arguments`` as the call's."""
-    counter = CostCounter()
+    :class:`CostCounter` that holds ``arguments`` as the call's (keeping
+    its op log with ``log``)."""
+    counter = CostCounter(log=log)
     counter.track(arguments)
     t0 = time.perf_counter()
     with counter:
@@ -247,13 +254,16 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
               capacity_factor: float | None = None,
               reduced: bool = False, mesh=None,
               seq_rule: bool = False,
-              kv_time_rule: bool = False) -> dict[str, Any]:
+              kv_time_rule: bool = False,
+              save_hlo: str | None = None) -> dict[str, Any]:
     """One (arch, shape) record. attn/chunked_head/remat/capacity_factor
     are the reference's knobs; ``reduced`` runs ``cfg.reduced()``.
     ``mesh`` (a ``DeviceMesh`` of a process group's ranks, as
     ``make_production_mesh`` gives under :func:`fake_world`) runs the
     sharded dry-run on it, with ``seq_rule`` and ``kv_time_rule``'s
-    rules; without one, the one-card dry-run."""
+    rules; without one, the one-card dry-run. ``save_hlo``: a path to
+    write the counter's op log to (``CostCounter.write_log``), the
+    port's stand-in for the reference's compiled HLO text."""
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
@@ -298,8 +308,11 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
                                     chunked_head=chunked_head,
                                     window=decode_window(cfg, shape),
                                     params=params, num_clients=num_clients)
-        counter, out, _ = count_call(call, arguments)
+        counter, out, _ = count_call(call, arguments,
+                                     log=save_hlo is not None)
     trace_s = time.perf_counter() - t0
+    if save_hlo is not None:
+        counter.write_log(save_hlo)
     cost = counter.summary()
 
     mf = model_flops(cfg, shape, model.params())
@@ -331,6 +344,13 @@ def run_combo(arch: str, shape_name: str, *, attn: str = "torch",
     return rec
 
 
+def op_log_name(arch: str, shape: str, multi_pod: bool) -> str:
+    """A combination's op log file: the reference's HLO stem
+    ``{arch}_{shape}[_mp]`` with the suffix ``.ops.tsv`` (it is not
+    HLO)."""
+    return f"{arch}_{shape}{'_mp' if multi_pod else ''}.ops.tsv"
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -360,6 +380,9 @@ def main(argv=None) -> list:
     ap.add_argument("--multi-pod", action="store_true",
                     help="use the 2x16x16 (512-rank) mesh")
     ap.add_argument("--out", default="", help="write JSON records here")
+    ap.add_argument("--save-hlo", default="",
+                    help="directory to write each combination's op log "
+                         "(the counter's rows, in place of compiled HLO)")
     ap.add_argument("--attn", default="torch",
                     choices=["torch", "blockwise"],
                     help="attention route (blockwise: key blocks "
@@ -388,9 +411,13 @@ def _run_all(args, mesh) -> list:
     archs = ASSIGNED if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
 
+    if args.save_hlo:
+        os.makedirs(args.save_hlo, exist_ok=True)
     records = []
     for arch in archs:
         for shape in shapes:
+            log_path = (os.path.join(args.save_hlo, op_log_name(
+                arch, shape, args.multi_pod)) if args.save_hlo else None)
             try:
                 r = run_combo(arch, shape, attn=args.attn,
                               chunked_head=args.chunked_head,
@@ -398,7 +425,8 @@ def _run_all(args, mesh) -> list:
                               capacity_factor=args.capacity_factor,
                               reduced=args.reduced, mesh=mesh,
                               seq_rule=args.seq_rule,
-                              kv_time_rule=args.kv_time_rule)
+                              kv_time_rule=args.kv_time_rule,
+                              save_hlo=log_path)
             except Exception as e:  # a failure here is a bug in the system
                 r = {"arch": arch, "shape": shape, "status": "error",
                      "multi_pod": args.multi_pod,

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from ..configs.base import ModelConfig
 from ..kernels.ref import recomputed, recording
-from ..sharding.ctx import shard_act
+from ..sharding.ctx import shard_act, sharded_matmul
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -106,7 +106,7 @@ class Norm(nn.Module):
 
 def dense_apply(w: torch.Tensor, b: torch.Tensor | None,
                 x: torch.Tensor) -> torch.Tensor:
-    y = x @ w.to(x.dtype)
+    y = sharded_matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -151,7 +151,7 @@ class MLP(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh")
         h = shard_act(h, ("batch", "seq", "ffn"))
-        return self.w_out(h)
+        return shard_act(self.w_out(h), ("batch", "seq", "embed"))
 
 
 # ------------------------------------------------------------------ RoPE
@@ -244,11 +244,14 @@ def logits_apply(cfg: ModelConfig, tok: dict,
                  x: torch.Tensor) -> torch.Tensor:
     """Logits (..., padded vocab) of hidden states ``x`` from the ``tok``
     weights (``embed``, and ``head`` when untied), the padded vocabulary
-    slots masked to -1e9 (probability 0 after a softmax)."""
+    slots masked to -1e9 (probability 0 after a softmax). Over a mesh
+    the weight is gathered to its vocab shard first
+    (:func:`..sharding.ctx.sharded_matmul`), so the logits and their
+    gradient stay split over the batch and the vocabulary."""
     if cfg.tie_embeddings:
-        logits = x @ tok["embed"].to(x.dtype).T
+        logits = sharded_matmul(x, tok["embed"].to(x.dtype).T)
     else:
-        logits = x @ tok["head"].to(x.dtype)
+        logits = sharded_matmul(x, tok["head"].to(x.dtype))
     logits = shard_act(logits, ("batch", "seq", "vocab"))
     v = cfg.padded_vocab
     if v != cfg.vocab_size:                 # mask padded vocab slots

@@ -29,8 +29,8 @@ Over a mesh (``sharding.ctx.use_mesh``) ``moe_block`` takes the
 expert-parallel :func:`moe_block_shard_map`, the reference's GShard-style
 path, where the mesh has a ``"model"`` axis that divides the experts and
 the batch divides the batch axes; otherwise the single-device block
-above, on DTensors replicated around its sort and scatters (GSPMD
-replicates that scatter too).
+above, each rank running its own batch rows with the whole call's
+routing and capacity (:func:`moe_block_pjit`).
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
 from ..sharding.ctx import current, shard_act
-from ..sharding.specs import distribute_full, mesh_shape, placements
+from ..sharding.specs import (all_reduce_over, distribute_full, mesh_block,
+                              mesh_shape, placements)
 from .layers import Dense, normal, pdtype_of
 
 
@@ -79,18 +80,29 @@ def capacity(cfg: ModelConfig, num_tokens: int) -> int:
 def route(cfg: ModelConfig, router_w: torch.Tensor, xt: torch.Tensor):
     """xt: (T, D) -> (top_p (T, k), top_i (T, k), aux (), probs (T, E)),
     all in float32."""
-    e, k = cfg.num_experts, cfg.experts_per_token
+    k = cfg.experts_per_token
     logits = xt.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    return top_p, top_i, aux_loss(cfg, *shares(cfg, top_i, probs)), probs
+
+
+def shares(cfg: ModelConfig, top_i: torch.Tensor, probs: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f_e, p_e), each (E,): the share of the (T, k) assignments routed
+    to each expert, and its mean router probability over the T tokens."""
     # one-hot by comparison: ``F.one_hot`` checks its values on the host,
     # which ``vmap`` (lmstep's client program) refuses
-    hot = top_i[..., None] == torch.arange(e, device=top_i.device)
-    f_e = hot.to(torch.float32).sum(1).mean(0)
-    p_e = probs.mean(0)
-    aux = e * (f_e * p_e).sum()
-    return top_p, top_i, aux, probs
+    hot = top_i[..., None] == torch.arange(cfg.num_experts,
+                                           device=top_i.device)
+    return hot.to(torch.float32).sum(1).mean(0), probs.mean(0)
+
+
+def aux_loss(cfg: ModelConfig, f_e: torch.Tensor, p_e: torch.Tensor
+             ) -> torch.Tensor:
+    """The Switch-style load-balancing loss ``E * sum_e f_e p_e``."""
+    return cfg.num_experts * (f_e * p_e).sum()
 
 
 def dispatch_indices(top_i: torch.Tensor):
@@ -187,38 +199,83 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor
     return moe_block_pjit(cfg, p, x)
 
 
-def _moe_local(cfg: ModelConfig, router_w, w_in, w_gate, w_out,
-               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    b, s, d = x.shape
-    cap = capacity(cfg, b * s)
-    xt = x.reshape(b * s, d)
-    top_p, top_i, aux, _ = route(cfg, router_w, xt)
-    row, kept = dispatch(cfg, top_i, cap)
-    buf = shard_act(scatter(xt, row, cfg.num_experts, cap),
-                    ("experts", "capacity", None))
-    y = shard_act(expert_products(w_in, w_gate, w_out, buf),
-                  ("experts", "capacity", None))
-    return combine(y, row, kept, top_p).reshape(b, s, d), aux
-
-
 def moe_block_pjit(cfg: ModelConfig, p: MoE, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The single-device block over the B * S tokens of the call
-    (capacity counted on them, as the reference's). On DTensors every
-    rank runs it whole on replicated inputs: its sort, ``searchsorted``
-    and index copies have no sharding rule, and the reference's GSPMD
-    replicates this scatter as well."""
+    (capacity counted on them, as the reference's). On a DTensor each
+    rank runs its own batch rows (:func:`_moe_rows`, one ``local_map``;
+    a batch not split over the mesh is one block, run whole on every
+    rank) with the call's routing and capacity: the same values as the
+    single-device block."""
     w = (p.router.w, p.w_in, p.w_gate, p.w_out)
     if not isinstance(x, DTensor):
-        out, aux = _moe_local(cfg, *w, x)
+        out, aux = _moe_rows(cfg, None, [], x, *w)
         return shard_act(out, ("batch", "seq", "embed")), aux
     mesh = x.device_mesh
     rep = (Replicate(),) * mesh.ndim
-    fn = local_map(lambda *a: _moe_local(cfg, *a),
-                   out_placements=(rep, rep), in_placements=(rep,) * 5,
+    x_in = tuple(q if q.is_shard(0) else Replicate() for q in x.placements)
+    rows = [i for i, q in enumerate(x_in) if q.is_shard(0)]
+    w_grad = tuple(Partial() if i in rows else Replicate()
+                   for i in range(mesh.ndim))
+    fn = local_map(lambda *a: _moe_rows(cfg, mesh, rows, *a),
+                   out_placements=(x_in, rep),
+                   in_placements=(x_in,) + (rep,) * 4,
+                   in_grad_placements=(x_in,) + (w_grad,) * 4,
                    device_mesh=mesh, redistribute_inputs=True)
-    out, aux = fn(*w, x)
+    out, aux = fn(x, *w)
     return shard_act(out, ("batch", "seq", "embed")), aux
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of each rank's tensor over mesh ``dims`` (an all-reduce),
+    for a value that every rank then uses alike; the backward passes each
+    rank's gradient on unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return all_reduce_over(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _sum_over(t: torch.Tensor, mesh, dims: list) -> torch.Tensor:
+    return _SumOverRanks.apply(t, mesh, dims) if dims else t
+
+
+def _moe_rows(cfg: ModelConfig, mesh, dims: list, xb: torch.Tensor,
+              router_w, w_in, w_gate, w_out
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's rows of :func:`moe_block_pjit` over a batch split on
+    mesh ``dims`` (none: the whole call, on one device or on every rank
+    alike): the rank routes its own tokens; the aux loss's per-expert
+    shares are averaged and every rank's expert ids gathered over the
+    ranks, so the dispatch, the capacity and what is dropped are the
+    whole call's; the rank writes its tokens into the (E, C, D) buffer,
+    which is summed over the ranks; every rank runs the experts on it
+    and combines its own tokens. The weights' gradients are partial sums
+    over ``dims``."""
+    b, s, d = xb.shape
+    k = cfg.experts_per_token
+    t_loc = b * s
+    ranks, block = mesh_block(mesh, dims)
+    cap = capacity(cfg, t_loc * ranks)
+    xt = xb.reshape(t_loc, d)
+    top_p, top_i, _, probs = route(cfg, router_w, xt)
+    f_e, p_e = (_sum_over(t, mesh, dims) / ranks
+                for t in shares(cfg, top_i, probs))
+    every = top_i
+    for i in reversed(dims):               # minor mesh dim first
+        every = funcol.wait_tensor(funcol.all_gather_tensor(
+            every, gather_dim=0, group=(mesh, i)))
+    row, kept = dispatch(cfg, every, cap)
+    own = slice(block * t_loc * k, (block + 1) * t_loc * k)
+    row, kept = row[own], kept[own]
+    buf = _sum_over(scatter(xt, row, cfg.num_experts, cap), mesh, dims)
+    y = expert_products(w_in, w_gate, w_out, buf)
+    return (combine(y, row, kept, top_p).reshape(b, s, d),
+            aux_loss(cfg, f_e, p_e))
 
 
 class _ScaleGrad(torch.autograd.Function):

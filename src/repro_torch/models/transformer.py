@@ -31,11 +31,9 @@ from typing import Any
 
 import torch
 import torch.nn as nn
-from torch.distributed.tensor import DTensor, Replicate
-from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
-from ..sharding.specs import distribute_full
+from ..sharding import vocab
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -216,32 +214,15 @@ def forward(model: Transformer, batch: dict, *,
 def token_nll(logits: torch.Tensor, targets: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(-log p(target), log p) at each position: the float32 log-softmax
-    of ``logits`` over the last axis, gathered at ``targets``."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return -_pick(logp, targets.long()), logp
-
-
-def _take_last(logp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.take_along_dim(logp, idx[..., None], dim=-1)[..., 0]
-
-
-def _pick(logp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``logp[..., idx]`` at each position. On DTensors each rank picks
-    from its own positions' whole rows (``local_map``): DTensor's own
-    gather backward builds its zeros at the global shape, replicated on
-    every rank (the full batch's logits, 637 GB a rank for qwen3-0.6b's
-    train_4k on the production mesh)."""
-    if not isinstance(logp, DTensor):
-        return _take_last(logp, idx)
-    mesh, last = logp.device_mesh, logp.ndim - 1
-    pl = tuple(q if q.is_shard() and not q.is_shard(last) else Replicate()
-               for q in logp.placements)
-    if not isinstance(idx, DTensor):
-        idx = distribute_full(idx, mesh, pl)
-    fn = local_map(_take_last, out_placements=list(pl),
-                   in_placements=(pl, pl), device_mesh=mesh,
-                   redistribute_inputs=True)
-    return fn(logp, idx)
+    of ``logits`` over the last axis, gathered at ``targets``. On
+    DTensors each rank picks from its own positions, and over
+    vocab-sharded logits both are vocab-parallel
+    (:mod:`..sharding.vocab`), log p keeping the logits' layout:
+    DTensor's own gather backward builds its zeros at the global shape
+    on every rank (637 GB a rank for qwen3-0.6b's train_4k on the
+    production mesh) and its softmax gathers the vocabulary."""
+    logp = vocab.log_softmax(logits)
+    return -vocab.pick(logp, targets.long()), logp
 
 
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, tokens: torch.Tensor,

@@ -23,6 +23,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 # logical axis -> preferred mesh axes (tried longest-prefix-first)
@@ -144,6 +145,27 @@ def tree_shardings(logical_tree, shape_tree, mesh, rules=None):
                     "a dict or a list")
 
 
+def mesh_block(mesh, dims: Sequence[int]) -> tuple[int, int]:
+    """(ranks, this rank's block) of a tensor dim split over mesh
+    ``dims``, major first: how many blocks, and which one this rank
+    holds (1, 0 over no dims, ``mesh`` then unused)."""
+    ranks, block = 1, 0
+    coord = mesh.get_coordinate() if dims else None
+    for i in dims:
+        ranks *= mesh.size(i)
+        block = block * mesh.size(i) + coord[i]
+    return ranks, block
+
+
+def all_reduce_over(t: torch.Tensor, op: str, mesh,
+                    dims: Sequence[int]) -> torch.Tensor:
+    """``t`` reduced (``op``: "sum", "max") over the ranks of mesh
+    ``dims``, one functional all-reduce a mesh dim; not differentiable."""
+    for i in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+    return t
+
+
 def _local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's block of ``t`` under ``placements``, mesh dim by mesh
     dim (a tensor dim over two mesh dims split by the first, then each
@@ -157,15 +179,20 @@ def _local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:
 
 def distribute_full(t: torch.Tensor, mesh, placements) -> DTensor:
     """A tensor that every rank holds whole and alike (the same seed,
-    the same draw) as a DTensor in ``placements``: each rank keeps its
-    block, with no collective (``distribute_tensor`` scatters from one
-    rank). Raises where a sharded dim does not split evenly."""
+    the same draw) as a DTensor in ``placements``: each rank keeps a
+    copy of its block, with no collective (``distribute_tensor`` scatters
+    from one rank), and so holds no more than its block once the whole
+    is dropped (a block that is a view, a slice along dim 0, would keep
+    the whole tensor's storage). A tensor no placement splits is kept as
+    it is. Raises where a sharded dim does not split evenly."""
     for i, pl in enumerate(placements):
         if pl.is_shard() and t.shape[pl.dim] % mesh.size(i):
             raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does not "
                              f"split over mesh dim {i} ({mesh.size(i)})")
     local = _local_block(t, mesh, placements)
-    return DTensor.from_local(local.contiguous(), mesh, placements,
+    local = (local.clone(memory_format=torch.contiguous_format)
+             if local.numel() < t.numel() else local.contiguous())
+    return DTensor.from_local(local, mesh, placements,
                               run_check=False, shape=t.shape,
                               stride=torch.empty(t.shape,
                                                  device="meta").stride())

@@ -55,6 +55,16 @@ def test_partition_and_stack_exact(images, case):
         tpart.partition("case9", y, 7, 5)
 
 
+@pytest.mark.parametrize("case", ["case1", "case2", "dirichlet"])
+def test_label_histogram_exact(images, case):
+    (_, y), _ = images
+    parts = tpart.partition(case, y, 7, 5, seed=2, beta=0.5)
+    got = tpart.label_histogram(y, parts, 5)
+    want = jpart.label_histogram(y, parts, 5)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 def test_device_pools_and_selectors_draw_the_same_cohorts():
     rng = np.random.default_rng(0)
     tp, jp = TPools(30, eps=0.6, seed=4), JPools(30, eps=0.6, seed=4)

@@ -20,6 +20,7 @@ from repro_torch.core import judgment as tjud
 from repro_torch.fl import MaxEntropyJudge
 
 ENT_ATOL = 1e-5
+SOFT_ATOL = 1e-6      # soft_label: float32 softmax means, two frameworks
 
 
 def _case(m, c, seed, concentration=0.3):
@@ -61,6 +62,19 @@ def test_entropy_functions_match():
     np.testing.assert_allclose(
         float(tent.group_entropy(_t(p), _t(sizes), _t(zero))),
         float(jent.group_entropy(_j(p), _j(sizes), _j(zero))), atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_soft_label_matches_reference(seed):
+    """Eq. 2's soft label: the numpy oracle exactly, the torch one within
+    SOFT_ATOL of the reference's ``jax.nn.softmax`` mean."""
+    logits = (3 * np.random.default_rng(seed).standard_normal(
+        (37, 10))).astype(np.float32)
+    np.testing.assert_array_equal(tent.soft_label_np(logits),
+                                  jent.soft_label_np(logits))
+    got = tent.soft_label(torch.from_numpy(logits)).numpy()
+    want = np.asarray(jent.soft_label(jnp.asarray(logits)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=SOFT_ATOL)
 
 
 @pytest.mark.parametrize("seed", range(12))

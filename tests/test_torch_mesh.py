@@ -21,7 +21,23 @@ computes the reference's one-device steps while they run:
   on a (2, 2) JAX mesh: kept assignments exact, outputs and gradients
   within ``MOE_RTOL``;
 * ``train.main --engine mesh`` on 2 ranks: rank 0 prints the one-rank
-  run's lines, the masks equal.
+  run's lines, the masks equal;
+* qwen3-0.6b reduced on (1, 4), where "model" splits the 4 query heads
+  but not the 2 kv heads: 2 steps against the reference's one-device
+  step; the microbatched step (2 microbatches, 2 steps) on (4, 1) and
+  (2, 2) against the reference's ``make_microbatched_train_step`` on one
+  device (masks exact, loss within ``MICRO_LOSS_RTOL``, params within
+  ``MICRO_PARAM_ATOL``);
+* ``sharding.vocab``'s softmax, log-softmax, pick and the pick's
+  gradient over vocab-sharded logits on (1, 4) and (2, 2) against
+  ``torch.softmax``, ``torch.log_softmax`` and plain autograd on the
+  whole logits, within ``VOCAB_RTOL``;
+* ``sharding.ctx.attention_on_ranks`` through ``mha_reference`` and
+  ``mha_blockwise`` on (1, 4) and (2, 2), each layout of the worker's
+  ``attention_layouts`` (the query heads with tensor positions, the
+  sequence, the keys of a one-token query): the output and the
+  gradients against the same function on plain tensors, within
+  ``ATTN_RTOL``; the keys layout refuses autograd.
 
 Masks and ``num_positive`` are exact; the entropy within 8 float32
 spacings (ROADMAP F8's rule); loss, ``grad_norm`` and each parameter leaf
@@ -57,6 +73,15 @@ ENT_SPACINGS = 8
 MOE_RTOL = 1e-5        # moe block outputs and gradients, of their max
 LR = 0.1
 M, PER, SEQ = 8, 2, 17
+MICRO = 2              # microbatches of the microbatched step
+# the microbatched step against the reference's one-device one, as
+# tests/test_distributed_mesh.py holds the reference's against its
+# fused step
+MICRO_LOSS_RTOL, MICRO_PARAM_ATOL = 1e-5, 5e-6
+VOCAB_RTOL = 1e-6      # vocab-parallel softmax against torch's
+VOCAB_SHAPE = (4, 5, 64)
+ATTN_RTOL = 1e-5       # attention on ranks against the plain function
+ATTN_LAYOUTS = ["heads", "seq", "seq_blockwise", "keys"]
 FAMILIES = ["mamba2-130m", "zamba2-2.7b", "internvl2-1b",
             "whisper-large-v3"]
 MOE = "qwen3-moe-235b-a22b"
@@ -73,6 +98,16 @@ CASES = [
     # no "model" axis: moe_block runs its single-device block, replicated
     {"name": "moe-4", "arch": MOE, "mesh": [4], "layout": "logical",
      "steps": 1},
+    # "model" divides the 4 query heads and the vocabulary, not the 2 kv
+    # heads: attention split over the query heads, the vocab-parallel
+    # softmax, the head's FSDP product
+    {"name": "qwen3-1x4", "arch": "qwen3-0.6b", "mesh": [1, 4],
+     "layout": "logical", "steps": 2},
+    *[{"name": f"qwen3-micro-{a}x{b}", "arch": "qwen3-0.6b",
+       "mesh": [a, b], "layout": "logical", "steps": 2, "micro": MICRO}
+      for a, b in ((4, 1), (2, 2))],
+    {"name": "vocab", "kind": "vocab", "meshes": [[1, 4], [2, 2]]},
+    {"name": "attention", "kind": "attention", "meshes": [[1, 4], [2, 2]]},
 ]
 TRAIN_ARGV = ["--engine", "mesh", "--device", "cpu", "--reduced",
               "--steps", "3", "--clients", "4", "--logical-clients", "8",
@@ -223,6 +258,23 @@ def runs(tmp_path_factory):
             moe_in[f"x_{c}"].shape).astype(np.float32)
         inputs[f"moe/x_{c}"] = moe_in[f"x_{c}"]
         inputs[f"moe/r_{c}"] = moe_in[f"r_{c}"]
+    inputs["vocab/x"] = (3 * rng.standard_normal(VOCAB_SHAPE)).astype(
+        np.float32)
+    inputs["vocab/t"] = rng.integers(0, VOCAB_SHAPE[-1],
+                                     VOCAB_SHAPE[:2]).astype(np.int64)
+    inputs["vocab/r"] = rng.standard_normal(VOCAB_SHAPE[:2]).astype(
+        np.float32)
+    # attention: (4, 8) queries of 4 heads of 8 against 2 kv heads; a
+    # one-token query; positions per row, some kv slots empty (-1)
+    for n, shape in (("q", (4, 8, 4, 8)), ("q1", (4, 1, 4, 8)),
+                     ("k", (4, 8, 2, 8)), ("v", (4, 8, 2, 8)),
+                     ("r", (4, 8, 4, 8))):
+        inputs[f"attn/{n}"] = rng.standard_normal(shape).astype(np.float32)
+    kv_pos = np.tile(np.arange(8), (4, 1))
+    kv_pos[rng.random((4, 8)) < 0.25] = -1
+    inputs["attn/kv_pos"] = kv_pos.astype(np.int64)
+    inputs["attn/q_offset"] = rng.integers(0, 4, 4).astype(np.int64)
+    inputs["attn/q1_offset"] = rng.integers(4, 8, 4).astype(np.int64)
     np.savez(tmp / "inputs.npz", **inputs)
     np.savez(tmp / "moe_in.npz", tokens=inputs[f"{MOE}/batch/tokens"],
              **moe_in)
@@ -245,13 +297,17 @@ def runs(tmp_path_factory):
     try:
         # the reference's one-device steps while the ranks run
         for c in CASES:
-            a = c["arch"]
-            if c["name"] == "moe-2x2" or (a, c["steps"]) in ref:
+            if c.get("kind") or c["name"] == "moe-2x2":
+                continue
+            a, micro = c["arch"], c.get("micro", 0)
+            if (a, c["steps"], micro) in ref:
                 continue
             jm, p = jparams[a]
             opt = jsgd(lr=LR, momentum=0.5)
-            step = jax.jit(jdist.make_train_step(jm, opt,
-                                                 jdist.FedSpec(num_clients=M)))
+            fed = jdist.FedSpec(num_clients=M)
+            step = jax.jit(
+                jdist.make_microbatched_train_step(jm, opt, fed, micro)
+                if micro else jdist.make_train_step(jm, opt, fed))
             batch = {k.split("/", 2)[2]: jnp.asarray(v)
                      for k, v in inputs.items()
                      if k.startswith(f"{a}/batch/")}
@@ -259,7 +315,8 @@ def runs(tmp_path_factory):
             for _ in range(c["steps"]):
                 p, s, met = step(p, s, batch)
                 mets.append(jax.tree.map(np.asarray, met))
-            ref[(a, c["steps"])] = (mets, jax.tree.map(np.asarray, p))
+            ref[(a, c["steps"], micro)] = (mets,
+                                           jax.tree.map(np.asarray, p))
         one_rank = train.main(TRAIN_ARGV)
         _join(steps, deadline, "step")
         trainers = _ranks(2, str(tmp / "train"), {
@@ -276,7 +333,7 @@ def runs(tmp_path_factory):
             jax_moe.wait()
     got = {c["name"]: dict(np.load(tmp / "steps" / f"{c['name']}.npz"))
            for c in CASES}
-    return {"cfgs": cfgs, "ref": ref, "got": got,
+    return {"cfgs": cfgs, "ref": ref, "got": got, "inputs": inputs,
             "jax_moe": dict(np.load(tmp / "jax_moe.npz")),
             "one_rank": one_rank,
             "ranks": json.loads((tmp / "train" /
@@ -321,10 +378,10 @@ def _hold_params(cfg, got: dict, want_tree) -> None:
             assert _rel(g, w.numpy()) <= RTOL, k
 
 
-@pytest.mark.parametrize("name", ["qwen3-4x1", "qwen3-2x2"])
+@pytest.mark.parametrize("name", ["qwen3-4x1", "qwen3-2x2", "qwen3-1x4"])
 def test_qwen3_two_steps_match_reference(runs, name):
     got = runs["got"][name]
-    mets, p = runs["ref"][("qwen3-0.6b", 2)]
+    mets, p = runs["ref"][("qwen3-0.6b", 2, 0)]
     _hold_metrics(got, mets, 2)
     assert sum(M - int(m["num_positive"]) for m in mets) > 0
     _hold_params(runs["cfgs"]["qwen3-0.6b"], got, p)
@@ -333,7 +390,7 @@ def test_qwen3_two_steps_match_reference(runs, name):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_step_on_2x2_matches_reference(runs, arch):
     got = runs["got"][f"{arch}-2x2"]
-    mets, p = runs["ref"][(arch, 1)]
+    mets, p = runs["ref"][(arch, 1, 0)]
     _hold_metrics(got, mets, 1)
     _hold_params(runs["cfgs"][arch], got, p)
 
@@ -359,10 +416,51 @@ def test_moe_step_without_a_model_axis_matches_reference(runs):
     """On a (4,) "data" mesh moe_block takes the single-device block on
     replicated inputs: the reference's one-device step."""
     got = runs["got"]["moe-4"]
-    mets, p = runs["ref"][(MOE, 1)]
+    mets, p = runs["ref"][(MOE, 1, 0)]
     _hold_metrics(got, mets, 1)
     assert _rel(got["step0/aux_loss"], mets[0]["aux_loss"]) <= RTOL
     _hold_params(runs["cfgs"][MOE], got, p)
+
+
+@pytest.mark.parametrize("name", ["qwen3-micro-4x1", "qwen3-micro-2x2"])
+def test_microbatched_step_matches_reference(runs, name):
+    """The microbatched step under a mesh (2 microbatches, each client's
+    rows on their "data" shard, the accumulators placed like the params)
+    against the reference's one-device microbatched step: masks exact,
+    loss within MICRO_LOSS_RTOL, every param within MICRO_PARAM_ATOL."""
+    got = runs["got"][name]
+    mets, p = runs["ref"][("qwen3-0.6b", 2, MICRO)]
+    for it, w in enumerate(mets):
+        np.testing.assert_array_equal(got[f"step{it}/mask"], w["mask"])
+        assert int(got[f"step{it}/num_positive"]) == int(w["num_positive"])
+        assert _rel(got[f"step{it}/loss"], w["loss"]) <= MICRO_LOSS_RTOL
+    assert sum(M - int(m["num_positive"]) for m in mets) > 0
+    want = lm_params_from_numpy(runs["cfgs"]["qwen3-0.6b"], p)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[f"param/{k}"], w.numpy(), rtol=0,
+                                   atol=MICRO_PARAM_ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_vocab_parallel_softmax_matches_torch(runs, mesh):
+    """Over logits whose vocabulary is split over "model" (4 or 2 ranks):
+    softmax and log-softmax against torch's on the whole logits, the pick
+    and its gradient against plain autograd, within VOCAB_RTOL of each
+    one's max."""
+    import torch
+    got = runs["got"]["vocab"]
+    assert got[f"{mesh}/vocab_ranks"].prod() > 1
+    x = torch.from_numpy(runs["inputs"]["vocab/x"]).requires_grad_(True)
+    t = torch.from_numpy(runs["inputs"]["vocab/t"])
+    r = torch.from_numpy(runs["inputs"]["vocab/r"])
+    logp = torch.log_softmax(x, dim=-1)
+    picked = torch.take_along_dim(logp, t[..., None], dim=-1)[..., 0]
+    grad, = torch.autograd.grad((picked * r).sum(), [x])
+    want = {"softmax": torch.softmax(x, dim=-1), "log_softmax": logp,
+            "pick": picked, "grad": grad}
+    for key, w in want.items():
+        assert _rel(got[f"{mesh}/{key}"], w.detach().numpy()) <= \
+            VOCAB_RTOL, key
 
 
 @pytest.mark.parametrize("case", ["c1", "c3"])
@@ -402,3 +500,29 @@ def test_weights_level_engine_refuses_several_ranks(monkeypatch):
     with pytest.raises(SystemExit, match="single controller"):
         train.main(["--engine", "sequential", "--device", "cpu",
                     "--reduced"])
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+@pytest.mark.parametrize("layout", ATTN_LAYOUTS)
+def test_attention_on_ranks_matches_plain(runs, mesh, layout):
+    """Attention run on each rank's block (``attention_on_ranks``)
+    against the same function on the whole plain tensors: the output,
+    and the gradients of sum(out * r) where the layout takes them,
+    within ATTN_RTOL of each one's max; the keys layout, forward only,
+    raises where autograd records."""
+    import torch
+    from _torch_mesh_worker import attention_layouts
+    got = runs["got"]["attention"]
+    a = {k.split("/", 1)[1]: torch.from_numpy(v)
+         for k, v in runs["inputs"].items() if k.startswith("attn/")}
+    fn, q, _, _, kw, grad = attention_layouts(a)[layout]
+    key = f"{mesh}/{layout}"
+    ins = [t.clone().requires_grad_(grad) for t in (q, a["k"], a["v"])]
+    out = fn(*ins, causal=True, **kw)
+    assert _rel(got[f"{key}/out"], out.detach().numpy()) <= ATTN_RTOL
+    if not grad:
+        assert bool(got[f"{key}/raises"])
+        return
+    grads = torch.autograd.grad((out * a["r"][:, :q.shape[1]]).sum(), ins)
+    for n, g in zip("qkv", grads):
+        assert _rel(got[f"{key}/grad_{n}"], g.numpy()) <= ATTN_RTOL, n

@@ -17,8 +17,9 @@ replaced, one config a family (dense, moe, ssm, hybrid, vlm, encdec).
   and inputs: a ``"full"`` model gives ``"none"``'s records
   (``tests/test_torch_recompute.py`` holds every family and the memory).
 * ``make_train_step(..., donate=True)`` (the mesh engine's, the
-  reference's ``donate_argnums``) equals the undonated step bit for bit
-  and returns the tensors it was given.
+  reference's ``donate_argnums``) and
+  ``make_microbatched_train_step(..., donate=True)`` equal their
+  undonated steps bit for bit and return the tensors they were given.
 """
 from _torch_threads import capped_threads  # noqa: F401 (autouse)
 import jax
@@ -188,6 +189,21 @@ def test_lmstep_with_remat_full_equals_none(family, fam):
                                  adamw(lr=1e-2, weight_decay=0.1)],
                          ids=["sgd", "adamw"])
 def test_donated_step_equals_undonated(family, opt):
+    _hold_donation(family, opt, tdist.make_train_step)
+
+
+@pytest.mark.parametrize("opt", [sgd(lr=0.1, momentum=0.5),
+                                 adamw(lr=1e-2, weight_decay=0.1)],
+                         ids=["sgd", "adamw"])
+def test_donated_microbatched_step_equals_undonated(family, opt):
+    _hold_donation(family, opt, lambda *a, **kw: (
+        tdist.make_microbatched_train_step(*a, 2, **kw)))
+
+
+def _hold_donation(family, opt, make_step) -> None:
+    """Two steps of ``make_step(model, opt, fed, donate=True)`` on the
+    moe family: the params and optimizer state it returns are the
+    tensors it was given, and equal the undonated step's bit for bit."""
     _, state, cfg, batch = family("moe")
     model = _model(cfg, state, "full")
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -196,12 +212,12 @@ def test_donated_step_equals_undonated(family, opt):
     state0 = opt.init(params)
     want = (params, state0)
     for _ in range(2):
-        want = tdist.make_train_step(model, opt, fed)(*want, tb)[:2]
+        want = make_step(model, opt, fed)(*want, tb)[:2]
     given = ({k: v.clone() for k, v in params.items()},
              {n: ({k: v.clone() for k, v in s.items()}
                   if isinstance(s, dict) else s.clone())
               for n, s in state0.items()})
-    step = tdist.make_train_step(model, opt, fed, donate=True)
+    step = make_step(model, opt, fed, donate=True)
     got = given
     for _ in range(2):
         got = step(*got, tb)[:2]

@@ -13,10 +13,10 @@ on a mesh of ``Auto`` axes (the installed JAX makes meshes of
 ``shard_act`` cannot call), and the port's ``launch.dryrun.run_combo``
 on 512 ``"fake"`` ranks. Prints each package's per-device argument and
 peak bytes (``memory_analysis``: the argument bytes, and the temp bytes
-above them), the argument bytes by group (params, optimizer state,
-batch) from each leaf's per-device shape, and every leaf whose
-per-device shape differs between the two, with both shapes. Last line:
-one JSON object of the same.
+above them), the product FLOPs a device, the argument bytes by group
+(params, optimizer state, batch) from each leaf's per-device shape,
+and every leaf whose per-device shape differs between the two, with
+both shapes. Last line: one JSON object of the same.
 """
 import argparse
 import json
@@ -73,6 +73,7 @@ for group, (tree, shardings) in groups.items():
         leaves[name] = [list(sh.shard_shape(leaf.shape)),
                         np.dtype(leaf.dtype).itemsize]
 print(json.dumps({"memory_analysis": rec["memory_analysis"],
+                  "hlo_flops_per_device": rec["hlo_flops_per_device"],
                   "leaves": leaves}))
 """
 
@@ -97,9 +98,9 @@ def port(arch: str, shape: str, size: str) -> dict:
     captured = {}
     count_call = dryrun.count_call
 
-    def keep(fn, arguments):
+    def keep(fn, arguments, **kw):
         captured["arguments"] = arguments
-        return count_call(fn, arguments)
+        return count_call(fn, arguments, **kw)
 
     dryrun.count_call = keep
     try:
@@ -124,7 +125,9 @@ def port(arch: str, shape: str, size: str) -> dict:
     finally:
         dryrun.count_call = count_call
     assert rec["status"] == "ok", rec
-    return {"memory_analysis": rec["memory_analysis"], "leaves": leaves}
+    return {"memory_analysis": rec["memory_analysis"],
+            "hlo_flops_per_device": rec["hlo_flops_per_device"],
+            "leaves": leaves}
 
 
 def _by_group(leaves: dict) -> dict:
@@ -161,7 +164,8 @@ def main(argv=None) -> dict:
         mem = rec["memory_analysis"]
         out[name] = {"argument_bytes": mem["argument_size_in_bytes"],
                      "peak_above_arguments_bytes": mem["temp_size_in_bytes"],
-                     "argument_bytes_by_group": _by_group(rec["leaves"])}
+                     "argument_bytes_by_group": _by_group(rec["leaves"]),
+                     "flops_per_device": rec["hlo_flops_per_device"]}
         print(f"{name}: {json.dumps(out[name])}")
     want = {_key(k)[0]: v for k, v in ref["leaves"].items()}
     differ, seen = {}, set()
